@@ -1,0 +1,1 @@
+"""gmpi_tpu_torch.models — see the package docstring."""

@@ -1,0 +1,398 @@
+"""MPI generator — StyleGAN2 backbone whose toRGB path emits multiplane images
+(port of ``gmpi_tpu/models/generator.py``).
+
+Static architecture choices live in the same frozen dataclass configs as in
+the JAX package (``GeneratorCfg`` -> ``SynthesisNetworkCfg`` ->
+``SynthesisBlockCfg``); the networks are ``nn.Module``s built from them:
+``Generator(cfg)`` holds ``mapping`` and ``synthesis`` (blocks ``b4`` ...
+``b{res}``), with state-dict keys equal to the JAX param-tree paths.
+
+This slice ports the paper preset's path: ``cond_mode`` ``normalize_add_z``
+(and ``add_z``), ``embed_func`` ``modulated_<act>``, the separately
+synthesized background built from the shared RGB, ``only_alpha``, const or
+random noise, truncation.  Blocks at the top ``num_bf16_res`` resolutions run
+in bfloat16; the MPI accumulator and output stay float32.  The other
+conditioning modes and embeddings raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from gmpi_tpu_torch.models.layers import (
+    FLOATING_EPS,
+    FullyConnected,
+    SynthesisLayer,
+    ToRGB,
+    ToRGBDeeperModulated,
+    instance_mean_std,
+    normalize_2nd_moment,
+)
+from gmpi_tpu_torch.ops.upfirdn2d import setup_filter, upsample2d
+
+PORTED_COND_MODES = ("add_z", "normalize_add_z")
+
+
+def pos_enc_dim(multires: int) -> int:
+    return 1 + 2 * multires
+
+
+def apply_pos_enc(x: torch.Tensor, multires: int) -> torch.Tensor:
+    """NeRF positional encoding along the last axis (identity for 0)."""
+    if multires == 0:
+        return x
+    outs = [x]
+    for k in range(multires):
+        outs += [torch.sin(x * 2.0**k), torch.cos(x * 2.0**k)]
+    return torch.cat(outs, dim=-1)
+
+
+class MappingNetwork(nn.Module):
+    """z -> broadcast w's (``c`` is accepted for the JAX signature; label
+    conditioning is not ported)."""
+
+    def __init__(self, z_dim: int, c_dim: int, w_dim: int, num_ws: int, num_layers: int = 8,
+                 lr_multiplier: float = 0.01, w_avg_beta: float = 0.995,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if c_dim > 0:
+            raise NotImplementedError("label conditioning (c_dim > 0) is not ported yet")
+        self.z_dim, self.w_dim = z_dim, w_dim
+        self.num_ws, self.num_layers, self.w_avg_beta = num_ws, num_layers, w_avg_beta
+        feats = [z_dim] + [w_dim] * num_layers
+        for i in range(num_layers):
+            setattr(self, f"fc{i}", FullyConnected(feats[i], feats[i + 1], activation="lrelu",
+                                                   lr_multiplier=lr_multiplier,
+                                                   generator=generator))
+        self.register_buffer("w_avg", torch.zeros(w_dim))
+
+    def forward(self, z: torch.Tensor, c: Optional[torch.Tensor] = None,
+                truncation_psi: float = 1.0, truncation_cutoff: Optional[int] = None
+                ) -> torch.Tensor:
+        if c is not None:
+            raise NotImplementedError("label conditioning is not ported yet")
+        x = normalize_2nd_moment(z.to(torch.float32))
+        for i in range(self.num_layers):
+            x = getattr(self, f"fc{i}")(x)
+        ws = x[:, None, :].expand(x.shape[0], self.num_ws, self.w_dim)
+        if truncation_psi != 1.0:
+            if truncation_cutoff is None:
+                ws = self.w_avg + truncation_psi * (ws - self.w_avg)
+            else:
+                trunc = self.w_avg + truncation_psi * (ws[:, :truncation_cutoff] - self.w_avg)
+                ws = torch.cat([trunc, ws[:, truncation_cutoff:]], dim=1)
+        return ws
+
+
+@dataclasses.dataclass(frozen=True)
+class SynthesisBlockCfg:
+    in_channels: int  # 0 = first block (learned const input)
+    out_channels: int
+    w_dim: int
+    resolution: int
+    is_last: bool
+    use_bf16: bool = False
+    architecture: str = "skip"
+    resample_filter: Tuple[int, ...] = (1, 3, 3, 1)
+    conv_clamp: Optional[float] = None
+    pos_enc_multires: int = 0
+    cond_mode: str = "normalize_add_z"
+    embed_func: str = "modulated_lrelu"
+    sep_background: bool = True
+    build_bg_from_rgb: bool = True
+    bg_ratio: float = 0.05
+    only_alpha: bool = True
+    gen_alpha_largest_res: int = 256
+    img_channels: int = 4
+    n_planes_train: int = 32
+
+    @property
+    def gen_alpha_this_res(self) -> bool:
+        return self.gen_alpha_largest_res >= self.resolution
+
+    @property
+    def num_conv(self) -> int:
+        return 1 if self.in_channels == 0 else 2
+
+    @property
+    def num_torgb(self) -> int:
+        return 1
+
+
+class SynthesisBlock(nn.Module):
+    """One resolution of the skip-architecture trunk plus its MPI head."""
+
+    def __init__(self, cfg: SynthesisBlockCfg, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if cfg.cond_mode not in PORTED_COND_MODES:
+            raise NotImplementedError(f"cond_mode={cfg.cond_mode!r} is not ported yet")
+        if not cfg.embed_func.startswith("modulated"):
+            raise NotImplementedError(f"embed_func={cfg.embed_func!r} is not ported yet")
+        if not cfg.only_alpha:
+            raise NotImplementedError("only_alpha=False (torgba head) is not ported yet")
+        if cfg.sep_background and not cfg.build_bg_from_rgb:
+            raise NotImplementedError("sep_background needs build_bg_from_rgb")
+        self.cfg = cfg
+        g = generator
+        c, res = cfg.out_channels, cfg.resolution
+        if cfg.in_channels == 0:
+            self.const = nn.Parameter(torch.randn((c, res, res), generator=g))
+        else:
+            self.conv0 = SynthesisLayer(cfg.in_channels, c, cfg.w_dim, res, up=2,
+                                        resample_filter=cfg.resample_filter,
+                                        conv_clamp=cfg.conv_clamp, generator=g)
+        self.conv1 = SynthesisLayer(c, c, cfg.w_dim, res, conv_clamp=cfg.conv_clamp, generator=g)
+        if cfg.gen_alpha_this_res:
+            act = cfg.embed_func.split("_")[1]
+            self.pos_enc_embed = ToRGBDeeperModulated(
+                pos_enc_dim(cfg.pos_enc_multires), c, cfg.w_dim, (c // 4, c // 2, c),
+                conv_clamp=cfg.conv_clamp, act_name=act, generator=g)
+        self.torgb = ToRGB(c, 3, cfg.w_dim, conv_clamp=cfg.conv_clamp, generator=g)
+        if cfg.gen_alpha_this_res:
+            self.toalpha = ToRGB(c, 1, cfg.w_dim, conv_clamp=cfg.conv_clamp, generator=g)
+        self.register_buffer("resample_filter",
+                             torch.from_numpy(setup_filter(list(cfg.resample_filter))),
+                             persistent=False)
+
+    def _embed_z(self, z_vals: torch.Tensor, w: torch.Tensor, bs: int, n_planes: int
+                 ) -> torch.Tensor:
+        """Per-plane depth embedding -> ``[bs * L, C, 1, 1]``."""
+        enc = apply_pos_enc(z_vals.reshape(n_planes, 1), self.cfg.pos_enc_multires)
+        inp = enc[None].expand(bs, n_planes, enc.shape[-1]).reshape(bs * n_planes, -1, 1, 1)
+        return self.pos_enc_embed(inp, w, splitted=True, n_planes=n_planes)
+
+    def _background_feature(self, x: torch.Tensor) -> torch.Tensor:
+        """Linearly interpolate between the boundary columns of the (detached)
+        feature map."""
+        res = self.cfg.resolution
+        xd = x.detach()
+        pad = max(1, int(np.floor(self.cfg.bg_ratio * res)))
+        start, end = pad, res - pad
+        left, right = xd[:, :, :, :pad], xd[:, :, :, res - pad:]
+        if start < end:
+            cols = torch.arange(start, end, dtype=torch.float32, device=x.device).reshape(1, 1, 1, -1)
+            ratios = (cols - start) / (end - start + FLOATING_EPS)
+            lf = xd[:, :, :, start:start + 1]
+            rf = xd[:, :, :, end - 1:end]
+            mid = (1.0 - ratios) * lf + ratios * rf
+            # mid is float32 (ratios promote it), so a bf16 block builds its
+            # background feature in float32, as the JAX package does
+            return torch.cat([left.to(mid.dtype), mid, right.to(mid.dtype)], dim=3)
+        return torch.cat([left, right], dim=3)
+
+    def forward(self, x: Optional[torch.Tensor], img: Optional[torch.Tensor],
+                block_ws: torch.Tensor, xyz: Optional[torch.Tensor], n_planes: int,
+                noise_mode: str = "const", generator: Optional[torch.Generator] = None,
+                foreground_only: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``foreground_only`` disables the background path: every plane slot
+        is foreground (shared RGB + depth-conditioned alpha)."""
+        cfg = self.cfg
+        bs, res = block_ws.shape[0], cfg.resolution
+        dtype = torch.bfloat16 if cfg.use_bf16 else torch.float32
+        sep_background = cfg.sep_background and not foreground_only
+
+        if cfg.in_channels == 0:
+            x = self.const.to(dtype)[None].expand(bs, cfg.out_channels, res, res)
+            w_conv1 = block_ws[:, 0]
+            x = self.conv1(x, w_conv1, noise_mode, generator)
+            w_idx = 1
+        else:
+            x = self.conv0(x.to(dtype), block_ws[:, 0], noise_mode, generator)
+            w_conv1 = block_ws[:, 1]
+            x = self.conv1(x, w_conv1, noise_mode, generator)
+            w_idx = 2
+
+        if img is not None:
+            img = upsample2d(img, self.resample_filter)
+        w_rgba = block_ws[:, w_idx]
+
+        cond_x = None
+        if cfg.gen_alpha_this_res:
+            assert xyz is not None, "conditioning coordinates required at alpha resolutions"
+            xyz = xyz.to(torch.float32)
+            z_vals = xyz[:, 0, 0, 2] if xyz.ndim == 4 else xyz.reshape(n_planes)
+            embeds = self._embed_z(z_vals.to(dtype), w_conv1, bs, n_planes)
+            cond_x = x
+            if cfg.cond_mode == "normalize_add_z":
+                mean, std = instance_mean_std(cond_x.to(torch.float32))
+                cond_x = ((cond_x.to(torch.float32) - mean) / (std + FLOATING_EPS)).to(dtype)
+            cond_x = cond_x[:, None].expand(bs, n_planes, *cond_x.shape[1:]).reshape(
+                bs * n_planes, -1, res, res)
+            cond_x = cond_x + embeds.to(dtype)
+
+        background = None
+        if sep_background:
+            background = self.torgb(self._background_feature(x), w_rgba)
+        single_rgb = self.torgb(x, w_rgba)  # [bs, 3, res, res]
+        if sep_background:
+            fg = single_rgb[:, None].expand(bs, n_planes - 1, 3, res, res)
+            cur_rgb = torch.cat([fg.to(background.dtype), background[:, None]], dim=1)
+        else:
+            cur_rgb = single_rgb[:, None].expand(bs, n_planes, 3, res, res)
+        cur_rgb = cur_rgb.reshape(bs * n_planes, 3, res, res)
+        if cfg.gen_alpha_this_res:
+            cur_alpha = self.toalpha(cond_x, w_rgba, splitted=True, n_planes=n_planes)
+        else:
+            cur_alpha = torch.zeros((bs * n_planes, 1, res, res), dtype=cur_rgb.dtype,
+                                    device=cur_rgb.device)
+        y = torch.cat([cur_rgb, cur_alpha.to(cur_rgb.dtype)], dim=1)
+        y = y.reshape(bs, n_planes * cfg.img_channels, res, res).to(torch.float32)
+        img = img + y if img is not None else y
+        return x, img
+
+
+@dataclasses.dataclass(frozen=True)
+class SynthesisNetworkCfg:
+    w_dim: int
+    img_resolution: int
+    channel_base: int = 32768
+    channel_max: int = 512
+    num_bf16_res: int = 0
+    conv_clamp: Optional[float] = None
+    pos_enc_multires: int = 0
+    cond_mode: str = "normalize_add_z"
+    embed_func: str = "modulated_lrelu"
+    sep_background: bool = True
+    build_bg_from_rgb: bool = True
+    bg_ratio: float = 0.05
+    only_alpha: bool = True
+    gen_alpha_largest_res: int = 256
+    n_planes_train: int = 32
+
+    @property
+    def block_resolutions(self):
+        return [2**i for i in range(2, int(np.log2(self.img_resolution)) + 1)]
+
+    def channels(self, res: int) -> int:
+        return min(self.channel_base // res, self.channel_max)
+
+    @property
+    def bf16_resolution(self) -> int:
+        return max(2 ** (int(np.log2(self.img_resolution)) + 1 - self.num_bf16_res), 8)
+
+    def block_cfg(self, res: int) -> SynthesisBlockCfg:
+        return SynthesisBlockCfg(
+            in_channels=self.channels(res // 2) if res > 4 else 0,
+            out_channels=self.channels(res),
+            w_dim=self.w_dim,
+            resolution=res,
+            is_last=(res == self.img_resolution),
+            use_bf16=(self.num_bf16_res > 0 and res >= self.bf16_resolution),
+            conv_clamp=self.conv_clamp,
+            pos_enc_multires=self.pos_enc_multires,
+            cond_mode=self.cond_mode,
+            embed_func=self.embed_func,
+            sep_background=self.sep_background,
+            build_bg_from_rgb=self.build_bg_from_rgb,
+            bg_ratio=self.bg_ratio,
+            only_alpha=self.only_alpha,
+            gen_alpha_largest_res=self.gen_alpha_largest_res,
+            n_planes_train=self.n_planes_train,
+        )
+
+    @property
+    def num_ws(self) -> int:
+        n = 0
+        for res in self.block_resolutions:
+            b = self.block_cfg(res)
+            n += b.num_conv + (b.num_torgb if b.is_last else 0)
+        return n
+
+
+class SynthesisNetwork(nn.Module):
+    def __init__(self, cfg: SynthesisNetworkCfg, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.cfg = cfg
+        for res in cfg.block_resolutions:
+            setattr(self, f"b{res}", SynthesisBlock(cfg.block_cfg(res), generator=generator))
+
+    def forward(self, ws: torch.Tensor, xyz_dict: Optional[Dict[int, torch.Tensor]],
+                n_planes: int, noise_mode: str = "const",
+                generator: Optional[torch.Generator] = None,
+                foreground_only: bool = False) -> torch.Tensor:
+        ws = ws.to(torch.float32)
+        x = img = None
+        w_idx = 0
+        for res in self.cfg.block_resolutions:
+            block = getattr(self, f"b{res}")
+            bcfg = block.cfg
+            block_ws = ws[:, w_idx:w_idx + bcfg.num_conv + bcfg.num_torgb]
+            w_idx += bcfg.num_conv
+            xyz = xyz_dict.get(res) if xyz_dict is not None else None
+            x, img = block(x, img, block_ws, xyz, n_planes, noise_mode=noise_mode,
+                           generator=generator, foreground_only=foreground_only)
+        return img
+
+
+@dataclasses.dataclass(frozen=True)
+class GeneratorCfg:
+    """Flagship MPI generator (paper defaults)."""
+
+    z_dim: int = 512
+    c_dim: int = 0
+    w_dim: int = 512
+    img_resolution: int = 256
+    synthesis: SynthesisNetworkCfg = None  # filled in __post_init__ if None
+    mapping_num_layers: int = 8
+    background_alpha_full: bool = True
+    final_img_act: str = "tanh"  # none | sigmoid | tanh
+
+    def __post_init__(self):
+        if self.synthesis is None:
+            object.__setattr__(self, "synthesis",
+                               SynthesisNetworkCfg(self.w_dim, self.img_resolution))
+        assert self.synthesis.img_resolution == self.img_resolution
+
+    @property
+    def num_ws(self) -> int:
+        return self.synthesis.num_ws
+
+
+class Generator(nn.Module):
+    """z -> MPI ``[B, L, 4, R, R]`` in [0, 1]; ``Generator(cfg, generator)``
+    draws its initial weights from ``generator`` (CPU), then ``.to(device)``."""
+
+    def __init__(self, cfg: GeneratorCfg, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.cfg = cfg
+        self.mapping = MappingNetwork(cfg.z_dim, cfg.c_dim, cfg.w_dim, cfg.num_ws,
+                                      cfg.mapping_num_layers, generator=generator)
+        self.synthesis = SynthesisNetwork(cfg.synthesis, generator=generator)
+
+    def synthesize(self, ws: torch.Tensor, xyz_dict: Optional[Dict[int, torch.Tensor]],
+                   n_planes: int, noise_mode: str = "const",
+                   generator: Optional[torch.Generator] = None,
+                   foreground_only: bool = False) -> torch.Tensor:
+        """ws -> MPI ``[B, L, 4, R, R]``.  ``foreground_only`` generates every
+        slot as foreground (no background plane, no forced background alpha)."""
+        cfg = self.cfg
+        img = self.synthesis(ws, xyz_dict, n_planes, noise_mode=noise_mode,
+                             generator=generator, foreground_only=foreground_only)
+        if cfg.final_img_act == "none":
+            img = (torch.clamp(img, -1.0, 1.0) + 1.0) / 2.0
+        elif cfg.final_img_act == "sigmoid":
+            img = torch.sigmoid(img)
+        elif cfg.final_img_act == "tanh":
+            img = (torch.tanh(img) + 1.0) / 2.0
+        else:
+            raise ValueError(cfg.final_img_act)
+        if cfg.background_alpha_full and not foreground_only:
+            ones = torch.ones_like(img[:, :1])
+            img = torch.cat([img[:, :-1], ones], dim=1)
+        res = cfg.img_resolution
+        return img.reshape(img.shape[0], n_planes, 4, res, res)
+
+    def forward(self, z: torch.Tensor, c: Optional[torch.Tensor],
+                xyz_dict: Optional[Dict[int, torch.Tensor]], n_planes: int,
+                truncation_psi: float = 1.0, truncation_cutoff: Optional[int] = None,
+                noise_mode: str = "const", generator: Optional[torch.Generator] = None
+                ) -> torch.Tensor:
+        """Full forward: z -> MPI ``[B, L, 4, R, R]``."""
+        ws = self.mapping(z, c, truncation_psi, truncation_cutoff)
+        return self.synthesize(ws, xyz_dict, n_planes, noise_mode=noise_mode,
+                               generator=generator)

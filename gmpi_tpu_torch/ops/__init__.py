@@ -1,0 +1,1 @@
+"""gmpi_tpu_torch.ops — see the package docstring."""
