@@ -1,9 +1,13 @@
 """Typed experiment configuration (port of ``gmpi_tpu/config.py``).
 
 The same frozen dataclass presets as the JAX package, field for field, so a
-configuration reads the same in both.  This slice serves (generates MPIs and
-renders views); the training fields are carried for parity of the presets and
-have no effect here yet.
+configuration reads the same in both.  Serving (``eval.harness``) and the
+train step (``train.step``) read them.  Training fields that do not act yet:
+``renderer_plane_chunk``, ``debug_ray_check`` and ``fused_compute_dtype``
+make ``make_train_step`` raise ``NotImplementedError``;
+``renderer_plane_shards`` / ``renderer_tile_shards`` belong to the sharded
+renderers (``mesh=``, which raises too); ``total_iters`` belongs to the
+training loop, which is not ported.
 """
 
 from __future__ import annotations
@@ -37,8 +41,10 @@ class StepHparams:
 
 @dataclasses.dataclass(frozen=True)
 class TrainHparams:
-    """Optimization and loss settings; this slice reads ``z_dim``/``w_dim``
-    and ``truncation_psi`` only."""
+    """Optimization and loss settings of the train step.
+    ``use_fused_renderer=None`` means the fused kernels on a CUDA device and
+    the gather path on the CPU.  See the module docstring for the fields that
+    still raise."""
 
     betas: Tuple[float, float] = (0.0, 0.9)
     weight_decay: float = 0.0
@@ -152,6 +158,21 @@ class ExperimentConfig:
                 only_alpha=self.model.only_alpha,
                 gen_alpha_largest_res=self.model.gen_alpha_largest_res,
             ),
+        )
+
+    def discriminator_cfg(self):
+        from gmpi_tpu_torch.models.discriminator import DiscriminatorCfg
+
+        fmaps = 0.5 if self.resolution == 256 else 1.0
+        return DiscriminatorCfg(
+            c_dim=self.train.d_cond_pose_dim if self.train.d_cond_on_pose else 0,
+            img_resolution=self.resolution,
+            channel_base=int(self.model.channel_base * fmaps),
+            channel_max=self.model.channel_max,
+            num_bf16_res=self.model.num_bf16_res if self.resolution > 128 else 0,
+            conv_clamp=self.model.conv_clamp if self.resolution > 128 else None,
+            cmap_dim=self.model.cmap_dim,
+            mbstd_group_size=self.model.mbstd_group_size,
         )
 
     def plane_geometry(self, device="cuda"):

@@ -7,11 +7,14 @@ Two paths with the reference renderer's semantics:
   ``align_corners=False``), then a vectorized front-to-back over-composite
   with weights ``alpha * cumprod(1 - alpha + 1e-10)``;
 * the fused path, :func:`render_mpi_fused`: the warp+composite kernel of
-  ``gmpi_tpu_torch.ops.fused_render`` (forward only in this slice).
+  ``gmpi_tpu_torch.ops.fused_render`` and, under autograd, its backward
+  kernels (composite backward, then splat) behind ``FusedRender``;
+  :func:`render_mpi_fused_remat` renders slab by slab under
+  ``torch.utils.checkpoint`` so that only one slab's residual is alive.
 
 Both are float32; the UV grid and per-pixel depth carry no gradient (the
 reference computes them under ``no_grad``), so gradients reach plane RGBA
-only on the gather path.
+only, on either path.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from gmpi_tpu_torch.ops import fused_render
 
@@ -147,26 +151,88 @@ def render_slab_partial(rgba, dhw, ray_dir, eye_pos, z_dir, align_corners: bool 
     return composite_partial(rgb, alpha, depth, disp)
 
 
+def _fused_inputs(rgba, dhw, ray_dir, eye_pos, z_dir):
+    """float32 texture stack and the kernels' contiguous ray and plane tables."""
+    if rgba.dtype != torch.float32:
+        rgba = rgba.float()
+    tex_h, tex_w = rgba.shape[-2], rgba.shape[-1]
+    with torch.no_grad():
+        scal = fused_render.plane_affine(dhw.float(), eye_pos.float(), tex_h, tex_w).contiguous()
+        rx, ry, q = (x.contiguous()
+                     for x in fused_render.ray_fields(ray_dir.float(), z_dir.float()))
+    return rgba, rx, ry, q, scal
+
+
+def _fused_partials(rgba, dhw, ray_dir, eye_pos, z_dir, early_out: bool, with_disp: bool,
+                    grad_sparsity: bool) -> Tuple[torch.Tensor, ...]:
+    """``(color, depth[, disp], trans)`` premultiplied partials: through
+    ``FusedRender`` when a gradient is wanted, else the inference form of the
+    forward kernel (no residual)."""
+    wants_grad = torch.is_grad_enabled() and rgba.requires_grad
+    rgba, rx, ry, q, scal = _fused_inputs(rgba, dhw, ray_dir, eye_pos, z_dir)
+    if wants_grad:
+        return fused_render.FusedRender.apply(rgba, rx, ry, q, scal, with_disp, grad_sparsity)
+    return fused_render.warp_composite_fwd(rgba, rx, ry, q, scal, early_out=early_out,
+                                           with_disp=with_disp)
+
+
 def render_mpi_fused(rgba: torch.Tensor, dhw: torch.Tensor, ray_dir: torch.Tensor,
                      eye_pos: torch.Tensor, z_dir: torch.Tensor, plans=None,
                      early_out: bool = True, with_disp: bool = True) -> RenderOutput:
-    """Render through the fused warp+composite kernel (forward only).
+    """Render through the fused warp+composite kernels, differentiable in
+    ``rgba``.
 
-    Same semantics as :func:`render_mpi` with align_corners=True, float32.
-    ``rgba [V, L, 4, Th, Tw]`` may be an ``expand`` of one MPI over views.
+    Same semantics as :func:`render_mpi` with align_corners=True, float32
+    throughout (a bf16 ``rgba`` is cast on the way in and its gradient back on
+    the way out); the gradient reaches ``rgba`` only.  ``rgba [V, L, 4, Th,
+    Tw]`` may be an ``expand`` of one MPI over views.  Without a gradient to
+    compute (``torch.no_grad()``, or ``rgba`` not requiring one) the forward
+    kernel runs in its inference form: no residual, ``early_out`` on the
+    transmittance.  With one, it keeps the residual and stops a pixel by the
+    grad-safe rule (``fused_render.GRAD_TAU``) whatever ``early_out`` says:
+    the transmittance rule would corrupt an occluder's alpha gradient.
     ``plans`` is accepted for the JAX signature and unused: a per-pixel CUDA
     gather needs no static bands.  ``with_disp=False`` leaves ``disp`` None.
     """
     del plans
-    if rgba.requires_grad:
-        raise NotImplementedError(
-            "render_mpi_fused is forward only: its backward (composite backward + "
-            "splat kernels) lands in a later slice; use render_mpi for gradients")
-    if rgba.dtype != torch.float32:
-        rgba = rgba.float()
-    tex_h, tex_w = rgba.shape[-2], rgba.shape[-1]
-    scal = fused_render.plane_affine(dhw.float(), eye_pos.float(), tex_h, tex_w).contiguous()
-    rx, ry, q = (x.contiguous() for x in fused_render.ray_fields(ray_dir.float(), z_dir.float()))
-    outs = fused_render.warp_composite_fwd(rgba, rx, ry, q, scal, early_out=early_out,
-                                           with_disp=with_disp)
+    outs = _fused_partials(rgba, dhw, ray_dir, eye_pos, z_dir, early_out, with_disp,
+                           grad_sparsity=True)
     return RenderOutput(color=outs[0], depth=outs[1], disp=outs[2] if with_disp else None)
+
+
+def make_fused_slab_renderer(with_disp: bool = False):
+    """The fused renderer for one plane slab: ``fn(rgba_slab, dhw_slab,
+    ray_dir, eye_pos, z_dir) -> (color_pre, depth_pre[, disp_pre], trans)``,
+    the partials of :func:`render_slab_partial` for :func:`combine_segments`,
+    differentiable in ``rgba_slab`` (``trans`` included).  Under autograd a
+    slab processes every plane: what stands in front of it is not known to
+    it, so no occlusion rule applies, with or without autograd.  The JAX
+    factory's band and splat plans have no counterpart here."""
+
+    def fn(rgba, dhw, ray_dir, eye_pos, z_dir):
+        return _fused_partials(rgba, dhw, ray_dir, eye_pos, z_dir, False, with_disp,
+                               grad_sparsity=False)
+
+    return fn
+
+
+def render_mpi_fused_remat(rgba: torch.Tensor, dhw: torch.Tensor, ray_dir: torch.Tensor,
+                           eye_pos: torch.Tensor, z_dir: torch.Tensor, plans=None,
+                           plane_chunk: int = 8, with_disp: bool = True) -> RenderOutput:
+    """Memory-rematerialized fused render: slabs of ``plane_chunk`` planes
+    render through the slab renderer under ``torch.utils.checkpoint`` and
+    their partials combine front to back, so the backward holds one slab's
+    residual and cotangents at a time; each slab's forward runs twice.
+    Semantics of :func:`render_mpi_fused`; ``plans`` accepted and unused
+    (``plane_chunk`` takes the place of the plan's chunks)."""
+    del plans
+    if plane_chunk < 1:
+        raise ValueError(f"plane_chunk: expected >= 1, got {plane_chunk}")
+    slab = make_fused_slab_renderer(with_disp=with_disp)
+    carry = None
+    for lo in range(0, rgba.shape[1], plane_chunk):
+        hi = lo + plane_chunk
+        part = checkpoint(slab, rgba[:, lo:hi], dhw[lo:hi], ray_dir, eye_pos, z_dir,
+                          use_reentrant=False)
+        carry = part if carry is None else combine_segments(carry, part)
+    return RenderOutput(color=carry[0], depth=carry[1], disp=carry[2] if with_disp else None)

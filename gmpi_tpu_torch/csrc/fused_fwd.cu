@@ -1,8 +1,9 @@
 // Fused MPI warp + over-composite forward for Hopper (sm_90a).
 //
 // Replaces the TPU kernel gmpi_tpu/ops/pallas_warp.py:_fwd_kernel (launched by
-// warp_composite_fwd, pallas_warp.py:901) in its inference form: early-out on,
-// optional expected disparity, no VJP residual, no "grad" mode.
+// warp_composite_fwd, pallas_warp.py:901) in both of its forms: inference
+// (early-out on transmittance, no residual) and training (the VJP residual
+// and the grad-safe "grad" early-out with its live-plane count).
 //
 // What it computes, per output pixel (v, i, j), front to back over L planes:
 //   fx = Ax_l * rx + Bx_l,  fy = Ay_l * ry + By_l          (texel coordinates)
@@ -13,6 +14,18 @@
 // 4 planes; per pixel is finer and differs by at most ~1e-6 x the remaining
 // weight).  Outputs are the premultiplied partials color [V,3,H,W],
 // depth/disp/trans [V,1,H,W].
+//
+// Training form.  With `warped` the sample s of every plane the pixel reaches
+// is stored as the VJP residual [V,L,4,H,W]; slots of planes it does not reach
+// stay unwritten.  early_out = 2 ("grad") replaces the T threshold, which is
+// wrong under differentiation (a visible opaque plane's alpha gradient needs
+// the planes behind it at O(1), amplified by 1/eps): the pixel carries
+//   S = prod(max(1 - a, 0) + eps)  and  M = min(max(1 - a, 0) + eps)
+// over the planes so far and stops before plane l once S / M < 1e-7.  S / M is
+// the transmittance with its one smallest factor removed, which bounds every
+// gradient path out of plane l, the amplified one included.  n_live [V,H,W] is
+// the number of planes the pixel processed (the TPU kernel counts per 16-row
+// strip, its unit of work; a pixel's count is <= its strip's).
 //
 // Bound on an H100 SXM: memory.  One view reads its texture stack once,
 // L*4*Th*Tw*4 B (101 MB at L=96, 256^2), against ~60 fp32 FLOP per pixel and
@@ -36,6 +49,8 @@ namespace {
 constexpr int kBlockX = 16;
 constexpr int kBlockY = 16;
 constexpr float kEarlyOutT = 1e-6f;
+constexpr float kGradTau = 1e-7f;
+constexpr int kEarlyOutGrad = 2;
 
 template <bool kWithDisp>
 __global__ void fused_fwd_kernel(const float* __restrict__ tex, long long tex_view_stride,
@@ -43,6 +58,7 @@ __global__ void fused_fwd_kernel(const float* __restrict__ tex, long long tex_vi
                                  const float* __restrict__ q, const float* __restrict__ scal,
                                  float* __restrict__ color, float* __restrict__ depth,
                                  float* __restrict__ disp, float* __restrict__ trans,
+                                 float* __restrict__ warped, int* __restrict__ n_live,
                                  int L, int Th, int Tw, int H, int W, int early_out,
                                  float eps) {
   extern __shared__ float s_scal[];  // [L, 6] of this view
@@ -66,9 +82,20 @@ __global__ void fused_fwd_kernel(const float* __restrict__ tex, long long tex_vi
   const long long plane = (long long)Th * Tw;
   const float* tv = tex + (long long)v * tex_view_stride;
 
+  const long long pix = (long long)i * W + j;
+  float* wv = warped ? warped + (long long)v * L * 4 * hw + pix : nullptr;
   float c0 = 0.f, c1 = 0.f, c2 = 0.f, acc_d = 0.f, acc_p = 0.f, t = 1.f;
+  float s_clamped = 1.f, m_min = 1.f;  // S and M of the "grad" early-out
+  int live = L;
   for (int l = 0; l < L; ++l) {
-    if (early_out && t < kEarlyOutT) break;
+    if (early_out == kEarlyOutGrad) {
+      if (s_clamped / m_min < kGradTau) {
+        live = l;
+        break;
+      }
+    } else if (early_out && t < kEarlyOutT) {
+      break;
+    }
     const float* s = s_scal + 6 * l;
     const float fx = s[0] * rxv + s[1];
     const float fy = s[2] * ryv + s[3];
@@ -99,6 +126,10 @@ __global__ void fused_fwd_kernel(const float* __restrict__ tex, long long tex_vi
         smp[c] = top * (1.f - wy) + bot * wy;
       }
     }
+    if (wv) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) wv[((long long)l * 4 + c) * hw] = smp[c];
+    }
     const float a = smp[3];
     const float w = a * t;
     c0 += w * smp[0];
@@ -107,15 +138,22 @@ __global__ void fused_fwd_kernel(const float* __restrict__ tex, long long tex_vi
     acc_d += w * (dsc * qv);
     if (kWithDisp) acc_p += w * ((1.f / dsc) * qinv);
     t *= (1.f - a) + eps;
+    if (early_out == kEarlyOutGrad) {
+      // clamped, and max() before the sum: (1 - a) + eps may be contracted
+      // to (1 + eps) - a, which is exactly 0 at a = 1
+      const float one_m = fmaxf(1.f - a, 0.f) + eps;
+      s_clamped *= one_m;
+      m_min = fminf(m_min, one_m);
+    }
   }
 
-  const long long pix = (long long)i * W + j;
   color[((long long)v * 3 + 0) * hw + pix] = c0;
   color[((long long)v * 3 + 1) * hw + pix] = c1;
   color[((long long)v * 3 + 2) * hw + pix] = c2;
   depth[p] = acc_d;
   if (kWithDisp) disp[p] = acc_p;
   trans[p] = t;
+  if (n_live) n_live[p] = live;
 }
 
 }  // namespace
@@ -124,11 +162,14 @@ __global__ void fused_fwd_kernel(const float* __restrict__ tex, long long tex_vi
 // of float32 tensors the caller allocated; tex is [*, L, 4, Th, Tw] with view
 // v at tex + v * tex_view_stride (0 = one stack shared by every view); rx, ry,
 // q are [V, H, W]; scal is [V, L, 6] = (Ax, Bx, Ay, By, dscale, 0); disp may
-// be null when with_disp is 0.  Launches on `stream` and returns
+// be null when with_disp is 0.  early_out: 0 off, 1 on transmittance, 2 the
+// grad-safe rule.  warped [V, L, 4, H, W] (residual) and n_live [V, H, W]
+// int32 may each be null.  Launches on `stream` and returns
 // cudaGetLastError() (0 on success); does not synchronize.
 extern "C" int gmpi_fused_fwd(const float* tex, long long tex_view_stride, const float* rx,
                               const float* ry, const float* q, const float* scal, float* color,
-                              float* depth, float* disp, float* trans, int V, int L, int Th,
+                              float* depth, float* disp, float* trans, float* warped,
+                              int* n_live, int V, int L, int Th,
                               int Tw, int H, int W, int early_out, int with_disp, float eps,
                               void* stream) {
   const dim3 block(kBlockX, kBlockY, 1);
@@ -137,12 +178,12 @@ extern "C" int gmpi_fused_fwd(const float* tex, long long tex_view_stride, const
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (with_disp) {
     fused_fwd_kernel<true><<<grid, block, smem, s>>>(tex, tex_view_stride, rx, ry, q, scal,
-                                                     color, depth, disp, trans, L, Th, Tw, H,
-                                                     W, early_out, eps);
+                                                     color, depth, disp, trans, warped,
+                                                     n_live, L, Th, Tw, H, W, early_out, eps);
   } else {
     fused_fwd_kernel<false><<<grid, block, smem, s>>>(tex, tex_view_stride, rx, ry, q, scal,
-                                                      color, depth, disp, trans, L, Th, Tw, H,
-                                                      W, early_out, eps);
+                                                      color, depth, disp, trans, warped,
+                                                      n_live, L, Th, Tw, H, W, early_out, eps);
   }
   return static_cast<int>(cudaGetLastError());
 }

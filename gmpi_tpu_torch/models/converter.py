@@ -4,9 +4,11 @@
 The JAX param and buffer trees use the reference's state-dict nesting, so a
 leaf at ``params["synthesis"]["b64"]["conv0"]["affine"]["bias"]`` is the torch
 key ``synthesis.b64.conv0.affine.bias`` and ``buffers["mapping"]["w_avg"]``
-is ``mapping.w_avg``.  Values arrive as numpy arrays (the caller converts the
-JAX trees with ``np.asarray``); the result loads with
-``Generator.load_state_dict(sd, strict=True)``.  ``resample_filter`` is a
+is ``mapping.w_avg``; the discriminator's tree (``b256.conv0.weight``,
+``mapping.bias``, ``b4.fc.weight``) maps the same way and has no buffers.
+Values arrive as numpy arrays (the caller converts the JAX trees with
+``np.asarray``); the result loads with ``Generator.load_state_dict(sd,
+strict=True)`` or ``Discriminator.load_state_dict``.  ``resample_filter`` is a
 constant, non-persistent buffer on the torch side and is never carried.
 """
 

@@ -88,6 +88,12 @@ class MappingNetwork(nn.Module):
                 ws = torch.cat([trunc, ws[:, truncation_cutoff:]], dim=1)
         return ws
 
+    @torch.no_grad()
+    def updated_w_avg(self, ws: torch.Tensor) -> torch.Tensor:
+        """New ``w_avg`` after seeing a batch of ws: ``mean(w).lerp(w_avg, beta)``."""
+        batch_mean = ws[:, 0, :].mean(dim=0)
+        return batch_mean + self.w_avg_beta * (self.w_avg - batch_mean)
+
 
 @dataclasses.dataclass(frozen=True)
 class SynthesisBlockCfg:
@@ -188,9 +194,12 @@ class SynthesisBlock(nn.Module):
     def forward(self, x: Optional[torch.Tensor], img: Optional[torch.Tensor],
                 block_ws: torch.Tensor, xyz: Optional[torch.Tensor], n_planes: int,
                 noise_mode: str = "const", generator: Optional[torch.Generator] = None,
-                foreground_only: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+                foreground_only: bool = False, stop_trunk_grad: bool = False
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
         """``foreground_only`` disables the background path: every plane slot
-        is foreground (shared RGB + depth-conditioned alpha)."""
+        is foreground (shared RGB + depth-conditioned alpha).
+        ``stop_trunk_grad`` detaches the trunk feature, so only the MPI head
+        trains."""
         cfg = self.cfg
         bs, res = block_ws.shape[0], cfg.resolution
         dtype = torch.bfloat16 if cfg.use_bf16 else torch.float32
@@ -206,6 +215,8 @@ class SynthesisBlock(nn.Module):
             w_conv1 = block_ws[:, 1]
             x = self.conv1(x, w_conv1, noise_mode, generator)
             w_idx = 2
+        if stop_trunk_grad:
+            x = x.detach()
 
         if img is not None:
             img = upsample2d(img, self.resample_filter)
@@ -314,7 +325,7 @@ class SynthesisNetwork(nn.Module):
     def forward(self, ws: torch.Tensor, xyz_dict: Optional[Dict[int, torch.Tensor]],
                 n_planes: int, noise_mode: str = "const",
                 generator: Optional[torch.Generator] = None,
-                foreground_only: bool = False) -> torch.Tensor:
+                foreground_only: bool = False, stop_trunk_grad: bool = False) -> torch.Tensor:
         ws = ws.to(torch.float32)
         x = img = None
         w_idx = 0
@@ -325,7 +336,8 @@ class SynthesisNetwork(nn.Module):
             w_idx += bcfg.num_conv
             xyz = xyz_dict.get(res) if xyz_dict is not None else None
             x, img = block(x, img, block_ws, xyz, n_planes, noise_mode=noise_mode,
-                           generator=generator, foreground_only=foreground_only)
+                           generator=generator, foreground_only=foreground_only,
+                           stop_trunk_grad=stop_trunk_grad)
         return img
 
 
@@ -367,12 +379,14 @@ class Generator(nn.Module):
     def synthesize(self, ws: torch.Tensor, xyz_dict: Optional[Dict[int, torch.Tensor]],
                    n_planes: int, noise_mode: str = "const",
                    generator: Optional[torch.Generator] = None,
-                   foreground_only: bool = False) -> torch.Tensor:
+                   foreground_only: bool = False, stop_trunk_grad: bool = False
+                   ) -> torch.Tensor:
         """ws -> MPI ``[B, L, 4, R, R]``.  ``foreground_only`` generates every
         slot as foreground (no background plane, no forced background alpha)."""
         cfg = self.cfg
         img = self.synthesis(ws, xyz_dict, n_planes, noise_mode=noise_mode,
-                             generator=generator, foreground_only=foreground_only)
+                             generator=generator, foreground_only=foreground_only,
+                             stop_trunk_grad=stop_trunk_grad)
         if cfg.final_img_act == "none":
             img = (torch.clamp(img, -1.0, 1.0) + 1.0) / 2.0
         elif cfg.final_img_act == "sigmoid":
@@ -390,9 +404,14 @@ class Generator(nn.Module):
     def forward(self, z: torch.Tensor, c: Optional[torch.Tensor],
                 xyz_dict: Optional[Dict[int, torch.Tensor]], n_planes: int,
                 truncation_psi: float = 1.0, truncation_cutoff: Optional[int] = None,
-                noise_mode: str = "const", generator: Optional[torch.Generator] = None
+                noise_mode: str = "const", generator: Optional[torch.Generator] = None,
+                stop_mapping_grad: bool = False, stop_trunk_grad: bool = False
                 ) -> torch.Tensor:
-        """Full forward: z -> MPI ``[B, L, 4, R, R]``."""
+        """Full forward: z -> MPI ``[B, L, 4, R, R]``.  ``stop_mapping_grad`` /
+        ``stop_trunk_grad`` freeze the mapping network / the synthesis trunk
+        (their parameters get no gradient)."""
         ws = self.mapping(z, c, truncation_psi, truncation_cutoff)
+        if stop_mapping_grad:
+            ws = ws.detach()
         return self.synthesize(ws, xyz_dict, n_planes, noise_mode=noise_mode,
-                               generator=generator)
+                               generator=generator, stop_trunk_grad=stop_trunk_grad)

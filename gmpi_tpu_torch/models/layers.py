@@ -41,6 +41,21 @@ def instance_mean_std(feat: torch.Tensor, eps: float = FLOATING_EPS
     return mean, torch.sqrt(var).reshape(n, c, 1, 1)
 
 
+def minibatch_std(x: torch.Tensor, group_size: Optional[int], num_channels: int = 1
+                  ) -> torch.Tensor:
+    """Append cross-sample stddev channels (``MinibatchStdLayer``): the std
+    over each group of ``group_size`` samples, averaged over channels and
+    pixels.  ``group_size`` must divide the batch."""
+    n, c, h, w = x.shape
+    g = min(group_size, n) if group_size is not None else n
+    f = num_channels
+    y = x.reshape(g, -1, f, c // f, h, w)
+    y = y - y.mean(dim=0)
+    y = torch.sqrt(y.square().mean(dim=0) + 1e-8)
+    y = y.mean(dim=(2, 3, 4)).reshape(-1, f, 1, 1)
+    return torch.cat([x, y.repeat(g, 1, h, w).to(x.dtype)], dim=1)
+
+
 def _randn(shape, generator: Optional[torch.Generator]) -> torch.Tensor:
     return torch.randn(shape, generator=generator, dtype=torch.float32)
 

@@ -88,8 +88,13 @@ def upfirdn2d(x: torch.Tensor, f, up: Union[int, Sequence[int]] = 1,
     f = f * gain
     if not flip_filter:
         f = f.flip([0, 1])
-    weight = f.to(device=x.device, dtype=x.dtype)[None, None].repeat(c, 1, 1, 1)
-    return F.conv2d(x, weight, stride=(downy, downx), groups=c)
+    # one filter for every channel: channels fold into the batch and the conv
+    # has one group.  A depthwise conv (groups=c) computes the same, but its
+    # double backward (the R1 penalty differentiates D twice) loops over the
+    # groups, one small convolution each.
+    weight = f.to(device=x.device, dtype=x.dtype)[None, None]
+    y = F.conv2d(x.reshape(n * c, 1, x.shape[2], x.shape[3]), weight, stride=(downy, downx))
+    return y.reshape(n, c, y.shape[2], y.shape[3])
 
 
 def filter2d(x, f, padding=0, flip_filter=False, gain=1.0):

@@ -1,0 +1,23 @@
+"""GAN training (port of ``gmpi_tpu/train``): losses and the train step."""
+
+from gmpi_tpu_torch.train.losses import d_gan_loss, g_gan_loss, r1_penalty
+from gmpi_tpu_torch.train.step import (
+    TrainState,
+    TrainStep,
+    flat_pose_from_c2w,
+    init_train_state,
+    make_optimizers,
+    make_train_step,
+)
+
+__all__ = [
+    "TrainState",
+    "TrainStep",
+    "d_gan_loss",
+    "flat_pose_from_c2w",
+    "g_gan_loss",
+    "init_train_state",
+    "make_optimizers",
+    "make_train_step",
+    "r1_penalty",
+]

@@ -108,7 +108,7 @@ def test_cpu_wrapper_is_the_plain_version_and_launches_nothing():
     rgba = torch.from_numpy(random_mpi(1, 3, 16, seed=5))
     scal = fused_render.plane_affine(dt, et, 16, 16)
     rx, ry, q = fused_render.ray_fields(rt, zt)
-    before = fused_render.LAUNCHES
+    before = dict(fused_render.LAUNCHES)
     for with_disp in (False, True):
         a = fused_render.warp_composite_fwd(rgba, rx, ry, q, scal, with_disp=with_disp)
         b = fused_render.warp_composite_fwd_ref(rgba, rx, ry, q, scal, with_disp=with_disp)
@@ -127,10 +127,21 @@ def test_expanded_mpi_renders_like_a_copy():
 
 
 def test_fused_is_forward_only():
+    """Without a gradient to compute the fused render is forward only: the
+    inference form, whose outputs carry no graph, under ``no_grad`` and for an
+    input that requires none.  With one it no longer raises: it returns
+    outputs that backpropagate (held against references in
+    ``test_torch_fused_grad.py``)."""
     dt, rt, et, zt = setup_both(2, 16, [0.0], [0.0])[1]
-    rgba = torch.from_numpy(random_mpi(1, 2, 16)).requires_grad_()
-    with pytest.raises(NotImplementedError, match="forward only"):
-        render_mpi_fused(rgba, dt, rt, et, zt)
+    rgba = torch.from_numpy(random_mpi(1, 2, 16))
+    plain = render_mpi_fused(rgba, dt, rt, et, zt)
+    with torch.no_grad():
+        quiet = render_mpi_fused(rgba.clone().requires_grad_(), dt, rt, et, zt)
+    assert not plain.color.requires_grad and not quiet.color.requires_grad
+    assert torch.equal(plain.color, quiet.color)
+    out = render_mpi_fused(rgba.clone().requires_grad_(), dt, rt, et, zt)
+    assert out.color.requires_grad and out.depth.requires_grad
+    np.testing.assert_allclose(out.color.detach().numpy(), plain.color.numpy(), rtol=0, atol=1e-6)
 
 
 @pytest.mark.parametrize("align_corners", [True, False])

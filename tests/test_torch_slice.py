@@ -61,7 +61,7 @@ def test_slice_matches_jax(both_generators, use_fused):
     v = len(YAWS)
     color_j, depth_j = gen_j.render(jnp.broadcast_to(mpi_j, (v, *mpi_j.shape[1:])), YAWS,
                                     PITCHES)
-    before = fused_render.LAUNCHES
+    before = dict(fused_render.LAUNCHES)
     color_t, depth_t = gen_t.render(mpi_t.expand(v, -1, -1, -1, -1), YAWS, PITCHES)
     assert fused_render.LAUNCHES == before  # the CPU runs the plain version
     assert color_t.shape == (v, 3, 64, 64) and depth_t.shape == (v, 1, 64, 64)
@@ -108,6 +108,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         import gmpi_tpu_torch.models.layers, gmpi_tpu_torch.models.generator
         import gmpi_tpu_torch.models.converter, gmpi_tpu_torch.eval.generate
         import gmpi_tpu_torch.eval.harness, gmpi_tpu_torch.utils.device
+        import gmpi_tpu_torch.models.discriminator, gmpi_tpu_torch.core.lighting
+        import gmpi_tpu_torch.utils.img, gmpi_tpu_torch.train
+        import gmpi_tpu_torch.train.losses, gmpi_tpu_torch.train.step
+        import chip_smoke
         bad = sorted(m for m in set(sys.modules) - before
                      if m.split(".")[0] in ("jax", "jaxlib", "gmpi_tpu"))
         print(bad)
