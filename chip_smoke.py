@@ -22,7 +22,12 @@ Phases, each of which raises on failure (nonzero exit, no result line):
    worst-view selection at V=32, L=32 on the 8 stacks repeated 4 times each
    (a materialized 1.07 GB copy); max abs error <= 1e-4.  All on three MPIs:
    uniform random RGBA, a sparse (mostly transparent) stack, and the sparse
-   stack with fully opaque mid planes;
+   stack with fully opaque mid planes.  (c) The patch gather against its plain
+   version at the banded serving path's shapes: f32 and bf16, 16-byte-aligned
+   and arbitrary offsets, patches at both corners of the padded texture;
+   exact equality (it is a copy).  (d) The texture-space adjoint, on the
+   three stacks' ``d_samp`` of (b), against its plain version and against the
+   splat, max error <= 1e-4 x max|plain|, and two launches bitwise equal;
 3. serving main path — ``FakeImageGenerator`` at full FFHQ256 width with
    seeded random weights and the fused renderer: for 4 seeds, ``sample_mpi``
    then ``render`` of 4 views.  Kernel launch counts are reset just before and
@@ -41,7 +46,27 @@ Phases, each of which raises on failure (nonzero exit, no result line):
 5. timing at the main paths' inputs (CUDA events, median of 20 after
    warm-up) and each kernel's bound from the bytes and operations those inputs
    need: the forward in each of the three forms a train step launches (D
-   phase, worst views at V=32, G phase), the composite backward and the splat.
+   phase, worst views at V=32, G phase), the composite backward, the splat and
+   the adjoint (at phase 7's inputs); the patch gather is timed in phase 6 at
+   that path's inputs;
+6. banded serving path — ``FakeImageGenerator(use_fused=False)`` (on a card
+   its patches come through the patch-gather kernel) renders the 96-plane MPIs
+   of phase 3's seeds, 4 views each, through
+   ``render_mpi(tiled_bands=bands_for_config(...))``: all 384 textures in one
+   call, the tile rows looped in groups that keep the live hats under
+   ``renderer.TILED_STEP_BYTES``; then the last MPI through
+   ``render_mpi_chunked`` in slabs of 24 planes, twice.  Launch counts are
+   reset just before and read just after: one patch-gather launch per call of
+   the tiled warp's tile-row step, nothing else.  Every render must match the gather
+   renderer within 5e-4 and ``bands_cover`` must hold at the sampled poses.
+   One render is profiled by the tiled warp's spans (patches, hats, the two
+   contractions) beside the fused and gather renders of the same MPI;
+7. adjoint route at the training shapes (it runs right after phase 4, whose
+   MPIs and cotangent it reuses) — ``render_mpi_fused(plans=plan_fused(...
+   corner poses))`` forward and backward on the 8 MPIs of 32 planes: one
+   ``fused_fwd``, one ``composite_bwd``, one ``adjoint`` launch and no
+   ``splat``; the ``rgba`` gradient within 1e-3 of max|grad| of the splat
+   route's and of the gather renderer's, and bitwise equal across two runs.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -62,7 +87,7 @@ H100_RATES = {  # (bytes/s, fp32 FLOP/s): NVIDIA data sheets, dense, full power
 }
 # fp32 operations per live (pixel, plane) pair: taps, lerps and composite;
 # the recurrence of the backward; coordinates, weights and 16 products
-FLOP_PER_PAIR = {"fused_fwd": 60, "composite_bwd": 25, "splat": 30}
+FLOP_PER_PAIR = {"fused_fwd": 60, "composite_bwd": 25, "splat": 30, "adjoint": 30}
 TOL = 1e-4
 GRAD_REL = 1e-3
 N_STEPS = (2, 3)  # warm-up, timed
@@ -177,12 +202,14 @@ def check_inference_form(fr, label, tex, rx, ry, q, scal, with_disp):
     return max(errs)
 
 
-def check_training_kernels(fr, case, tex, rx, ry, q, scal, gen):
-    """Phase 2b on one stack: the three kernels against their plain versions.
-    Returns each kernel's largest error (relative to max|plain| per field)."""
+def check_training_kernels(fr, case, tex, rx, ry, q, scal, gen, adj_bands):
+    """Phases 2b and 2d on one stack: the forward's training form, the
+    composite backward, the splat and the adjoint against their plain
+    versions.  Returns each kernel's largest error (relative to max|plain|
+    per field)."""
     v, n_l = scal.shape[:2]
     res = tex.shape[-1]
-    errs = {"fused_fwd": 0.0, "composite_bwd": 0.0, "splat": 0.0}
+    errs = {"fused_fwd": 0.0, "composite_bwd": 0.0, "splat": 0.0, "adjoint": 0.0}
     planes = torch.arange(n_l, device=tex.device).reshape(1, n_l, 1, 1, 1)
 
     for with_disp in (False, True):
@@ -231,6 +258,18 @@ def check_training_kernels(fr, case, tex, rx, ry, q, scal, gen):
         e = rel_err(d_tex, t_ref)
         log(f"splat vs plain [{case}]: rel err {e:.3e}")
         errs["splat"] = max(errs["splat"], e)
+
+        # 2d: the adjoint takes no n_live; the composite backward zeroed the dead slots
+        a_tex = fr.warp_adjoint(d_ref, rx, ry, scal, adj_bands, res, res)
+        a_again = fr.warp_adjoint(d_ref, rx, ry, scal, adj_bands, res, res)
+        a_ref = fr.warp_adjoint_ref(d_ref, rx, ry, scal, res, res)
+        torch.cuda.synchronize()
+        e, e_splat = rel_err(a_tex, a_ref), rel_err(a_tex, d_tex)
+        log(f"adjoint vs plain [{case}]: rel err {e:.3e}; vs the splat kernel {e_splat:.3e}; two "
+            f"launches bitwise equal: {torch.equal(a_tex, a_again)}")
+        if not torch.equal(a_tex, a_again):
+            raise RuntimeError(f"adjoint [{case}]: two launches on one input differ")
+        errs["adjoint"] = max(errs["adjoint"], e, e_splat)
     for name, e in errs.items():
         if not e <= TOL:  # also catches NaN
             raise RuntimeError(f"{name} [{case}] disagrees with its plain version: {e} > {TOL}")
@@ -252,12 +291,17 @@ def main() -> int:
         return 2
     from gmpi_tpu_torch.config import get_config
     from gmpi_tpu_torch.core import camera as cam
+    from gmpi_tpu_torch.core import bands as bands_mod
     from gmpi_tpu_torch.core import poses
-    from gmpi_tpu_torch.core.renderer import render_mpi, render_mpi_fused
+    from gmpi_tpu_torch.core import renderer as renderer_mod
+    from gmpi_tpu_torch.core.renderer import (homography_grid, plan_fused, render_mpi,
+                                              render_mpi_chunked, render_mpi_fused)
     from gmpi_tpu_torch.eval.harness import FakeImageGenerator
     from gmpi_tpu_torch.models.generator import Generator
     from gmpi_tpu_torch.ops import _build
     from gmpi_tpu_torch.ops import fused_render as fr
+    from gmpi_tpu_torch.ops import patch_gather as pg
+    from gmpi_tpu_torch.ops import tiled_warp as tw
     from gmpi_tpu_torch.train import flat_pose_from_c2w, init_train_state, make_train_step
 
     # -- 1. setup --------------------------------------------------------------
@@ -321,9 +365,17 @@ def main() -> int:
     scales = torch.linspace(1.0, 0.25, n_cand).reshape(1, n_cand)
     rays_w = fused_inputs(fr, geom_train.dhw, *rays_at((yaws * scales).reshape(-1, 1),
                                                        (pitches * scales).reshape(-1, 1)), res)
+    # the adjoint's windows, planned on the host at the corners of the pose range
+    t0 = time.perf_counter()
+    corner_rays = bands_mod._corner_rays(c, cfg.fov_deg, res, res)
+    adj_plans = plan_fused(geom_train.dhw, *corner_rays, res, res)
+    adj_bands = adj_plans[1][0]
+    log(f"adjoint plan at the 9 corner and centre poses, {n_train} planes: {adj_bands} in "
+        f"{time.perf_counter() - t0:.1f} s (host)")
     g = torch.Generator(device=dev).manual_seed(1)
     for case, tex in three_stacks(8, n_train, res, dev, seed=2):
-        for kname, e in check_training_kernels(fr, case, tex, rx, ry, q, scal, g).items():
+        for kname, e in check_training_kernels(fr, case, tex, rx, ry, q, scal, g,
+                                               adj_bands).items():
             max_err[kname] = max(max_err[kname], e)
         # the step's two no-grad renders: D-phase fakes, then worst-view candidates
         err = check_inference_form(fr, f"{case}, V=8, L={n_train}", tex, rx, ry, q, scal, False)
@@ -334,6 +386,37 @@ def main() -> int:
         del tex, tex_w
     torch.cuda.empty_cache()
 
+    # -- 2c. patch gather vs plain version at the banded serving path's shapes ---------
+    t0 = time.perf_counter()
+    tiled_bands = bands_mod.bands_for_config(cfg, img_size=res, n_planes=n_planes)
+    log(f"tile bands for {n_planes} planes at {res}^2 (band_y, band_x, adjoint rows, cols): "
+        f"{tiled_bands} in {time.perf_counter() - t0:.1f} s (host)")
+    band_y, band_x = tiled_bands[:2]
+    wp, hpc, band_yc = res + 2 * band_x, (res + 2 * band_y) * 4, band_y * 4
+    n_tex, n_tiles = 96, res // 8  # one slab of 24 planes in 4 views; a tile per 8 rows
+    for dtype in (torch.float32, torch.bfloat16):
+        texf = torch.randn((n_tex, wp, hpc), device=dev, generator=g).to(dtype)
+        for aligned in (True, False):
+            mult = 16 // texf.element_size() if aligned else 1
+            offs = torch.stack([
+                torch.randint(0, wp - band_x + 1, (n_tex, n_tiles), device=dev, generator=g),
+                torch.randint(0, (hpc - band_yc) // mult + 1, (n_tex, n_tiles), device=dev,
+                              generator=g) * mult], dim=-1).to(torch.int32)
+            offs[0, 0] = 0  # both corners of the padded texture
+            offs[-1, -1] = torch.tensor([wp - band_x, hpc - band_yc], device=dev)
+            out = pg.gather_patches(texf, offs, band_x, band_yc)
+            ref = pg.gather_patches_ref(texf, offs, band_x, band_yc)
+            torch.cuda.synchronize()
+            equal = torch.equal(out, ref)
+            log(f"patch_gather vs plain [{str(dtype).split('.')[1]}, "
+                f"{'16-byte-aligned' if aligned else 'arbitrary'} offsets, {n_tex} x {n_tiles} "
+                f"patches of {band_x} x {band_yc}]: equal {equal}")
+            if not equal:
+                max_err["patch_gather"] = float("inf")
+                raise RuntimeError("patch_gather disagrees with its plain version")
+        del texf, out, ref
+    torch.cuda.empty_cache()
+
     # -- 3. serving main path ----------------------------------------------------
     t0 = time.perf_counter()
     gen_module = Generator(cfg.generator_cfg(), generator=torch.Generator().manual_seed(0))
@@ -341,13 +424,14 @@ def main() -> int:
     log(f"generator: FFHQ256 full width ({sum(p.numel() for p in gen.G.parameters())} params, "
         f"{n_planes} planes), built in {time.perf_counter() - t0:.1f} s")
     seeds, n_views = (0, 1, 2, 3), 4
-    gen_ms, render_ms = [], []
+    gen_ms, render_ms, mpis = [], [], []
     lo, hi = cfg.planes.min_d * 0.9, cfg.planes.max_d * 1.4
     for kname in fr.LAUNCHES:
         fr.LAUNCHES[kname] = 0
     for seed in seeds:
         mpi, ms = host_ms(lambda: gen.sample_mpi(seed))
         gen_ms.append(ms)
+        mpis.append(mpi)
         yv, pv = gen.sample_views(seed, n_views)
         mpi_v = mpi.expand(n_views, -1, -1, -1, -1)
         (color, depth), ms = host_ms(lambda: gen.render(mpi_v, yv, pv))
@@ -364,7 +448,7 @@ def main() -> int:
             raise RuntimeError(f"seed {seed}: depth {float(depth.min())}..{float(depth.max())} "
                                f"outside [{lo}, {hi}]")
     serving_launches = dict(fr.LAUNCHES)
-    if serving_launches != {"fused_fwd": len(seeds), "composite_bwd": 0, "splat": 0}:
+    if serving_launches != {**dict.fromkeys(fr.LAUNCHES, 0), "fused_fwd": len(seeds)}:
         raise RuntimeError(f"serving main path launched {serving_launches}, expected one "
                            f"fused_fwd per render call ({len(seeds)}) and no backward")
     log(f"serving main path: {len(seeds)} seeds x {n_views} views, launches {serving_launches}")
@@ -406,7 +490,8 @@ def main() -> int:
         f"renderer (F.grid_sample + composite, informational) {gather_ms:.3f} ms; needs "
         f"{fwd_bytes} B, {FLOP_PER_PAIR['fused_fwd'] * pairs} FLOP ({pairs} live pixel-plane "
         f"pairs of {n_views * n_planes * res * res}); bound {fwd_bound[0]:.5f} ms ({card})")
-    del gen, gen_module, mpi, mpi_v, gather, out, ref
+    serving_gather_ms = gather_ms
+    del gen, mpi, mpi_v, gather, out, ref
     torch.cuda.empty_cache()
 
     # -- 4. training main path -------------------------------------------------------
@@ -449,8 +534,8 @@ def main() -> int:
     train_launches = dict(fr.LAUNCHES)
     n_steps = len(all_metrics)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    expected = {"fused_fwd": 3 * n_steps, "composite_bwd": split * n_steps,
-                "splat": split * n_steps}
+    expected = {**dict.fromkeys(fr.LAUNCHES, 0), "fused_fwd": 3 * n_steps,
+                "composite_bwd": split * n_steps, "splat": split * n_steps}
     if train_launches != expected:
         raise RuntimeError(f"training main path launched {train_launches} in {n_steps} steps, "
                            f"expected {expected}")
@@ -487,7 +572,7 @@ def main() -> int:
     ray_dir, eye, z_dir = rays_at(yv, pv)
     cot = torch.randn((bs, 3, res, res), device=dev, generator=g)
     grads_r = []
-    for render in (render_mpi_fused, render_mpi):
+    for render in (render_mpi_fused, render_mpi, render_mpi_fused):
         x = mpi.clone().requires_grad_()
         grads_r.append(torch.autograd.grad((render(x, geom_train.dhw, ray_dir, eye, z_dir).color
                                             * cot).sum(), x)[0])
@@ -497,7 +582,31 @@ def main() -> int:
         f"{err_g:.3e} (gate {GRAD_REL}), max|grad| {float(grads_r[1].abs().max()):.3e}")
     if not err_g <= GRAD_REL:
         raise RuntimeError("the fused Function's gradient disagrees with the gather renderer's")
-    del grads_r, x
+
+    # -- 7. adjoint route at the training shapes ---------------------------------------------
+    grads_a = []
+    for kname in fr.LAUNCHES:
+        fr.LAUNCHES[kname] = 0
+    for _ in range(2):
+        x = mpi.clone().requires_grad_()
+        out = render_mpi_fused(x, geom_train.dhw, ray_dir, eye, z_dir, plans=adj_plans,
+                               with_disp=False)
+        grads_a.append(torch.autograd.grad((out.color * cot).sum(), x)[0])
+    torch.cuda.synchronize()
+    adjoint_launches = dict(fr.LAUNCHES)
+    expected = {**dict.fromkeys(fr.LAUNCHES, 0), "fused_fwd": 2, "composite_bwd": 2, "adjoint": 2}
+    if adjoint_launches != expected:
+        raise RuntimeError(f"the adjoint route launched {adjoint_launches} in 2 forward+backward "
+                           f"passes, expected {expected}")
+    err_splat, err_gather = rel_err(grads_a[0], grads_r[0]), rel_err(grads_a[0], grads_r[1])
+    repeatable = torch.equal(grads_a[0], grads_a[1])
+    log(f"adjoint route (plans={adj_plans}): launches {adjoint_launches} in 2 passes; rgba "
+        f"gradient vs the splat route {err_splat:.3e}, vs gather autograd {err_gather:.3e} (gate "
+        f"{GRAD_REL}); two runs bitwise equal: {repeatable}; the splat route's two runs bitwise "
+        f"equal: {torch.equal(grads_r[0], grads_r[2])}")
+    if not (err_splat <= GRAD_REL and err_gather <= GRAD_REL and repeatable):
+        raise RuntimeError("the adjoint route's gradient disagrees or is not repeatable")
+    del grads_r, grads_a, x, out
 
     # -- 5. timing and bounds at the training main path's inputs ----------------------
     rx, ry, q, scal = fused_inputs(fr, geom_train.dhw, ray_dir, eye, z_dir, res)
@@ -509,9 +618,15 @@ def main() -> int:
     d_tex = fr.warp_splat(d_samp, rx, ry, scal, res, res, n_live=n_live)
     d_tex_ref = fr.warp_splat_ref(d_samp, rx, ry, scal, res, res, n_live=n_live)
     torch.cuda.synchronize()
+    a_tex = fr.warp_adjoint(d_samp, rx, ry, scal, adj_bands, res, res)
+    a_tex_ref = fr.warp_adjoint_ref(d_samp, rx, ry, scal, res, res)
+    torch.cuda.synchronize()
     max_err["composite_bwd"] = max(max_err["composite_bwd"], rel_err(d_samp, d_samp_ref))
     max_err["splat"] = max(max_err["splat"], rel_err(d_tex, d_tex_ref))
-    if not (max_err["composite_bwd"] <= TOL and max_err["splat"] <= TOL):
+    max_err["adjoint"] = max(max_err["adjoint"], rel_err(a_tex, a_tex_ref), rel_err(a_tex, d_tex))
+    del a_tex, a_tex_ref
+    if not (max_err["composite_bwd"] <= TOL and max_err["splat"] <= TOL
+            and max_err["adjoint"] <= TOL):
         raise RuntimeError(f"a backward kernel disagrees with its plain version on the main "
                            f"path's inputs: {max_err}")
     del d_samp_ref, d_tex_ref, d_tex
@@ -526,6 +641,8 @@ def main() -> int:
         "composite_bwd": pairs * 16 + 5 * n_pix * 4 + scal.numel() * 4 + stack,
         # live d_samp + rx, ry, n_live + scal; d_tex written whole
         "splat": pairs * 16 + 3 * n_pix * 4 + scal.numel() * 4 + stack,
+        # live d_samp + rx, ry + scal + the window starts; d_tex written whole
+        "adjoint": pairs * 16 + 2 * n_pix * 4 + scal.numel() * 4 + bs * n_train * res * 4 + stack,
     }
     with torch.no_grad():
         t_fwd_train = time_ms(fwd_train)
@@ -540,9 +657,17 @@ def main() -> int:
         t_splat = time_ms(lambda: fr.warp_splat(d_samp, rx, ry, scal, res, res, n_live=n_live))
         t_splat_plain = time_ms(lambda: fr.warp_splat_ref(d_samp, rx, ry, scal, res, res,
                                                           n_live=n_live), iters=5, warmup=1)
-    # one PyTorch call that computes the splat's function: grid_sample's backward
-    # (timed here as a yardstick, used nowhere in the port)
-    from gmpi_tpu_torch.core.renderer import homography_grid
+        # the adjoint in turn with the splat: splat, adjoint, adjoint, splat
+        t_adj = [time_ms(lambda: fr.warp_adjoint(d_samp, rx, ry, scal, adj_bands, res, res))
+                 for _ in range(2)]
+        t_splat_again = time_ms(lambda: fr.warp_splat(d_samp, rx, ry, scal, res, res,
+                                                      n_live=n_live))
+        t_adj_starts = time_ms(lambda: fr.adjoint_starts(rx, ry, scal, adj_bands, res, res))
+        t_adj_plain = time_ms(lambda: fr.warp_adjoint_ref(d_samp, rx, ry, scal, res, res),
+                              iters=5, warmup=1)
+    t_adj = min(t_adj)
+    # one PyTorch call that computes the splat's and the adjoint's function:
+    # grid_sample's backward (timed here as a yardstick, used nowhere in the port)
     per_plane = lambda x: x[:, None].expand(bs, n_train, *x.shape[1:]).reshape(  # noqa: E731
         bs * n_train, *x.shape[1:])
     grid, _ = homography_grid(geom_train.dhw.repeat(bs, 1), per_plane(eye), per_plane(ray_dir),
@@ -565,6 +690,11 @@ def main() -> int:
     log(f"splat: {t_splat:.4f} ms, plain {t_splat_plain:.3f} ms, grid_sample backward "
         f"{t_splat_lib:.4f} ms, needs {work['splat']} B; bound {bounds['splat'][0]:.5f} ms "
         f"({card})")
+    log(f"adjoint (windows {adj_bands}): {t_adj:.4f} ms, of which the window starts "
+        f"(searchsorted, PyTorch ops) {t_adj_starts:.4f} ms; the splat timed around it "
+        f"{t_splat:.4f} / {t_splat_again:.4f} ms; plain {t_adj_plain:.3f} ms, grid_sample "
+        f"backward {t_splat_lib:.4f} ms, needs {work['adjoint']} B; bound "
+        f"{bounds['adjoint'][0]:.5f} ms ({card})")
     del warped, d_samp
     torch.cuda.empty_cache()
 
@@ -596,10 +726,136 @@ def main() -> int:
     del mpi, mpi_w
     torch.cuda.empty_cache()
 
-    def entry(kname, line, ms, plain_ms, b, library_ms, **extra):
+    # -- 6. banded serving path ------------------------------------------------------------
+    gen_b = FakeImageGenerator(cfg, gen_module, use_fused=False, device=dev)
+    if gen_b.tiled_bands != tiled_bands:
+        raise RuntimeError(f"the harness planned {gen_b.tiled_bands}, expected {tiled_bands}")
+    calls = {"row_steps": 0, "gather_args": None}
+    warp_row_tiles, gather_patches = tw._warp_row_tiles, tw.gather_patches
+
+    def counted_row_step(*args, **kw):
+        calls["row_steps"] += 1
+        return warp_row_tiles(*args, **kw)
+
+    def recorded_gather(texf, offs, band_x, band_yc, **kw):
+        calls["gather_args"] = (texf, offs, band_x, band_yc)
+        return gather_patches(texf, offs, band_x, band_yc, **kw)
+
+    tw._warp_row_tiles, tw.gather_patches = counted_row_step, recorded_gather
+    banded_ms, errs_b = [], []
+    torch.cuda.reset_peak_memory_stats()
+    for kname in fr.LAUNCHES:
+        fr.LAUNCHES[kname] = 0
+    try:
+        for seed, mpi in zip(seeds, mpis):
+            yv, pv = gen_b.sample_views(seed, n_views)
+            mpi_v = mpi.expand(n_views, -1, -1, -1, -1)
+            (color, depth), ms = host_ms(lambda: gen_b.render(mpi_v, yv, pv))
+            banded_ms.append(ms)
+            ray_dir, eye, z_dir = rays_at(yv, pv)
+            with torch.no_grad():
+                gather = render_mpi(mpi_v, geom.dhw, ray_dir, eye, z_dir)
+            errs_b.append(max(float((color - (gather.color * 2.0 - 1.0)).abs().max()),
+                              float((depth - gather.depth).abs().max())))
+        peak_banded = torch.cuda.max_memory_allocated() / 1e9
+        # the last MPI again, in slabs of 24 planes (the second of two calls is
+        # timed: the first meets the matrix products' shapes for the first time)
+        torch.cuda.reset_peak_memory_stats()
+        with torch.no_grad():
+            for _ in range(2):
+                chunked, chunked_ms = host_ms(lambda: render_mpi_chunked(
+                    mpi_v, geom.dhw, ray_dir, eye, z_dir, plane_chunk=24,
+                    tiled_bands=tiled_bands, patch_backend="cuda"))
+        peak_chunked = torch.cuda.max_memory_allocated() / 1e9
+        banded_launches = dict(fr.LAUNCHES)
+    finally:
+        tw._warp_row_tiles, tw.gather_patches = warp_row_tiles, gather_patches
+    err_chunk = max(float((a - b).abs().max()) for a, b in zip(chunked, gather))
+    per_plane = lambda x: x[:, None].expand(n_views, n_planes, *x.shape[1:]).reshape(  # noqa: E731
+        n_views * n_planes, *x.shape[1:])
+    grid, _ = homography_grid(geom.dhw.repeat(n_views, 1), per_plane(eye), per_plane(ray_dir),
+                              per_plane(z_dir))
+    covered = bool(tw.bands_cover((n_views * n_planes, 4, res, res), grid, band_y, band_x,
+                                  tile=(8, res)))
+    del grid
+    expected = {**dict.fromkeys(fr.LAUNCHES, 0), "patch_gather": calls["row_steps"]}
+    log(f"banded serving path: {len(seeds)} seeds x {n_views} views x {n_planes} planes in one "
+        f"call each (tile rows in groups under {renderer_mod.TILED_STEP_BYTES / 2 ** 30:.0f} GiB "
+        f"of hats), then two renders in slabs of 24 planes; {calls['row_steps']} tile-row steps, "
+        f"launches {banded_launches}")
+    log(f"banded render vs gather renderer: {['%.2e' % e for e in errs_b]}, chunked {err_chunk:.2e} "
+        f"(gate 5e-4); bands cover the sampled poses: {covered}")
+    log(f"banded render ms per call of {n_views} views: {['%.1f' % x for x in banded_ms]}, in "
+        f"slabs {chunked_ms:.1f}; peak memory {peak_banded:.2f} GB in one call, "
+        f"{peak_chunked:.2f} GB in slabs ({card})")
+    if banded_launches != expected or calls["row_steps"] == 0:
+        raise RuntimeError(f"banded path launched {banded_launches}, expected {expected}")
+    if not (max(errs_b) <= 5e-4 and err_chunk <= 5e-4):  # also catches NaN
+        raise RuntimeError("the banded render disagrees with the gather renderer")
+    if not covered:
+        raise RuntimeError("the planned bands do not cover the sampled poses")
+
+    # the patch gather at this path's inputs (the last tile-row step's texture and offsets)
+    texf, offs, _, _ = calls["gather_args"]
+    out, ref = pg.gather_patches(texf, offs, band_x, band_yc), pg.gather_patches_ref(
+        texf, offs, band_x, band_yc)
+    torch.cuda.synchronize()
+    if not torch.equal(out, ref):
+        max_err["patch_gather"] = float("inf")
+        raise RuntimeError("patch_gather disagrees with its plain version on the path's inputs")
+    # one PyTorch call for the same copy: the advanced index alone, its indices made beforehand
+    n_idx = torch.arange(texf.shape[0], device=dev).reshape(-1, 1, 1, 1)
+    rows_i = (offs[..., 0, None].long() + torch.arange(band_x, device=dev))[..., None]
+    cols_i = (offs[..., 1, None].long() + torch.arange(band_yc, device=dev))[:, :, None, :]
+    t_pg = time_ms(lambda: pg.gather_patches(texf, offs, band_x, band_yc, validate=False))
+    t_pg_plain = time_ms(lambda: pg.gather_patches_ref(texf, offs, band_x, band_yc))
+    t_pg_lib = time_ms(lambda: texf[n_idx, rows_i, cols_i])
+    pg_bytes = 2 * out.numel() * out.element_size() + offs.numel() * 4
+    pg_bound = bound(pg_bytes, 0, rates)
+    log(f"patch_gather at the path's inputs ({tuple(out.shape)} f32 from {tuple(texf.shape)}): "
+        f"{t_pg:.4f} ms, plain {t_pg_plain:.4f} ms, one advanced index {t_pg_lib:.4f} ms, needs "
+        f"{pg_bytes} B; bound {pg_bound[0]:.5f} ms ({card})")
+    del out, ref, texf, offs, n_idx, rows_i, cols_i
+
+    # where the banded render's time goes: one call under the profiler, by the tiled
+    # warp's spans; beside it the fused and the gather render of the same MPI
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    gen_b.render(mpi_v, yv, pv)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        gen_b.render(mpi_v, yv, pv)
+        torch.cuda.synchronize()
+    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    kernels = [e for e in device if not e.is_user_annotation]
+    busy_ms = lambda es: sum(e.time_range.elapsed_us() for e in es) / 1e3  # noqa: E731
+    banded_spans = {}
+    for span in (e for e in device if e.is_user_annotation and e.name.startswith("tiled_warp.")):
+        inside = [e for e in kernels
+                  if span.time_range.start <= e.time_range.start < span.time_range.end]
+        banded_spans[span.name] = banded_spans.get(span.name, 0.0) + busy_ms(inside)
+    banded_busy = busy_ms(kernels)
+    banded_spans["other (pad, layout, composite)"] = banded_busy - sum(banded_spans.values())
+    with torch.no_grad():
+        t_banded = time_ms(lambda: gen_b.render(mpi_v, yv, pv), iters=5, warmup=1)
+        t_fused_same = time_ms(lambda: render_mpi_fused(mpi_v, geom.dhw, ray_dir, eye, z_dir))
+        t_gather_same = time_ms(lambda: render_mpi(mpi_v, geom.dhw, ray_dir, eye, z_dir),
+                                iters=5, warmup=1)
+    log(f"banded render of {n_views} views x {n_planes} planes: {t_banded:.2f} ms (CUDA events); "
+        f"device busy {banded_busy:.2f} ms under the profiler, by span: "
+        + ", ".join(f"{key} {val:.2f}" for key, val in banded_spans.items())
+        + f"; the same MPI and views: fused kernel {t_fused_same:.4f} ms, gather renderer "
+        f"{t_gather_same:.3f} ms ({card})")
+    del mpis, mpi_v, gen_b, gen_module, chunked, gather
+    torch.cuda.empty_cache()
+
+    main_paths = (serving_launches, train_launches, adjoint_launches, banded_launches)
+
+    def entry(kname, line, ms, plain_ms, b, library_ms, replaces="gmpi_tpu/ops/pallas_warp.py",
+              **extra):
         return {"name": kname, "route": "cuda", "source": f"gmpi_tpu_torch/csrc/{kname}.cu",
-                "replaces": f"gmpi_tpu/ops/pallas_warp.py:{line}",
-                "launches": serving_launches[kname] + train_launches[kname],
+                "replaces": f"{replaces}:{line}",
+                "launches": sum(path[kname] for path in main_paths),
                 "max_abs_err": max_err[kname], "err_scale": "max|plain| per field", "ms": ms,
                 "plain_ms": plain_ms, "bound_ms": b[0], "bound_by": b[1],
                 "library_ms": library_ms, **extra}
@@ -614,7 +870,16 @@ def main() -> int:
               also_replaces="gmpi_tpu/ops/pallas_warp.py:2295"),
         entry("splat", 1355, t_splat, t_splat_plain, bounds["splat"], t_splat_lib,
               also_replaces="gmpi_tpu/ops/pallas_warp.py:1184"),
-    ], "train_steps": n_steps, "train_step_ms": statistics.median(timed)}
+        entry("adjoint", 2029, t_adj, t_adj_plain, bounds["adjoint"], t_splat_lib,
+              window_starts_ms=t_adj_starts, splat_ms_around=[t_splat, t_splat_again],
+              windows=list(adj_bands)),
+        entry("patch_gather", 33, t_pg, t_pg_plain, pg_bound, t_pg_lib,
+              replaces="gmpi_tpu/ops/pallas_patch.py", err_scale="exact equality required"),
+    ], "train_steps": n_steps, "train_step_ms": statistics.median(timed),
+        "banded_render_ms": t_banded, "banded_spans_ms": banded_spans,
+        "banded_same_mpi_fused_ms": t_fused_same, "banded_same_mpi_gather_ms": t_gather_same,
+        "banded_peak_gb": peak_banded, "banded_chunked_peak_gb": peak_chunked,
+        "serving_gather_ms": serving_gather_ms}
     log(json.dumps(record))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -1,34 +1,42 @@
 """MPI renderer (port of ``gmpi_tpu/core/renderer.py``).
 
-Two paths with the reference renderer's semantics:
+Three paths with the reference renderer's semantics:
 
 * the gather path, :func:`render_mpi`: per-(view, plane) homography, bilinear
   ``F.grid_sample`` with zeros padding (and the 0.95 narrow-scale rule for
   ``align_corners=False``), then a vectorized front-to-back over-composite
   with weights ``alpha * cumprod(1 - alpha + 1e-10)``;
+* the banded path, :func:`render_mpi` / :func:`render_mpi_chunked` with
+  ``tiled_bands``: the same render with the sampling done by the tile-banded
+  warp of ``gmpi_tpu_torch.ops.tiled_warp`` (``patch_backend="cuda"`` takes
+  its patches through the patch-gather kernel); 4-field bands add the
+  scatter-free tiled adjoint as the warp's backward;
 * the fused path, :func:`render_mpi_fused`: the warp+composite kernel of
   ``gmpi_tpu_torch.ops.fused_render`` and, under autograd, its backward
-  kernels (composite backward, then splat) behind ``FusedRender``;
+  kernels behind ``FusedRender`` (composite backward, then the splat or,
+  given adjoint bands in ``plans``, the texture-space adjoint);
   :func:`render_mpi_fused_remat` renders slab by slab under
   ``torch.utils.checkpoint`` so that only one slab's residual is alive.
 
-Both are float32; the UV grid and per-pixel depth carry no gradient (the
+All are float32; the UV grid and per-pixel depth carry no gradient (the
 reference computes them under ``no_grad``), so gradients reach plane RGBA
-only, on either path.
+only, on every path, unless :func:`render_mpi` is asked for
+``stop_pose_grad=False``.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
-import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from gmpi_tpu_torch.ops import fused_render
+from gmpi_tpu_torch.ops.grid_sample import grid_sample_bilinear
 
 ALIGN_CORNERS_FALSE_NARROW_SCALE = 0.95
 COMPOSITE_EPS = 1e-10
+TILED_STEP_BYTES = 4 * 2 ** 30  # hats and mixed products alive in one step of the banded warp
 
 
 class RenderOutput(NamedTuple):
@@ -57,15 +65,52 @@ def homography_grid(dhw: torch.Tensor, eye_pos: torch.Tensor, ray_dir: torch.Ten
     return grid, (scale * dist2depth).reshape(n, 1, h, w)
 
 
+def _sample(rgba, grid, align_corners, tiled_bands, patch_backend="torch"):
+    """Warp-backend dispatch: the per-pixel gather (``F.grid_sample``), or the
+    tile-banded warp when ``tiled_bands = (band_y, band_x[, adj_rows,
+    adj_cols])`` is given; with the two adjoint fields its backward is the
+    scatter-free tiled adjoint."""
+    if tiled_bands is None:
+        return grid_sample_bilinear(rgba, grid, align_corners=align_corners)
+    from gmpi_tpu_torch.ops.tiled_warp import grid_sample_tiled, make_tiled_warp_with_adjoint
+
+    band_y, band_x = tiled_bands[0], tiled_bands[1]
+    h, w = grid.shape[1], grid.shape[2]
+    # must mirror core/bands.estimate_bands' tile heuristic
+    tile = (8 if h % 8 == 0 else 1,
+            256 if w % 256 == 0 else 128 if w % 128 == 0 else w)
+    # Loop over groups of tile rows to bound the live hat and patch memory:
+    # for large images as the JAX package does, and besides whenever one step
+    # over all tiles would hold more than TILED_STEP_BYTES of hats and mixed
+    # products (many textures in one call: a served MPI of 96 planes in 4
+    # views holds ~45 GB of them at 256^2), in groups sized to that budget.
+    nty = h // tile[0]
+    row_bytes = 4 * rgba.shape[0] * tile[0] * w * (band_x + band_y + band_y * rgba.shape[1])
+    if nty > 32:
+        row_scan, rows_per_step = True, max(1, nty // 64)
+    else:
+        row_scan = nty * row_bytes > TILED_STEP_BYTES
+        rows_per_step = max(1, min(nty, TILED_STEP_BYTES // row_bytes))
+    if len(tiled_bands) == 4:
+        fn = make_tiled_warp_with_adjoint(
+            band_y, band_x, (tiled_bands[2], tiled_bands[3]), tile=tile,
+            align_corners=align_corners, row_scan=row_scan, rows_per_step=rows_per_step,
+            patch_backend=patch_backend)
+        return fn(rgba, grid)
+    return grid_sample_tiled(rgba, grid, band_y=band_y, band_x=band_x, tile=tile,
+                             align_corners=align_corners, row_scan=row_scan,
+                             rows_per_step=rows_per_step, patch_backend=patch_backend)
+
+
 def warp_planes(rgba: torch.Tensor, dhw: torch.Tensor, eye_pos: torch.Tensor,
-                ray_dir: torch.Tensor, z_dir: torch.Tensor, align_corners: bool = True
+                ray_dir: torch.Tensor, z_dir: torch.Tensor, align_corners: bool = True,
+                tiled_bands: Optional[Tuple[int, ...]] = None, patch_backend: str = "torch"
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Inverse-warp flattened planes ``rgba [N, 4, Th, Tw]`` into their
     cameras: ``(rgb [N,3,H,W], disp [N,1,H,W], alpha [N,1,H,W])``."""
     with torch.no_grad():
         grid, depth = homography_grid(dhw, eye_pos, ray_dir, z_dir, align_corners)
-    sampled = F.grid_sample(rgba, grid, mode="bilinear", padding_mode="zeros",
-                            align_corners=align_corners)
+    sampled = _sample(rgba, grid, align_corners, tiled_bands, patch_backend)
     return sampled[:, :3], 1.0 / depth, sampled[:, 3:4]
 
 
@@ -81,6 +126,20 @@ def composite(rgb: torch.Tensor, alpha: torch.Tensor, depth: torch.Tensor,
     if disp is None:
         return color, depth_out
     return color, depth_out, torch.sum(weights * disp, dim=1)
+
+
+def composite_sequential(rgb: torch.Tensor, alpha: torch.Tensor, depth: torch.Tensor
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Back-to-front sequential over-compositing, ``out = rgb_l a_l + out (1 -
+    a_l + eps)`` from the farthest plane in: the same function as
+    :func:`composite` up to fp reassociation, kept as a cross-check."""
+    color = torch.zeros_like(rgb[:, 0])
+    depth_out = torch.zeros_like(depth[:, 0])
+    for i in range(rgb.shape[1] - 1, -1, -1):
+        a = alpha[:, i]
+        color = rgb[:, i] * a + color * (1.0 - a + COMPOSITE_EPS)
+        depth_out = depth[:, i] * a + depth_out * (1.0 - a + COMPOSITE_EPS)
+    return color, depth_out
 
 
 def composite_partial(rgb, alpha, depth, disp=None):
@@ -112,19 +171,32 @@ def _flatten_views(rgba, dhw, ray_dir, eye_pos, z_dir):
 
 
 def render_mpi(rgba: torch.Tensor, dhw: torch.Tensor, ray_dir: torch.Tensor,
-               eye_pos: torch.Tensor, z_dir: torch.Tensor, align_corners: bool = True
-               ) -> RenderOutput:
+               eye_pos: torch.Tensor, z_dir: torch.Tensor, align_corners: bool = True,
+               tiled_bands: Optional[Tuple[int, ...]] = None, stop_pose_grad: bool = True,
+               patch_backend: str = "torch") -> RenderOutput:
     """Render ``rgba [V, L, 4, Th, Tw]`` (RGB and alpha in [0, 1], plane 0
     nearest) into one camera per view: dhw ``[L, 3]`` or ``[V, L, 3]``,
-    ray_dir ``[V, 3, H, W]``, eye_pos / z_dir ``[V, 3]``."""
+    ray_dir ``[V, 3, H, W]``, eye_pos / z_dir ``[V, 3]``.
+
+    ``tiled_bands`` (from ``core.bands``) samples through the tile-banded warp
+    instead of the per-pixel gather, its patches gathered by
+    ``patch_backend`` (``"torch"`` or ``"cuda"``, the kernel).
+    ``stop_pose_grad=False`` is the differentiable-pose mode: the sampling
+    grid and the per-pixel depth keep their graph to ``dhw`` / ``ray_dir`` /
+    ``eye_pos`` / ``z_dir``; it samples through plain autograd (2-field bands
+    and the ``"torch"`` backend), since the custom adjoint cuts grid gradients."""
     v, n_l = rgba.shape[0], rgba.shape[1]
     h, w = ray_dir.shape[2], ray_dir.shape[3]
     flat_rgba, flat_dhw, flat_ray, flat_eye, flat_z = _flatten_views(
         rgba, dhw, ray_dir, eye_pos, z_dir)
-    with torch.no_grad():
+    if stop_pose_grad:
+        with torch.no_grad():
+            grid, depth = homography_grid(flat_dhw, flat_eye, flat_ray, flat_z, align_corners)
+        sampled = _sample(flat_rgba, grid, align_corners, tiled_bands, patch_backend)
+    else:
         grid, depth = homography_grid(flat_dhw, flat_eye, flat_ray, flat_z, align_corners)
-    sampled = F.grid_sample(flat_rgba, grid, mode="bilinear", padding_mode="zeros",
-                            align_corners=align_corners)
+        bands2 = tuple(tiled_bands[:2]) if tiled_bands is not None else None
+        sampled = _sample(flat_rgba, grid, align_corners, bands2)
     # the reference's fp order: disp = 1/depth, then depth = 1/disp
     disp = 1.0 / depth
     depth = 1.0 / disp
@@ -135,7 +207,8 @@ def render_mpi(rgba: torch.Tensor, dhw: torch.Tensor, ray_dir: torch.Tensor,
 
 
 def render_slab_partial(rgba, dhw, ray_dir, eye_pos, z_dir, align_corners: bool = True,
-                        with_disp: bool = False):
+                        tiled_bands: Optional[Tuple[int, ...]] = None,
+                        patch_backend: str = "torch", with_disp: bool = False):
     """Warp + partially composite one plane slab; partials for
     :func:`combine_segments` (a 4-tuple with disparity when ``with_disp``)."""
     v, n_l = rgba.shape[0], rgba.shape[1]
@@ -143,12 +216,53 @@ def render_slab_partial(rgba, dhw, ray_dir, eye_pos, z_dir, align_corners: bool 
     flat_rgba, flat_dhw, flat_ray, flat_eye, flat_z = _flatten_views(
         rgba, dhw, ray_dir, eye_pos, z_dir)
     rgb, disp, alpha = warp_planes(flat_rgba, flat_dhw, flat_eye, flat_ray, flat_z,
-                                   align_corners)
+                                   align_corners, tiled_bands, patch_backend)
     depth = (1.0 / disp).reshape(v, n_l, 1, h, w)
     rgb = rgb.reshape(v, n_l, 3, h, w)
     alpha = alpha.reshape(v, n_l, 1, h, w)
     disp = disp.reshape(v, n_l, 1, h, w) if with_disp else None
     return composite_partial(rgb, alpha, depth, disp)
+
+
+def render_mpi_chunked(rgba: torch.Tensor, dhw: torch.Tensor, ray_dir: torch.Tensor,
+                       eye_pos: torch.Tensor, z_dir: torch.Tensor, plane_chunk: int,
+                       align_corners: bool = True, remat: bool = False,
+                       tiled_bands: Optional[Sequence] = None, patch_backend: str = "torch",
+                       with_disp: bool = True) -> RenderOutput:
+    """Memory-bounded render: planes go through in contiguous front-to-back
+    slabs of ``plane_chunk`` (a loop) and their partials combine by segment
+    compositing, so the peak footprint is one slab's warped planes, not all
+    ``L``.  ``remat=True`` also rematerializes each slab's warp in the
+    backward pass (``torch.utils.checkpoint``) instead of keeping its
+    residuals.  ``tiled_bands`` is one band tuple for all slabs or a sequence
+    of one tuple per slab (plane extents grow front to back, so near slabs
+    get by with smaller bands)."""
+    v, n_l = rgba.shape[0], rgba.shape[1]
+    if plane_chunk < 1 or n_l % plane_chunk:
+        raise ValueError(f"plane_chunk {plane_chunk} does not divide {n_l} planes")
+    n_chunks = n_l // plane_chunk
+    if dhw.ndim == 2:
+        dhw = dhw[None].expand(v, n_l, 3)
+    per_chunk = (tiled_bands is not None and len(tiled_bands) > 0
+                 and isinstance(tiled_bands[0], (tuple, list)))
+    if per_chunk and len(tiled_bands) != n_chunks:
+        raise ValueError(f"{len(tiled_bands)} band tuples for {n_chunks} slabs")
+
+    carry = None
+    for k in range(n_chunks):
+        bands = tuple(tiled_bands[k]) if per_chunk else tiled_bands
+
+        def slab(r, d, bands=bands):
+            return render_slab_partial(r, d, ray_dir, eye_pos, z_dir, align_corners, bands,
+                                       patch_backend, with_disp=with_disp)
+
+        sl = slice(k * plane_chunk, (k + 1) * plane_chunk)
+        if remat:
+            part = checkpoint(slab, rgba[:, sl], dhw[:, sl], use_reentrant=False)
+        else:
+            part = slab(rgba[:, sl], dhw[:, sl])
+        carry = part if carry is None else combine_segments(carry, part)
+    return RenderOutput(color=carry[0], depth=carry[1], disp=carry[2] if with_disp else None)
 
 
 def _fused_inputs(rgba, dhw, ray_dir, eye_pos, z_dir):
@@ -164,16 +278,50 @@ def _fused_inputs(rgba, dhw, ray_dir, eye_pos, z_dir):
 
 
 def _fused_partials(rgba, dhw, ray_dir, eye_pos, z_dir, early_out: bool, with_disp: bool,
-                    grad_sparsity: bool) -> Tuple[torch.Tensor, ...]:
+                    grad_sparsity: bool, adjoint_bands=None) -> Tuple[torch.Tensor, ...]:
     """``(color, depth[, disp], trans)`` premultiplied partials: through
-    ``FusedRender`` when a gradient is wanted, else the inference form of the
-    forward kernel (no residual)."""
+    ``FusedRender`` when a gradient is wanted (its backward's last stage the
+    splat, or the texture-space adjoint given ``adjoint_bands``), else the
+    inference form of the forward kernel (no residual)."""
     wants_grad = torch.is_grad_enabled() and rgba.requires_grad
     rgba, rx, ry, q, scal = _fused_inputs(rgba, dhw, ray_dir, eye_pos, z_dir)
     if wants_grad:
-        return fused_render.FusedRender.apply(rgba, rx, ry, q, scal, with_disp, grad_sparsity)
+        return fused_render.FusedRender.apply(rgba, rx, ry, q, scal, with_disp, grad_sparsity,
+                                              adjoint_bands)
     return fused_render.warp_composite_fwd(rgba, rx, ry, q, scal, early_out=early_out,
                                            with_disp=with_disp)
+
+
+def plan_fused(dhw: torch.Tensor, ray_dir: torch.Tensor, eye_pos: torch.Tensor,
+               z_dir: torch.Tensor, tex_h: int, tex_w: int, margin: int = 2):
+    """Host-side planning of the fused renderer's texture-space adjoint
+    route: the ``plans`` pair for :func:`render_mpi_fused`, ``(None,
+    (AdjointBands,))``.  The forward and the splat need no plan here (a thread
+    per pixel gathers and scatters on its own), so the pair's first half is
+    None; the adjoint kernel needs the windows that
+    ``fused_render.plan_adjoint`` measures.  Call it with concrete poses at
+    the corners of the pose range (for training, the truncation corners), so
+    the static windows cover every pose the sampler can draw.  Raises where
+    the warp is not monotone."""
+    with torch.no_grad():
+        scal = fused_render.plane_affine(dhw.float().cpu(), eye_pos.float().cpu(), tex_h, tex_w)
+        rx, ry, _ = fused_render.ray_fields(ray_dir.float().cpu(), z_dir.float().cpu())
+    return None, (fused_render.plan_adjoint(scal, rx, ry, tex_h, tex_w, margin=margin),)
+
+
+def _adjoint_bands_of(plans):
+    """The adjoint bands of a ``plans`` pair, or None for the splat route
+    (``plans=None``, or a pair whose second half holds no ``AdjointBands``)."""
+    if plans is None:
+        return None
+    _, adj_plan = plans
+    if not adj_plan or not isinstance(adj_plan[0], fused_render.AdjointBands):
+        return None
+    if len(adj_plan) != 1:
+        raise ValueError(f"plans: one AdjointBands covers the whole stack here, got "
+                         f"{len(adj_plan)} (the per-chunk band sets of the TPU plan have no "
+                         f"counterpart)")
+    return adj_plan[0]
 
 
 def render_mpi_fused(rgba: torch.Tensor, dhw: torch.Tensor, ray_dir: torch.Tensor,
@@ -191,12 +339,16 @@ def render_mpi_fused(rgba: torch.Tensor, dhw: torch.Tensor, ray_dir: torch.Tenso
     transmittance.  With one, it keeps the residual and stops a pixel by the
     grad-safe rule (``fused_render.GRAD_TAU``) whatever ``early_out`` says:
     the transmittance rule would corrupt an occluder's alpha gradient.
-    ``plans`` is accepted for the JAX signature and unused: a per-pixel CUDA
-    gather needs no static bands.  ``with_disp=False`` leaves ``disp`` None.
+
+    ``plans`` selects the backward's last stage, as in the JAX package: a
+    ``(plan, adj_plan)`` pair whose ``adj_plan`` holds ``AdjointBands`` (from
+    :func:`plan_fused`) takes the texture-space adjoint kernel, deterministic
+    and atomic-free; ``None``, or any other plan, takes the splat.  The
+    forward needs no plan (a per-pixel CUDA gather has no static bands).
+    ``with_disp=False`` leaves ``disp`` None.
     """
-    del plans
     outs = _fused_partials(rgba, dhw, ray_dir, eye_pos, z_dir, early_out, with_disp,
-                           grad_sparsity=True)
+                           grad_sparsity=True, adjoint_bands=_adjoint_bands_of(plans))
     return RenderOutput(color=outs[0], depth=outs[1], disp=outs[2] if with_disp else None)
 
 
@@ -236,3 +388,37 @@ def render_mpi_fused_remat(rgba: torch.Tensor, dhw: torch.Tensor, ray_dir: torch
                           use_reentrant=False)
         carry = part if carry is None else combine_segments(carry, part)
     return RenderOutput(color=carry[0], depth=carry[1], disp=carry[2] if with_disp else None)
+
+
+def ray_coverage_ok(dhw_last: torch.Tensor, eye_pos: torch.Tensor, ray_dir: torch.Tensor,
+                    z_dir: torch.Tensor, align_corners: bool = True) -> torch.Tensor:
+    """0-dim bool tensor: True iff every ray of every view intersects the
+    *last* plane inside its extent (the reference checks this on every
+    forward).  dhw_last ``[3]`` or ``[V, 3]``, eye_pos / z_dir ``[V, 3]``,
+    ray_dir ``[V, 3, H, W]``.  No host synchronization."""
+    v = ray_dir.shape[0]
+    dl = torch.as_tensor(dhw_last, dtype=torch.float32, device=ray_dir.device)
+    if dl.ndim == 1:
+        dl = dl[None].expand(v, 3)
+    grid, _ = homography_grid(dl, eye_pos.float(), ray_dir.float(), z_dir.float(), align_corners)
+    return torch.all(torch.abs(grid) <= 1.0)
+
+
+def poison_if_rays_escape(color: torch.Tensor, dhw_last: torch.Tensor, eye_pos: torch.Tensor,
+                          ray_dir: torch.Tensor, z_dir: torch.Tensor,
+                          align_corners: bool = True) -> torch.Tensor:
+    """Debug-mode analogue of the reference's ``assert_not_out_of_last_plane``:
+    NaN-poison the rendered color when any ray leaves the last plane's extent,
+    so that a bad (pose, volume) combination shows at the consumer instead of
+    silently compositing zeros padding (``TrainHparams.debug_ray_check``)."""
+    ok = ray_coverage_ok(dhw_last, eye_pos, ray_dir, z_dir, align_corners)
+    return torch.where(ok, color, float("nan"))
+
+
+def check_rays_hit_last_plane(dhw_last: torch.Tensor, eye_pos: torch.Tensor,
+                              ray_dir: torch.Tensor, z_dir: torch.Tensor,
+                              align_corners: bool = True) -> bool:
+    """Eager check that every ray intersects the last plane inside its extent
+    (a Python bool; synchronizes).  dhw_last ``[V, 3]``."""
+    grid, _ = homography_grid(dhw_last, eye_pos, ray_dir, z_dir, align_corners)
+    return bool(torch.all((grid >= -1) & (grid <= 1)))

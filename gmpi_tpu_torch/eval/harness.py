@@ -12,6 +12,7 @@ import torch
 
 from gmpi_tpu_torch.config import ExperimentConfig
 from gmpi_tpu_torch.core import camera as cam
+from gmpi_tpu_torch.core.bands import bands_for_config
 from gmpi_tpu_torch.core import poses as poses_mod
 from gmpi_tpu_torch.core.renderer import render_mpi, render_mpi_fused
 from gmpi_tpu_torch.eval.generate import generate_mpi
@@ -24,7 +25,12 @@ class FakeImageGenerator:
 
     ``generator`` is moved to ``device`` (CUDA by default) and put in eval
     mode.  ``use_fused`` renders through the fused warp+composite kernel (on
-    the CPU, its plain PyTorch version); otherwise through the gather path.
+    the CPU, its plain PyTorch version).  Otherwise the render goes through
+    ``render_mpi`` with the static tile bands of ``bands_for_config`` (the
+    banded path; its patches come through the patch-gather kernel when the
+    device is a CUDA card, through an advanced index on the CPU), or, for
+    images under 128 pixels, for which no bands are planned, through the
+    per-pixel gather.
     ``sanity_full_alpha`` forces every plane opaque, so the render collapses
     to the nearest plane's RGB (the reference's StyleGAN2 sanity mode).
     """
@@ -48,6 +54,9 @@ class FakeImageGenerator:
         self.xyz_dict = cfg.multi_res_xyz(self.geom)
         self.intr = cam.intrinsics_from_fov(cfg.fov_deg, self.img_size, self.img_size)
         self.use_fused = use_fused and cfg.planes.align_corners
+        self.patch_backend = "cuda" if self.device.type == "cuda" else "torch"
+        self.tiled_bands = None if self.use_fused else bands_for_config(
+            cfg, img_size=self.img_size, n_planes=self.n_planes)
 
     @torch.no_grad()
     def sample_mpi(self, seed: int, batch: int = 1) -> torch.Tensor:
@@ -78,5 +87,6 @@ class FakeImageGenerator:
             out = render_mpi_fused(mpi, self.geom.dhw, ray_dir, eye, z_dir)
         else:
             out = render_mpi(mpi, self.geom.dhw, ray_dir, eye, z_dir,
-                             self.cfg.planes.align_corners)
+                             self.cfg.planes.align_corners, tiled_bands=self.tiled_bands,
+                             patch_backend=self.patch_backend)
         return out.color * 2.0 - 1.0, out.depth

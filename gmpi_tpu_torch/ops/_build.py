@@ -6,6 +6,10 @@ into its own shared library with a plain C interface,
 a hash of the sources and flags (a changed source builds anew; an unchanged
 one is reused).  All sources compile in parallel, one ``nvcc`` each.  Only
 repository sources are used; a missing ``nvcc`` raises.
+
+:func:`launch` calls a built kernel's C entry point on the current stream and
+counts the launch in ``LAUNCHES``, the one table of launches by kernel that
+every wrapper of the port adds to.
 """
 
 from __future__ import annotations
@@ -17,12 +21,16 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, NamedTuple
+from typing import Dict, NamedTuple, Sequence
+
+import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "gmpi_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# kernel launches by kernel (the stem of its csrc/<name>.cu)
+LAUNCHES = {"fused_fwd": 0, "composite_bwd": 0, "splat": 0, "adjoint": 0, "patch_gather": 0}
 
 
 class Built(NamedTuple):
@@ -99,3 +107,19 @@ def load(name: str) -> ctypes.CDLL:
             raise RuntimeError(f"no CUDA source csrc/{name}.cu")
         lib = _loaded.setdefault(name, ctypes.CDLL(str(built[name].path)))
     return lib
+
+
+def launch(name: str, argtypes: Sequence, dev: torch.device, *args) -> None:
+    """Launch the kernel of ``csrc/<name>.cu`` (built at first use) through its
+    C entry point ``gmpi_<name>(*args, stream)`` on the current stream of
+    ``dev``; ``argtypes`` are the ctypes of ``args`` and the stream.  Raises if
+    the launch is refused, counts it in ``LAUNCHES`` otherwise."""
+    fn = getattr(load(name), "gmpi_" + name)
+    if fn.argtypes is None:
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+    with torch.cuda.device(dev):
+        err = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
+    LAUNCHES[name] += 1

@@ -2,7 +2,7 @@
 Function around them (port of the TPU kernels behind ``make_fused_renderer``
 in ``gmpi_tpu/ops/pallas_warp.py``).
 
-Three wrappers, each with its hand-written CUDA kernel and, beside it, a plain
+Four wrappers, each with its hand-written CUDA kernel and, beside it, a plain
 PyTorch version that repeats the kernel's arithmetic:
 
 * :func:`warp_composite_fwd` -> ``csrc/fused_fwd.cu`` (``_fwd_kernel``): warp
@@ -13,27 +13,38 @@ PyTorch version that repeats the kernel's arithmetic:
   and ``_composite_bwd_kernel``): cotangents of the composited outputs back
   onto the warped samples;
 * :func:`warp_splat` -> ``csrc/splat.cu`` (``_splat_plane_kernel`` and
-  ``_splat_kernel``): the warp's transpose, sample cotangents onto texels.
+  ``_splat_kernel``): the warp's transpose, sample cotangents onto texels,
+  scattered pixel by pixel with atomics;
+* :func:`warp_adjoint` -> ``csrc/adjoint.cu`` (``_adj_kernel``): the same
+  transpose gathered texel by texel, with static windows planned on the host
+  (:func:`plan_adjoint`, :class:`AdjointBands`); no atomics, bitwise
+  repeatable.
 
 A CUDA tensor goes to the kernel or the call raises; a CPU tensor goes to the
 plain version (``*_ref``), which is what the CPU tests and the on-card
 comparison run.  Each kernel launch adds one to its entry of ``LAUNCHES``.
-:class:`FusedRender` ties the three into one differentiable function of the
-plane RGBA.
+:class:`FusedRender` ties them into one differentiable function of the plane
+RGBA: forward, composite backward, then the splat or, given adjoint bands,
+the adjoint.
 
 Layout is the port's public ``[V, C, H, W]``: the TPU kernels' subtile-flat
-pixel layout, DMA bands, band planning and per-plane liveness bitmap have no
-counterpart, because a thread per pixel gathers, scatters and skips on its
-own.
+pixel layout, DMA bands, forward and splat band planning and per-plane
+liveness bitmap have no counterpart, because a thread per pixel gathers,
+scatters and skips on its own.  Only the adjoint keeps a plan: a texel's
+thread has to know where in the image to look.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple, Union
+from typing import NamedTuple, Optional, Tuple, Union
 
+import numpy as np
 import torch
 from torch.autograd.function import once_differentiable
+
+from gmpi_tpu_torch.ops import _build
+from gmpi_tpu_torch.ops._build import LAUNCHES  # noqa: F401  (launches by kernel; re-exported)
 
 EPS = 1e-10          # composite epsilon (the reference's ``gmpi/core/mpi.py:421``)
 EARLY_OUT_T = 1e-6   # inference: a pixel stops once its transmittance falls below this
@@ -42,7 +53,6 @@ EARLY_OUT_T = 1e-6   # inference: a pixel stops once its transmittance falls bel
 # Every gradient path out of a plane divides by at most one such factor, and
 # S / M removes exactly the smallest, so what is dropped is O(tau) absolute.
 GRAD_TAU = 1e-7
-LAUNCHES = {"fused_fwd": 0, "composite_bwd": 0, "splat": 0}  # kernel launches, by kernel
 MAX_PLANES = 2048    # the [L, 6] affine table is staged in 48 KB of shared memory
 
 
@@ -175,24 +185,12 @@ _ARGTYPES = {  # of the C entry point gmpi_<name> of csrc/<name>.cu; the last is
     "fused_fwd": [_P, ctypes.c_longlong] + [_P] * 10 + [_I] * 8 + [_F, _P],
     "composite_bwd": [_P] * 9 + [_I] * 4 + [_F, _I, _F, _P],
     "splat": [_P] * 6 + [_I] * 6 + [_P],
+    "adjoint": [_P] * 6 + [_I] * 8 + [_P],
 }
 
 
 def _launch(name: str, dev: torch.device, *args) -> None:
-    """Launch the kernel of ``csrc/<name>.cu`` (built at first use) on the
-    current stream of ``dev``; raise if the launch is refused, count it
-    otherwise."""
-    from gmpi_tpu_torch.ops import _build
-
-    fn = getattr(_build.load(name), "gmpi_" + name)
-    if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES[name]
-        fn.restype = ctypes.c_int
-    with torch.cuda.device(dev):
-        err = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
-    LAUNCHES[name] += 1
+    _build.launch(name, _ARGTYPES[name], dev, *args)
 
 
 def warp_composite_fwd(tex: torch.Tensor, rx: torch.Tensor, ry: torch.Tensor,
@@ -434,15 +432,168 @@ def warp_splat(d_samp: torch.Tensor, rx: torch.Tensor, ry: torch.Tensor, scal: t
     return d_tex
 
 
+class AdjointBands(NamedTuple):
+    """Static windows of the texture-space adjoint kernel, planned on the host
+    (:func:`plan_adjoint`) for a pose range.
+
+    The numbers are plain pixel counts: ``d_u`` is how many image rows can
+    hold a pixel whose ``fy`` lies within one texel of a given texel row, the
+    worst case over texel rows, planes and planned poses, plus the margin;
+    ``d_v`` the same for image columns and ``fx``.  (The TPU kernel's fields
+    of the same names count tap offsets along a 16-row strip's rebased
+    diagonal and carry a third, DMA-row field; neither notion exists here.)
+    The kernel walks the smaller of the two windows and bisects the other
+    axis, so it needs the windows and that the warp is monotone, nothing else.
+    """
+    d_u: int
+    d_v: int
+
+
+def _line_extrema(rx, ry, scal, rows: bool, largest: bool = True) -> torch.Tensor:
+    """The largest (or smallest) ``fy`` of each image row (``rows``: ``[V, L,
+    H]``) or ``fx`` of each image column (``[V, L, W]``), per (view, plane).
+    ``Ax, Ay > 0`` (planes in front of the eye, which :func:`plan_adjoint`
+    checks), so the extremum of the ray field is the coordinate's."""
+    pick = torch.amax if largest else torch.amin
+    field, dim, a, b = (ry, 2, 2, 3) if rows else (rx, 1, 0, 1)
+    return scal[..., a, None] * pick(field, dim=dim)[:, None] + scal[..., b, None]
+
+
+def plan_adjoint(scal, rx, ry, tex_h: int, tex_w: int, margin: int = 2) -> AdjointBands:
+    """Windows of the adjoint kernel for the poses given (host work on
+    concrete tensors; plan at the corners of the pose range so the windows
+    cover every pose in it).  scal ``[V, L, 6]`` (or ``[L, 6]``), rx, ry ``[V,
+    H, W]``.  Raises ``ValueError`` where the warp is not monotone: the kernel
+    bisects ``fy`` along image columns and ``fx`` along image rows, and finds
+    its window starts from sorted row and column extrema."""
+    scal = torch.as_tensor(scal, dtype=torch.float32).cpu()
+    rx = torch.as_tensor(rx, dtype=torch.float32).cpu()
+    ry = torch.as_tensor(ry, dtype=torch.float32).cpu()
+    if scal.ndim == 2:
+        scal = scal[None].expand(rx.shape[0], -1, -1)
+    if bool((scal[..., 0] <= 0).any()) or bool((scal[..., 2] <= 0).any()):
+        raise ValueError("plan_adjoint: a plane at or behind the eye (Ax, Ay must be positive)")
+    if bool((torch.diff(rx, dim=2) < -1e-6).any()) or bool((torch.diff(ry, dim=1) < -1e-6).any()):
+        raise ValueError("plan_adjoint: the warp is not monotone along image rows and columns "
+                         "(fx must not decrease along a row, fy along a column); the adjoint "
+                         "kernel cannot serve these poses, use the splat route")
+    spans = []
+    for rows, n_tex in ((True, tex_h), (False, tex_w)):
+        f_max = _line_extrema(rx, ry, scal, rows).numpy()
+        f_min = _line_extrema(rx, ry, scal, rows, largest=False).numpy()
+        t = np.arange(n_tex, dtype=np.float32)
+        span = 1
+        for vi in range(f_max.shape[0]):
+            for li in range(f_max.shape[1]):
+                first = np.searchsorted(f_max[vi, li], t - 1.0, side="right")
+                last = np.searchsorted(f_min[vi, li], t + 1.0, side="left") - 1
+                span = max(span, int((last - first + 1).max()))
+        spans.append(span + 1 + margin)  # one pixel for the start's rounding guard
+    return AdjointBands(d_u=spans[0], d_v=spans[1])
+
+
+def adjoint_starts(rx: torch.Tensor, ry: torch.Tensor, scal: torch.Tensor,
+                   bands: AdjointBands, tex_h: int, tex_w: int) -> Tuple[torch.Tensor, bool]:
+    """Window starts of the adjoint kernel (device work, no synchronization):
+    ``(starts, scan_cols)``.  The kernel walks the smaller of the two planned
+    windows and bisects the other axis.  With ``scan_cols`` (``d_v <= d_u``)
+    ``starts [V, L, tex_w]`` int32 holds, per texel column ``x``, the first
+    image column whose largest ``fx`` reaches ``x - 1``; else ``starts [V, L,
+    tex_h]`` holds the first image row per texel row.  Each start is taken one
+    pixel early, a guard against the last-bit difference between these
+    coordinates and the kernel's fused multiply-add; the planned windows carry
+    that pixel."""
+    scan_cols = bands.d_v <= bands.d_u
+    ext = _line_extrema(rx, ry, scal, rows=not scan_cols)
+    n_tex = tex_w if scan_cols else tex_h
+    v, n_l = scal.shape[:2]
+    below = (torch.arange(n_tex, device=rx.device, dtype=ext.dtype) - 1.0).expand(v, n_l, n_tex)
+    starts = torch.searchsorted(ext.contiguous(), below.contiguous(), right=True) - 1
+    return starts.clamp_(min=0).to(torch.int32), scan_cols
+
+
+def warp_adjoint_ref(d_samp: torch.Tensor, rx: torch.Tensor, ry: torch.Tensor,
+                     scal: torch.Tensor, tex_h: int, tex_w: int) -> torch.Tensor:
+    """Plain PyTorch version of the adjoint kernel: the same hat weights
+    ``max(0, 1 - |fx - x|) max(0, 1 - |fy - u|)`` on the (at most four) real
+    texels within one texel of each pixel's coordinates, summed per texel
+    (one ``index_add_`` per plane and tap; the kernel sums in a fixed order
+    instead).  Needs no bands.  Arguments and result as :func:`warp_adjoint`."""
+    v, n_l, _, h, w = d_samp.shape
+    base = (torch.arange(v, device=d_samp.device) * (tex_h * tex_w)).reshape(v, 1, 1)
+    planes = []
+    for l in range(n_l):
+        s = scal[:, l, :, None, None]
+        fx, fy = s[:, 0] * rx + s[:, 1], s[:, 2] * ry + s[:, 3]
+        x0, y0 = torch.floor(fx), torch.floor(fy)
+        acc = torch.zeros((4, v * tex_h * tex_w), dtype=d_samp.dtype, device=d_samp.device)
+        for yy in (y0, y0 + 1):
+            hat_y = torch.clamp(1.0 - torch.abs(fy - yy), min=0.0)
+            for xx in (x0, x0 + 1):
+                hat_x = torch.clamp(1.0 - torch.abs(fx - xx), min=0.0)
+                real = (xx >= 0) & (xx <= tex_w - 1) & (yy >= 0) & (yy <= tex_h - 1)
+                wgt = torch.where(real, hat_y * hat_x, 0.0).nan_to_num(0.0)
+                idx = (yy.clamp(0, tex_h - 1) * tex_w + xx.clamp(0, tex_w - 1)).nan_to_num(0.0)
+                vals = torch.where(wgt[:, None] > 0, wgt[:, None] * d_samp[:, l], 0.0)
+                acc.index_add_(1, (idx.long() + base).reshape(-1),
+                               vals.permute(1, 0, 2, 3).reshape(4, -1))
+        planes.append(acc.reshape(4, v, tex_h, tex_w).permute(1, 0, 2, 3))
+    return torch.stack(planes, dim=1)
+
+
+def warp_adjoint(d_samp: torch.Tensor, rx: torch.Tensor, ry: torch.Tensor, scal: torch.Tensor,
+                 bands: AdjointBands, tex_h: int, tex_w: int) -> torch.Tensor:
+    """Exact transpose of the forward's bilinear warp, texel by texel:
+    ``d_tex[u, x] = sum over pixels of max(0, 1 - |fy - u|) max(0, 1 - |fx -
+    x|) d_samp`` with the forward's coordinates ``fx = Ax rx + Bx``, ``fy = Ay
+    ry + By``; only real texels accumulate, so a tap the forward read as zero
+    padding gets no gradient, and a pixel whose coordinate is NaN has weight 0.
+
+    d_samp ``[V, L, 4, H, W]`` f32 (exact zeros where a pixel never reached a
+    plane, as :func:`composite_bwd` writes them); rx, ry ``[V, H, W]``; scal
+    ``[V, L, 6]``; ``bands`` from :func:`plan_adjoint` for a pose range that
+    holds these poses.  Returns ``d_tex [V, L, 4, tex_h, tex_w]``.  Every texel
+    is owned by one thread that visits its pixels in a fixed order and writes
+    once: no atomics, no zero fill, bitwise repeatable (unlike
+    :func:`warp_splat`).  CPU tensors run :func:`warp_adjoint_ref`; CUDA
+    tensors launch the kernel."""
+    if not isinstance(bands, AdjointBands) or min(bands) < 1:
+        raise ValueError(f"bands: expected AdjointBands of positive windows, got {bands!r}")
+    if d_samp.device.type == "cpu":
+        return warp_adjoint_ref(d_samp, rx, ry, scal, tex_h, tex_w)
+    if d_samp.device.type != "cuda":
+        raise ValueError(f"warp_adjoint: unsupported device {d_samp.device}")
+    if d_samp.ndim != 5 or d_samp.shape[2] != 4:
+        raise ValueError(f"d_samp: expected [V, L, 4, H, W], got {tuple(d_samp.shape)}")
+    v, n_l, _, h, w = d_samp.shape
+    if not 1 <= v * n_l <= 65535:
+        raise ValueError(f"d_samp: {v} x {n_l} (view, plane) pairs, supported 1..65535")
+    dev = d_samp.device
+    _check("d_samp", d_samp, (v, n_l, 4, h, w), dev)
+    _check("rx", rx, (v, h, w), dev)
+    _check("ry", ry, (v, h, w), dev)
+    _check("scal", scal, (v, n_l, 6), dev)
+    starts, scan_cols = adjoint_starts(rx, ry, scal, bands, tex_h, tex_w)
+    d_tex = torch.empty((v, n_l, 4, tex_h, tex_w), dtype=torch.float32, device=dev)
+    _launch("adjoint", dev,
+            d_samp.data_ptr(), rx.data_ptr(), ry.data_ptr(), scal.data_ptr(), starts.data_ptr(),
+            d_tex.data_ptr(), v, n_l, tex_h, tex_w, h, w,
+            bands.d_v if scan_cols else bands.d_u, int(scan_cols))
+    return d_tex
+
+
 class FusedRender(torch.autograd.Function):
     """The fused renderer as one differentiable function of the plane RGBA:
     forward = :func:`warp_composite_fwd` in its training form, backward =
-    :func:`composite_bwd` then :func:`warp_splat`.
+    :func:`composite_bwd` then the warp's transpose: :func:`warp_splat`, or,
+    given ``adjoint_bands``, :func:`warp_adjoint` (the texture-space route;
+    the composite backward has already zeroed what no pixel reached).
 
-    ``FusedRender.apply(tex, rx, ry, q, scal, with_disp, grad_sparsity)`` ->
-    ``(color, depth, [disp,] trans)``, premultiplied partials as the forward
-    returns them.  The gradient reaches ``tex`` only (rays and plane geometry
-    are constants of the render, as in the gather renderer); each output's
+    ``FusedRender.apply(tex, rx, ry, q, scal, with_disp, grad_sparsity[,
+    adjoint_bands])`` -> ``(color, depth, [disp,] trans)``, premultiplied
+    partials as the forward returns them.  The gradient reaches ``tex`` only
+    (rays and plane geometry are constants of the render, as in the gather
+    renderer); each output's
     cotangent is optional.  First order only.  ``grad_sparsity`` renders with
     the grad-safe early-out and masks by ``n_live`` and ``GRAD_TAU``; without
     it every plane is processed (the slab form, whose transmittance in front
@@ -450,7 +601,8 @@ class FusedRender(torch.autograd.Function):
     """
 
     @staticmethod
-    def forward(ctx, tex, rx, ry, q, scal, with_disp: bool, grad_sparsity: bool):
+    def forward(ctx, tex, rx, ry, q, scal, with_disp: bool, grad_sparsity: bool,
+                adjoint_bands: Optional[AdjointBands] = None):
         outs = warp_composite_fwd(tex, rx, ry, q, scal,
                                   early_out="grad" if grad_sparsity else False,
                                   with_disp=with_disp, with_warped=True)
@@ -458,6 +610,7 @@ class FusedRender(torch.autograd.Function):
         n_live = outs[n_base + 1] if grad_sparsity else None
         ctx.save_for_backward(outs[n_base], n_live, rx, ry, q, scal)
         ctx.with_disp = with_disp
+        ctx.adjoint_bands = adjoint_bands
         ctx.tex_hw = tuple(tex.shape[-2:])
         ctx.set_materialize_grads(False)
         return outs[:n_base]
@@ -466,7 +619,7 @@ class FusedRender(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, *cot):
         warped, n_live, rx, ry, q, scal = ctx.saved_tensors
-        none = (None,) * 6
+        none = (None,) * 7
         if all(g is None for g in cot):
             return (None,) + none
         g_color = cot[0]
@@ -479,4 +632,6 @@ class FusedRender(torch.autograd.Function):
         d_samp = composite_bwd(warped, q, scal, g_color.to(warped.dtype).contiguous(),
                                field(g_depth), field(g_disp), field(g_trans), n_live,
                                GRAD_TAU if n_live is not None else None)
+        if ctx.adjoint_bands is not None:
+            return (warp_adjoint(d_samp, rx, ry, scal, ctx.adjoint_bands, *ctx.tex_hw),) + none
         return (warp_splat(d_samp, rx, ry, scal, *ctx.tex_hw, n_live=n_live),) + none

@@ -17,8 +17,13 @@ by ``torch.optim.Adam``, :class:`TrainState` holds them, and randomness comes
 from one explicit ``torch.Generator`` (z, poses, synthesis noise and the
 light's position are drawn from it on the CPU, in a fixed order).  On a CUDA
 device the step renders through the fused kernels (forward, composite
-backward, splat); on the CPU, when the caller asks for it, through the gather
-path unless ``use_fused_renderer`` says otherwise.
+backward, splat).  With ``use_fused_renderer`` off (the CPU's default, when
+the caller asks for the CPU) it renders as the JAX step does without its
+kernels: through ``render_mpi`` with the static tile bands of
+``bands_for_config`` (at 128 pixels and above; 4-field bands make the tiled
+adjoint the warp's backward), in plane slabs through ``render_mpi_chunked``
+when ``renderer_plane_chunk`` is set; ``debug_ray_check`` NaN-poisons a
+render whose rays leave the last plane.
 
 The parts of a step are named ``train_step.*`` spans of ``torch.profiler``
 (``tools/profile_step.py`` reads them); without a profiler they do nothing.
@@ -40,7 +45,9 @@ from gmpi_tpu_torch.core import camera as cam
 from gmpi_tpu_torch.core import geometry as geom_mod
 from gmpi_tpu_torch.core import poses as poses_mod
 from gmpi_tpu_torch.core.lighting import LightingConfig, light_mpi
-from gmpi_tpu_torch.core.renderer import render_mpi, render_mpi_fused, render_mpi_fused_remat
+from gmpi_tpu_torch.core.bands import bands_for_config
+from gmpi_tpu_torch.core.renderer import (poison_if_rays_escape, render_mpi, render_mpi_chunked,
+                                          render_mpi_fused, render_mpi_fused_remat)
 from gmpi_tpu_torch.models.discriminator import Discriminator
 from gmpi_tpu_torch.models.generator import Generator
 from gmpi_tpu_torch.train.losses import d_gan_loss, g_gan_loss, r1_penalty
@@ -127,11 +134,6 @@ class TrainStep:
         if mesh is not None:
             raise NotImplementedError(
                 "mesh= (the plane/tile-sharded renderers) is not ported yet: ROADMAP Queue A9")
-        if t.renderer_plane_chunk:
-            raise NotImplementedError(
-                "renderer_plane_chunk (render_mpi_chunked) is not ported yet: ROADMAP Queue A4")
-        if t.debug_ray_check:
-            raise NotImplementedError("debug_ray_check is not ported yet: ROADMAP Queue A4")
         if t.fused_compute_dtype is not None:
             raise NotImplementedError(
                 "fused_compute_dtype (bf16 textures in the fused kernels) is not ported yet: "
@@ -159,6 +161,9 @@ class TrainStep:
             raise ValueError("use_fused_renderer requires planes.align_corners=True "
                              "(the fused kernels' coordinate convention)")
         self.use_fused = use_fused
+        # static bands of the tile-banded warp for the non-fused routes (None
+        # under 128 pixels: the per-pixel gather)
+        self.tiled_bands = None if use_fused else bands_for_config(cfg)
 
     # -- pieces -----------------------------------------------------------------
 
@@ -190,18 +195,25 @@ class TrainStep:
             None, mpi.shape[0], cfg.camera, given_yaws=yaws, given_pitches=pitches,
             device=self.device)
         dhw = self.geom.dhw
+        intr = cam.intrinsics_from_fov(cfg.fov_deg, low_res, low_res) if low_res else self.intr
+        rays = cam.generate_rays(intr, c2w)  # (ray_dir, eye, z_dir)
         if low_res:
-            intr_lo = cam.intrinsics_from_fov(cfg.fov_deg, low_res, low_res)
-            out = render_mpi(mpi, dhw, *cam.generate_rays(intr_lo, c2w),
-                             cfg.planes.align_corners)
+            out = render_mpi(mpi, dhw, *rays, cfg.planes.align_corners)
+        elif self.use_fused:
+            render = render_mpi_fused_remat if t.fused_remat else render_mpi_fused
+            out = render(mpi, dhw, *rays, with_disp=False)
+        elif t.renderer_plane_chunk:
+            out = render_mpi_chunked(mpi, dhw, *rays, plane_chunk=t.renderer_plane_chunk,
+                                     align_corners=cfg.planes.align_corners,
+                                     tiled_bands=self.tiled_bands, with_disp=False)
         else:
-            rays = cam.generate_rays(self.intr, c2w)
-            if self.use_fused:
-                render = render_mpi_fused_remat if t.fused_remat else render_mpi_fused
-                out = render(mpi, dhw, *rays, with_disp=False)
-            else:
-                out = render_mpi(mpi, dhw, *rays, cfg.planes.align_corners)
+            out = render_mpi(mpi, dhw, *rays, cfg.planes.align_corners,
+                             tiled_bands=self.tiled_bands)
         color = out.color
+        if t.debug_ray_check:
+            ray_dir, eye, z_dir = rays
+            color = poison_if_rays_escape(color, dhw[-1], eye, ray_dir, z_dir,
+                                          cfg.planes.align_corners)
         if low_res:
             size = cfg.hparams.img_size
             color = F.interpolate(color, size=(size, size), mode="bilinear", align_corners=False)

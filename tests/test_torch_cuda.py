@@ -8,7 +8,9 @@ Without a CUDA card every test skips.  Tolerance 1e-4 (absolute for the
 forward, whose outputs are O(1); relative to max|plain| per field for the
 backward kernels, whose alpha cotangent reaches 1e10 behind an opaque plane):
 a kernel and its plain version evaluate the same fp32 formula and differ in
-FMA contraction and, for the splat, in the order of its atomic sums.
+FMA contraction and, for the splat, in the order of its atomic sums.  The
+patch gather is a copy and must be exact; the adjoint sums in a fixed order
+and must be bitwise repeatable.
 """
 
 import dataclasses
@@ -19,8 +21,9 @@ import torch
 from gmpi_tpu_torch.config import get_config
 from gmpi_tpu_torch.core import camera as cam
 from gmpi_tpu_torch.core import poses
-from gmpi_tpu_torch.core.renderer import render_mpi, render_mpi_fused
-from gmpi_tpu_torch.ops import fused_render
+from gmpi_tpu_torch.core.renderer import (plan_fused, render_mpi, render_mpi_chunked,
+                                          render_mpi_fused)
+from gmpi_tpu_torch.ops import fused_render, patch_gather
 
 TOL = 1e-4
 
@@ -193,7 +196,7 @@ def test_function_gradient_matches_gather_autograd_on_the_card(cuda, opaque):
             out = render(spread(x), geom.dhw, ray_dir, eye, z_dir)
             grads.append(torch.autograd.grad(sum((o * c).sum() for o, c in zip(out, cot)), x)[0])
         assert {k: v - before[k] for k, v in fused_render.LAUNCHES.items()} == {
-            "fused_fwd": 1, "composite_bwd": 1, "splat": 1}
+            "fused_fwd": 1, "composite_bwd": 1, "splat": 1, "adjoint": 0, "patch_gather": 0}
         assert torch.isfinite(grads[0]).all()
         assert _rel(grads[0], grads[1]) <= 1e-3
 
@@ -212,3 +215,133 @@ def test_backward_wrappers_reject_what_the_kernels_do_not_take(cuda):
         fused_render.warp_splat(warped.double(), rx, ry, scal, 128, 128)
     with pytest.raises(ValueError):
         fused_render.warp_splat(warped, rx, ry, scal[:, :4].contiguous(), 128, 128)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("aligned", [True, False], ids=["aligned", "unaligned"])
+def test_patch_gather_kernel_is_an_exact_copy(cuda, dtype, aligned):
+    """Aligned shapes take the 16-byte path, odd ones the scalar path; patches
+    at both corners of the texture; out-of-range offsets raise on the host and
+    are clamped by the kernel when the host check is off."""
+    n, t = 3, 17
+    wp, hpc, band_x, band_yc = (72, 640, 24, 128) if aligned else (37, 91, 7, 13)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    texf = torch.randn((n, wp, hpc), device=cuda, generator=g).to(dtype)
+    step = (8, 16) if aligned else (1, 1)
+    offs = torch.stack([
+        torch.randint(0, (wp - band_x) // step[0] + 1, (n, t), device=cuda, generator=g) * step[0],
+        torch.randint(0, (hpc - band_yc) // step[1] + 1, (n, t), device=cuda, generator=g)
+        * step[1]], dim=-1).to(torch.int32)
+    offs[0, 0] = 0
+    offs[-1, -1] = torch.tensor([wp - band_x, hpc - band_yc], device=cuda)
+    before = patch_gather.LAUNCHES["patch_gather"]
+    out = patch_gather.gather_patches(texf, offs, band_x, band_yc)
+    ref = patch_gather.gather_patches_ref(texf, offs, band_x, band_yc)
+    torch.cuda.synchronize()
+    assert patch_gather.LAUNCHES["patch_gather"] == before + 1
+    assert out.dtype == dtype and torch.equal(out, ref)
+    bad = offs.clone()
+    bad[1, 3] = torch.tensor([wp, -5], device=cuda)
+    with pytest.raises(ValueError, match="leaves the texture"):
+        patch_gather.gather_patches(texf, bad, band_x, band_yc)
+    clamped = patch_gather.gather_patches(texf, bad, band_x, band_yc, validate=False)
+    bad[1, 3] = torch.tensor([wp - band_x, 0], device=cuda)
+    assert torch.equal(clamped, patch_gather.gather_patches_ref(texf, bad, band_x, band_yc))
+    with pytest.raises(TypeError):
+        patch_gather.gather_patches(texf.double(), offs, band_x, band_yc)
+    with pytest.raises(RuntimeError, match="no gradient"):
+        patch_gather.gather_patches(texf.float().requires_grad_(), offs, band_x, band_yc)
+
+
+@pytest.mark.gpu
+def test_banded_render_with_kernel_patches_matches_gather_on_the_card(cuda):
+    geom, (ray_dir, eye, z_dir) = _scene(cuda, 6, 128, [0.5, -0.5, 0.0], [-0.2, 0.2, 0.0])
+    cfg = get_config("FFHQ256")
+    from gmpi_tpu_torch.core.bands import bands_for_config
+    bands = bands_for_config(cfg, img_size=128, n_planes=6)
+    mpi = torch.rand((3, 6, 4, 128, 128), device=cuda,
+                     generator=torch.Generator(device=cuda).manual_seed(3))
+    gather = render_mpi(mpi, geom.dhw, ray_dir, eye, z_dir)
+    before = fused_render.LAUNCHES["patch_gather"]
+    banded = render_mpi(mpi, geom.dhw, ray_dir, eye, z_dir, tiled_bands=bands,
+                        patch_backend="cuda")
+    chunked = render_mpi_chunked(mpi, geom.dhw, ray_dir, eye, z_dir, 2, tiled_bands=bands,
+                                 patch_backend="cuda")
+    assert fused_render.LAUNCHES["patch_gather"] == before + 1 + 3
+    plain = render_mpi(mpi, geom.dhw, ray_dir, eye, z_dir, tiled_bands=bands)
+    for a, b, c, d in zip(gather, banded, chunked, plain):
+        assert float((a - b).abs().max()) <= 5e-4
+        assert float((a - c).abs().max()) <= 5e-4
+        assert torch.equal(b, d)  # both backends read the same patches
+    # under autograd the 4-field bands carry the kernel backend (tiled adjoint backward)
+    x = mpi.clone().requires_grad_()
+    y = mpi.clone().requires_grad_()
+    cot = torch.randn_like(gather.color)
+    g_b = torch.autograd.grad((render_mpi(x, geom.dhw, ray_dir, eye, z_dir, tiled_bands=bands,
+                                          patch_backend="cuda").color * cot).sum(), x)[0]
+    g_g = torch.autograd.grad((render_mpi(y, geom.dhw, ray_dir, eye, z_dir).color * cot).sum(),
+                              y)[0]
+    assert _rel(g_b, g_g) <= 1e-3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("opaque", [(), (2, 3)], ids=["random", "two_opaque"])
+@pytest.mark.parametrize("img", [128, 256, 64], ids=["same_size", "magnified", "minified"])
+def test_adjoint_kernel_matches_plain_version_and_splat_bitwise_repeatable(cuda, opaque, img):
+    """V=3, L=8, 128^2 texture, images of half, equal and twice its size;
+    ``d_samp`` from the composite backward (exact zeros on dead slots).  Both
+    scan directions of the kernel."""
+    tex = 128
+    geom, (ray_dir, eye, z_dir) = _scene(cuda, 8, img, [0.578, -0.1, 0.0], [0.2, 0.0, -0.254])
+    g = torch.Generator(device=cuda).manual_seed(11)
+    rgba = torch.rand((3, 8, 4, tex, tex), device=cuda, generator=g)
+    for l in opaque:
+        rgba[:, l, 3] = 1.0
+    scal = fused_render.plane_affine(geom.dhw, eye, tex, tex).contiguous()
+    rx, ry, q = (x.contiguous() for x in fused_render.ray_fields(ray_dir, z_dir))
+    *_, warped, n_live = fused_render.warp_composite_fwd(rgba, rx, ry, q, scal, early_out="grad",
+                                                         with_disp=False, with_warped=True)
+    gc = torch.randn((3, 3, img, img), device=cuda, generator=g)
+    d_samp = fused_render.composite_bwd(warped, q, scal, gc, n_live=n_live,
+                                        grad_tau=fused_render.GRAD_TAU)
+    bands = fused_render.plan_adjoint(scal, rx, ry, tex, tex)
+    ref = fused_render.warp_adjoint_ref(d_samp, rx, ry, scal, tex, tex)
+    splat = fused_render.warp_splat(d_samp, rx, ry, scal, tex, tex, n_live=n_live)
+    before = fused_render.LAUNCHES["adjoint"]
+    for b in (bands, fused_render.AdjointBands(bands.d_u, bands.d_u + 1),
+              fused_render.AdjointBands(bands.d_v + 1, bands.d_v)):
+        out = fused_render.warp_adjoint(d_samp, rx, ry, scal, b, tex, tex)
+        again = fused_render.warp_adjoint(d_samp, rx, ry, scal, b, tex, tex)
+        torch.cuda.synchronize()
+        assert torch.equal(out, again)
+        assert _rel(out, ref) <= TOL and _rel(out, splat) <= TOL
+    assert fused_render.LAUNCHES["adjoint"] == before + 6
+    with pytest.raises(ValueError, match="AdjointBands"):
+        fused_render.warp_adjoint(d_samp, rx, ry, scal, (4, 4), tex, tex)
+    with pytest.raises(TypeError):
+        fused_render.warp_adjoint(d_samp.double(), rx, ry, scal, bands, tex, tex)
+
+
+@pytest.mark.gpu
+def test_adjoint_route_gradient_matches_splat_route_and_gather_on_the_card(cuda):
+    geom, (ray_dir, eye, z_dir) = _scene(cuda, 6, 64, [0.3, -0.5, 0.0], [-0.2, 0.1, 0.0])
+    g = torch.Generator(device=cuda).manual_seed(5)
+    cot = [torch.randn((3, c, 64, 64), device=cuda, generator=g) for c in (3, 1, 1)]
+    mpi = torch.rand((3, 6, 4, 64, 64), device=cuda, generator=g)
+    mpi[:, 0, 3, 16:] = 1.0
+    plans = plan_fused(geom.dhw, ray_dir, eye, z_dir, 64, 64)
+    grads = []
+    for render, kw, launched in (
+            (render_mpi_fused, dict(plans=plans), dict(fused_fwd=1, composite_bwd=1, adjoint=1)),
+            (render_mpi_fused, dict(plans=plans), dict(fused_fwd=1, composite_bwd=1, adjoint=1)),
+            (render_mpi_fused, {}, dict(fused_fwd=1, composite_bwd=1, splat=1)),
+            (render_mpi, {}, {})):
+        before = dict(fused_render.LAUNCHES)
+        x = mpi.clone().requires_grad_()
+        out = render(x, geom.dhw, ray_dir, eye, z_dir, **kw)
+        grads.append(torch.autograd.grad(sum((o * c).sum() for o, c in zip(out, cot)), x)[0])
+        assert {k: v - before[k] for k, v in fused_render.LAUNCHES.items() if v != before[k]} \
+            == launched
+    assert torch.equal(grads[0], grads[1])  # no atomics: bitwise repeatable
+    assert _rel(grads[0], grads[2]) <= 1e-3 and _rel(grads[0], grads[3]) <= 1e-3

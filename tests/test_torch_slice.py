@@ -70,6 +70,41 @@ def test_slice_matches_jax(both_generators, use_fused):
     assert float(color_t.min()) >= -1.0 and float(color_t.max()) <= 1.0
 
 
+@pytest.mark.parametrize("patch_backend", ["torch", "cuda"])
+def test_harness_banded_route_matches_jax(both_generators, patch_backend):
+    """``use_fused=False`` at 128 pixels: both packages render through
+    ``render_mpi`` with the static tile bands of ``bands_for_config`` (equal
+    tuples), the port with the patch backend it picks on the CPU and with the
+    one it picks on a card (whose kernel wrapper runs its plain version
+    here); the result also equals the port's per-pixel gather."""
+    from gmpi_tpu.core.bands import bands_for_config as jax_bands_for_config
+    from gmpi_tpu_torch.core import camera as cam
+    from gmpi_tpu_torch.core import poses
+    from gmpi_tpu_torch.core.renderer import render_mpi
+
+    gen_j, g_t, cfg_t = both_generators
+    gen_j128 = JaxFakeImageGenerator(gen_j.cfg, gen_j.params, gen_j.buffers, img_size=128,
+                                     use_fused=False)
+    gen_t = FakeImageGenerator(cfg_t, g_t, img_size=128, use_fused=False, device="cpu")
+    assert gen_t.patch_backend == "torch"
+    gen_t.patch_backend = patch_backend
+    ref_bands = jax_bands_for_config(gen_j.cfg, img_size=128, n_planes=gen_j.n_planes)
+    assert gen_t.tiled_bands == tuple(int(b) for b in ref_bands)
+    assert FakeImageGenerator(cfg_t, g_t, use_fused=False, device="cpu").tiled_bands is None
+    v = len(YAWS)
+    mpi = np.random.default_rng(4).random((v, N_PLANES, 4, 64, 64)).astype(np.float32)
+    color_j, depth_j = gen_j128.render(jnp.asarray(mpi), YAWS, PITCHES)
+    color_t, depth_t = gen_t.render(torch.from_numpy(mpi), YAWS, PITCHES)
+    assert color_t.shape == (v, 3, 128, 128)
+    np.testing.assert_allclose(color_t.numpy(), np.asarray(color_j), rtol=0, atol=TOL)
+    np.testing.assert_allclose(depth_t.numpy(), np.asarray(depth_j), rtol=0, atol=TOL)
+    c2w, _, _ = poses.sample_sphere_poses(None, v, cfg_t.camera, given_yaws=YAWS,
+                                          given_pitches=PITCHES, device="cpu")
+    gather = render_mpi(torch.from_numpy(mpi), gen_t.geom.dhw, *cam.generate_rays(gen_t.intr, c2w))
+    np.testing.assert_allclose(color_t.numpy(), gather.color.numpy() * 2.0 - 1.0, rtol=0,
+                               atol=1e-5)
+
+
 def test_sample_mpi_and_views_are_seeded(both_generators):
     _, g_t, cfg_t = both_generators
     gen_t = FakeImageGenerator(cfg_t, g_t, use_fused=True, device="cpu",
@@ -111,6 +146,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         import gmpi_tpu_torch.models.discriminator, gmpi_tpu_torch.core.lighting
         import gmpi_tpu_torch.utils.img, gmpi_tpu_torch.train
         import gmpi_tpu_torch.train.losses, gmpi_tpu_torch.train.step
+        import gmpi_tpu_torch.ops.grid_sample, gmpi_tpu_torch.ops.patch_gather
+        import gmpi_tpu_torch.ops.tiled_warp, gmpi_tpu_torch.ops.tiled_warp_adjoint
+        import gmpi_tpu_torch.core.bands, gmpi_tpu_torch.tools.profile_step
         import chip_smoke
         bad = sorted(m for m in set(sys.modules) - before
                      if m.split(".")[0] in ("jax", "jaxlib", "gmpi_tpu"))

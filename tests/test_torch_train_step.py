@@ -24,7 +24,9 @@ import jax.numpy as jnp
 
 from gmpi_tpu.core import camera as jcam
 from gmpi_tpu.core import poses as jposes
+from gmpi_tpu.core.renderer import poison_if_rays_escape as jax_poison_if_rays_escape
 from gmpi_tpu.core.renderer import render_mpi as jax_render_mpi
+from gmpi_tpu.core.renderer import render_mpi_chunked as jax_render_mpi_chunked
 from gmpi_tpu.train import losses as jax_losses
 from gmpi_tpu.train.step import flat_pose_from_c2w as jax_flat_pose
 from gmpi_tpu.train.step import init_train_state as jax_init_train_state
@@ -152,8 +154,14 @@ def test_d_loss_terms_and_gradients_match_jax(carried):
     _assert_grads_close(state.D, ref_grads)
 
 
-@pytest.mark.parametrize("use_fused", [False, True], ids=["gather", "fused"])
-def test_g_loss_and_gradients_match_jax(carried, use_fused):
+@pytest.mark.parametrize("train", [
+    dict(use_fused_renderer=False), dict(use_fused_renderer=True),
+    dict(renderer_plane_chunk=2), dict(debug_ray_check=True),
+], ids=["gather", "fused", "plane_chunk", "debug_ray_check"])
+def test_g_loss_and_gradients_match_jax(carried, train):
+    """G's loss and parameter gradients on each render route of the step
+    against the same route composed from the JAX package's functions (the
+    fused route against JAX's gather render)."""
     cfg_j, params_g, buffers_g, params_d = carried
     gen, disc = cfg_j.generator_cfg(), cfg_j.discriminator_cfg()
     geom = cfg_j.plane_geometry()
@@ -171,18 +179,27 @@ def test_g_loss_and_gradients_match_jax(carried, use_fused):
                         truncation_psi=cfg_j.train.truncation_psi, noise_mode="const")
         c2w, _, _ = jposes.sample_sphere_poses(None, BS, cfg_j.camera, given_yaws=yaws,
                                                given_pitches=pitches)
-        out = jax_render_mpi(mpi, geom.dhw, *jcam.generate_rays(intr, c2w),
-                             cfg_j.planes.align_corners)
-        scores = disc.apply(pd, out.color * 2.0 - 1.0, jax_flat_pose(c2w, 16))
+        rays = jcam.generate_rays(intr, c2w)
+        if train.get("renderer_plane_chunk"):
+            out = jax_render_mpi_chunked(mpi, geom.dhw, *rays, plane_chunk=2,
+                                         align_corners=cfg_j.planes.align_corners,
+                                         with_disp=False)
+        else:
+            out = jax_render_mpi(mpi, geom.dhw, *rays, cfg_j.planes.align_corners)
+        color = out.color
+        if train.get("debug_ray_check"):
+            color = jax_poison_if_rays_escape(color, geom.dhw[-1], rays[1], rays[0], rays[2],
+                                              cfg_j.planes.align_corners)
+        scores = disc.apply(pd, color * 2.0 - 1.0, jax_flat_pose(c2w, 16))
         return jax_losses.g_gan_loss(scores)
 
     ref, ref_grads = jax.jit(jax.value_and_grad(g_loss))(
         jax.tree_util.tree_map(jnp.asarray, params_g))
 
-    cfg = tiny_config(use_fused_renderer=use_fused)
+    cfg = tiny_config(**train)
     state = _port_state(cfg, carried)
     step = make_train_step(cfg, device="cpu")
-    assert step.use_fused is use_fused
+    assert step.use_fused is bool(train.get("use_fused_renderer"))
     t = torch.from_numpy
     got = step.g_loss(state, t(z), t(yaws), t(pitches), noise_mode="const")
     np.testing.assert_allclose(float(got.detach()), float(ref), rtol=REL)
@@ -275,7 +292,10 @@ def test_frozen_d_and_two_g_iters():
     dict(r1_remat=True, d_batch_split=False),
     dict(use_edge_aware_loss=True, edge_aware_loss_w=0.5),
     dict(train_mapping=False, train_trunk=False),
-], ids=["low_res_worst_views", "fused", "fused_remat", "r1_remat", "edge_aware", "frozen_trunk"])
+    dict(renderer_plane_chunk=2),
+    dict(debug_ray_check=True, worst_view_render_res=8),
+], ids=["low_res_worst_views", "fused", "fused_remat", "r1_remat", "edge_aware", "frozen_trunk",
+        "plane_chunk", "debug_ray_check"])
 def test_train_step_switches_run(train):
     cfg = tiny_config(batch_split=2, lighting=True, **train)
     state, real, pose = _fresh(cfg)
@@ -304,14 +324,68 @@ def test_lighting_changes_the_fakes_only_past_its_start():
 
 
 @pytest.mark.parametrize("train,kw,queue", [
-    (dict(renderer_plane_chunk=2), {}, "A4"),
-    (dict(debug_ray_check=True), {}, "A4"),
+    (dict(renderer_plane_chunk=2), {}, None),
+    (dict(debug_ray_check=True), {}, None),
     (dict(fused_compute_dtype="bf16"), {}, "A4"),
     ({}, dict(mesh=object()), "A9"),
 ], ids=["renderer_plane_chunk", "debug_ray_check", "bf16_textures", "mesh"])
 def test_switches_not_ported_yet_raise(train, kw, queue):
+    """The switches still to port raise and name their roadmap queue; the two
+    ported since (``queue`` None) build a step."""
+    if queue is None:
+        assert make_train_step(tiny_config(**train), device="cpu", **kw).use_fused is False
+        return
     with pytest.raises(NotImplementedError, match=queue):
         make_train_step(tiny_config(**train), device="cpu", **kw)
+
+
+def test_debug_ray_check_poisons_a_pose_whose_rays_escape():
+    mpi = torch.rand((2, 4, 4, 16, 16), generator=torch.Generator().manual_seed(0))
+    yaws, pitches = torch.tensor([[0.3], [1.4]]), torch.tensor([[0.1], [0.0]])
+    for check in (False, True):
+        step = make_train_step(tiny_config(debug_ray_check=check), device="cpu")
+        for low_res in (0, 8):
+            imgs, _, _ = step.render_views(mpi, yaws, pitches, low_res=low_res)
+            assert bool(torch.isnan(imgs).all()) is check
+            inside, _, _ = step.render_views(mpi[:1], yaws[:1], pitches[:1], low_res=low_res)
+            assert torch.isfinite(inside).all()
+
+
+def test_non_fused_step_renders_through_tile_bands_at_128():
+    """At 128 pixels and above the non-fused routes take the static tile bands
+    of ``bands_for_config`` (4 fields here: the tiled adjoint is the warp's
+    backward): same images and ``rgba`` gradient as the per-pixel gather
+    (5e-4; 1e-3 of max), whole and in plane slabs."""
+    from gmpi_tpu_torch.core import camera as cam
+    from gmpi_tpu_torch.core import poses
+    from gmpi_tpu_torch.core.renderer import render_mpi
+
+    base = tiny_config()
+    rng = torch.Generator().manual_seed(0)
+    mpi = torch.rand((2, 4, 4, 128, 128), generator=rng)
+    cot = torch.randn((2, 3, 128, 128), generator=rng)
+    yaws, pitches = torch.tensor([[0.5], [-0.3]]), torch.tensor([[0.2], [-0.1]])
+    c2w, _, _ = poses.sample_sphere_poses(None, 2, base.camera, given_yaws=yaws,
+                                          given_pitches=pitches, device="cpu")
+    rays = cam.generate_rays(cam.intrinsics_from_fov(base.fov_deg, 128, 128), c2w)
+    results = []
+    for train in (None, dict(), dict(renderer_plane_chunk=2)):
+        x = mpi.clone().requires_grad_()
+        if train is None:
+            geom = base.plane_geometry(device="cpu")
+            imgs = render_mpi(x, geom.dhw, *rays).color * 2.0 - 1.0
+        else:
+            cfg = tiny_config(**train)
+            cfg = dataclasses.replace(cfg, resolution=128, hparams=dataclasses.replace(
+                cfg.hparams, img_size=128, tex_size=128))
+            step = make_train_step(cfg, device="cpu")
+            assert len(step.tiled_bands) == 4
+            imgs, _, _ = step.render_views(x, yaws, pitches)
+        results.append((imgs.detach(), torch.autograd.grad((imgs * cot).sum(), x)[0]))
+    (ref, g_ref), rest = results[0], results[1:]
+    for imgs, g in rest:
+        assert float((imgs - ref).abs().max()) <= 5e-4
+        assert float((g - g_ref).abs().max()) <= 1e-3 * float(g_ref.abs().max())
 
 
 def test_step_needs_a_card_unless_asked_for_the_cpu():
