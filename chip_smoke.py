@@ -19,15 +19,23 @@ Phases, each of which raises on failure (nonzero exit, no result line):
    dead slots NaN-poisoned) and the splat; max error <= 1e-4 x max|plain| per
    field.  Then the forward as the step's two no-grad renders launch it (the
    inference form without disparity): the D phase's fakes at V=8, L=32, and
-   worst-view selection at V=32, L=32 on the 8 stacks repeated 4 times each
-   (a materialized 1.07 GB copy); max abs error <= 1e-4.  All on three MPIs:
+   worst-view selection at V=32, L=32 on the 8 stacks, each read by its group
+   of 4 views (and once against the kernel on a materialized repeat, which
+   must be bitwise equal); max abs error <= 1e-4.  All on three MPIs:
    uniform random RGBA, a sparse (mostly transparent) stack, and the sparse
    stack with fully opaque mid planes.  (c) The patch gather against its plain
    version at the banded serving path's shapes: f32 and bf16, 16-byte-aligned
    and arbitrary offsets, patches at both corners of the padded texture;
    exact equality (it is a copy).  (d) The texture-space adjoint, on the
    three stacks' ``d_samp`` of (b), against its plain version and against the
-   splat, max error <= 1e-4 x max|plain|, and two launches bitwise equal;
+   splat, max error <= 1e-4 x max|plain|, and two launches bitwise equal.
+   (e) The forward and the adjoint at the edges of their designs: image and texture sizes that are not multiples of the tiles, a
+   texture width that is not a multiple of 4, a plane count that is not a
+   multiple of the staged group, a slab of a parent stack on an unaligned
+   address, a texture far larger than the image (boxes beyond the staging
+   tile), a strong minification (an adjoint box of many chunks), a pose with
+   every tap outside the texture, a NaN ray, every ``early_out`` mode, with
+   and without disparity and residual, on the three stacks;
 3. serving main path — ``FakeImageGenerator`` at full FFHQ256 width with
    seeded random weights and the fused renderer: for 4 seeds, ``sample_mpi``
    then ``render`` of 4 views.  Kernel launch counts are reset just before and
@@ -101,18 +109,23 @@ def card_rates(name: str):
     return H100_RATES["PCIe" if "PCIe" in name else "SXM"]
 
 
-def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Median milliseconds of ``fn()`` over ``iters`` runs, CUDA events."""
+def time_ms(fn, iters: int = 20, warmup: int = 3, queued: int = 1) -> float:
+    """Median milliseconds of ``fn()`` over ``iters`` runs, CUDA events.  With
+    ``queued`` > 1 each run is that many calls back to back and the time is
+    per call: the card then waits for no launch, so what a wrapper does on
+    the host (~0.05 ms of checks and allocations) drops out of a short
+    kernel's time."""
     for _ in range(warmup):
         fn()
     times = []
     for _ in range(iters):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(queued):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / queued)
     return statistics.median(times)
 
 
@@ -135,13 +148,14 @@ def needed_work(fr, tex, rx, ry, scal, n_live=None):
     """What the fused forward needs on these inputs: ``(texels touched by some
     live tap, live (pixel, plane) pairs)``.  A pair is live while the pixel's
     transmittance is >= the early-out threshold, or, given ``n_live`` (the
-    training form), while ``l < n_live``."""
+    training form), while ``l < n_live``.  A stack read by a group of views
+    (``tex [S, ...]`` for ``V = S * k`` views, or one stack expanded over all)
+    counts its texels once."""
     v, n_l = scal.shape[:2]
     th, tw = tex.shape[-2:]
-    shared = v > 1 and tex.stride(0) == 0
-    touched = torch.zeros(((1 if shared else v) * n_l * th * tw,), dtype=torch.bool,
-                          device=tex.device)
-    view_base = (0 if shared else 1) * torch.arange(v, device=tex.device).reshape(v, 1, 1)
+    n_stacks = 1 if (tex.shape[0] > 1 and tex.stride(0) == 0) else tex.shape[0]
+    touched = torch.zeros((n_stacks * n_l * th * tw,), dtype=torch.bool, device=tex.device)
+    view_base = (torch.arange(v, device=tex.device) // (v // n_stacks)).reshape(v, 1, 1)
     t = torch.ones_like(rx)
     pairs = 0
     for l in range(n_l):
@@ -159,7 +173,7 @@ def needed_work(fr, tex, rx, ry, scal, n_live=None):
                        + (yy.clamp(0, th - 1) * tw + xx.clamp(0, tw - 1)).long())
                 touched[idx[ok]] = True
         if n_live is None:
-            a = fr.sample_bilinear(tex[:, l], fx, fy)[:, 3]
+            a = fr.sample_bilinear(tex[:n_stacks, l], fx, fy)[:, 3]
             t = t * ((1.0 - a) + fr.EPS)
     return int(touched.sum()), pairs
 
@@ -176,6 +190,11 @@ def rel_err(a, b):
     return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
 
 
+def worse(a: float, b: float) -> float:
+    """The larger of two errors; a NaN wins."""
+    return a if not b >= a else b
+
+
 def three_stacks(v, n_planes, res, dev, seed):
     """uniform, sparse (alpha x 0.05) and sparse with 8 opaque mid planes."""
     g = torch.Generator(device=dev).manual_seed(seed)
@@ -190,8 +209,8 @@ def three_stacks(v, n_planes, res, dev, seed):
 def check_inference_form(fr, label, tex, rx, ry, q, scal, with_disp):
     """The forward's inference form (transmittance early-out, no residual)
     against its plain version; returns the largest absolute error."""
-    out = fr.warp_composite_fwd(tex, rx, ry, q, scal, with_disp=with_disp)
     ref = fr.warp_composite_fwd_ref(tex, rx, ry, q, scal, with_disp=with_disp)
+    out = fr.warp_composite_fwd(tex, rx, ry, q, scal, with_disp=with_disp)
     torch.cuda.synchronize()
     errs = [float((a - b).abs().max()) for a, b in zip(out, ref)]
     log(f"fused_fwd vs plain [{label}, with_disp={with_disp}]: max abs err "
@@ -274,6 +293,115 @@ def check_training_kernels(fr, case, tex, rx, ry, q, scal, gen, adj_bands):
         if not e <= TOL:  # also catches NaN
             raise RuntimeError(f"{name} [{case}] disagrees with its plain version: {e} > {TOL}")
     return errs
+
+
+EDGE_CASES = (  # label, image (H, W), texture (Th, Tw), tweak
+    ("ragged tiles", (243, 250), (131, 200), None),
+    ("texture width not a multiple of 4", (244, 252), (200, 131), None),
+    ("slab of a parent stack, unaligned address", (243, 250), (131, 200), "slab"),
+    ("texture far larger than the image", (64, 96), (300, 520), None),
+    ("strong minification", (256, 256), (40, 64), None),
+    ("every tap outside the texture", (243, 250), (131, 200), "outside"),
+    ("a NaN ray", (244, 252), (131, 200), "nan"),
+)
+
+
+def unaligned_copy(x):
+    """A contiguous copy of ``x`` that starts 4 bytes past a 16-byte boundary."""
+    flat = torch.empty((x.numel() + 1,), dtype=x.dtype, device=x.device)
+    out = flat[1:].view(x.shape)
+    out.copy_(x)
+    return out
+
+
+def check_edges(fr, cam, poses, cfg, dev):
+    """Phase 2e: the forward and the adjoint against their plain versions at
+    the edges of their designs.  Returns the largest error of each (absolute
+    for the forward, relative to max|plain| for the adjoint)."""
+    n_v, n_l = 3, 9  # 9 planes: not a multiple of the staged group
+    geom = dataclasses.replace(
+        cfg, planes=dataclasses.replace(cfg.planes, n_planes=n_l)).plane_geometry(device=dev)
+    c2w, _, _ = poses.sample_sphere_poses(
+        None, n_v, cfg.camera, given_yaws=torch.tensor([[0.5], [-0.3], [0.0]]),
+        given_pitches=torch.tensor([[0.2], [-0.25], [0.1]]), device=dev)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    planes = torch.arange(n_l, device=dev).reshape(1, n_l, 1, 1, 1)
+    err_fwd, err_adj, n_fwd = 0.0, 0.0, 0
+    for label, (h, w), (th, tw), tweak in EDGE_CASES:
+        ray_dir, eye, z_dir = cam.generate_rays(cam.intrinsics_from_fov(cfg.fov_deg, h, w), c2w)
+        scal = fr.plane_affine(geom.dhw, eye, th, tw).contiguous()
+        rx, ry, q = (x.contiguous() for x in fr.ray_fields(ray_dir, z_dir))
+        if tweak == "outside":
+            scal[..., 1] += 1e4
+        if tweak == "nan":
+            rx[0, 5, 7] = ry[0, 5, 7] = float("nan")
+            rx[1, 0, 0] = ry[2, h - 1, w - 1] = float("nan")
+        # the forward is held on pixels whose ray is a number: on a NaN ray the kernels
+        # read zeros while the plain version's lerp weights turn NaN
+        real = torch.isfinite(rx) & torch.isfinite(ry)
+        uniform = torch.rand((n_v, n_l + 4, 4, th, tw), device=dev, generator=gen)
+        sparse = uniform.clone()
+        sparse[:, :, 3] *= 0.05
+        opaque_mid = sparse.clone()
+        opaque_mid[:, 5:8, 3] = 1.0
+        case_err = 0.0
+        for stack in (uniform, sparse, opaque_mid):
+            # planes 2..10 of a 13-plane parent on an unaligned address, or a packed stack
+            tex = unaligned_copy(stack)[:, 2:2 + n_l] if tweak == "slab" else \
+                stack[:, 2:2 + n_l].contiguous()
+            for early_out in (False, True, "grad"):
+                for with_disp in (False, True):
+                    for with_warped in (False, True):
+                        kw = dict(early_out=early_out, with_disp=with_disp,
+                                  with_warped=with_warped)
+                        ref = fr.warp_composite_fwd_ref(tex, rx, ry, q, scal, **kw)
+                        n_base = 4 if with_disp else 3
+                        out = fr.warp_composite_fwd(tex, rx, ry, q, scal, **kw)
+                        torch.cuda.synchronize()
+                        n_fwd += 1
+                        for a, b in zip(out[:n_base], ref[:n_base]):
+                            diff = torch.where(real[:, None], a - b, 0.0)
+                            case_err = worse(case_err, float(diff.abs().max()))
+                        both = real[:, None, None]
+                        if early_out == "grad":
+                            moved = (out[-1] != ref[-1]) & real
+                            if (int(torch.where(real, out[-1] - ref[-1], 0).abs().max()) > 1
+                                    or float(moved.float().mean()) > 1e-4):
+                                raise RuntimeError(f"fused_fwd [{label}]: n_live disagrees "
+                                                   f"on {int(moved.sum())} pixels")
+                            reached = torch.minimum(out[-1], ref[-1])[:, None, None]
+                            both = both & (planes < reached)
+                        if with_warped and early_out is not True:
+                            diff = torch.where(both, out[n_base] - ref[n_base], 0.0)
+                            case_err = worse(case_err, float(diff.abs().max()))
+        if tweak == "outside" and (float(out[0].abs().max()) != 0.0
+                                   or float(out[n_base - 1].min()) != 1.0):
+            raise RuntimeError("fused_fwd: a render with every tap outside is not empty")
+        err_fwd = worse(err_fwd, case_err)
+
+        # the adjoint on random cotangents with exact zeros among them
+        d_samp = torch.randn((n_v, n_l, 4, h, w), device=dev, generator=gen)
+        d_samp = d_samp * (torch.rand((n_v, n_l, 1, h, w), device=dev, generator=gen) > 0.3)
+        if tweak == "slab":
+            d_samp = unaligned_copy(d_samp)
+        bands = fr.AdjointBands(8, 8) if tweak == "nan" else fr.plan_adjoint(scal, rx, ry, th, tw)
+        a_tex = fr.warp_adjoint(d_samp, rx, ry, scal, bands, th, tw)
+        a_again = fr.warp_adjoint(d_samp, rx, ry, scal, bands, th, tw)
+        a_ref = fr.warp_adjoint_ref(d_samp, rx, ry, scal, th, tw)
+        torch.cuda.synchronize()
+        e = rel_err(a_tex, a_ref)
+        if tweak != "nan":  # the splat's coordinates are not NaN-safe by contract
+            e = worse(e, rel_err(a_tex, fr.warp_splat(d_samp, rx, ry, scal, th, tw)))
+        if not torch.equal(a_tex, a_again):
+            raise RuntimeError(f"adjoint [{label}]: two launches on one input differ")
+        log(f"edge [{label}: image {h} x {w}, texture {th} x {tw}, {n_l} planes]: fused_fwd max "
+            f"abs err {case_err:.3e}, adjoint rel err {e:.3e} (max|plain| "
+            f"{float(a_ref.abs().max()):.3e}), bitwise repeatable")
+        err_adj = worse(err_adj, e)
+    if not (err_fwd <= TOL and err_adj <= TOL):  # also catches NaN
+        raise RuntimeError(f"edge cases: fused_fwd {err_fwd}, adjoint {err_adj} > {TOL}")
+    log(f"edge cases: {n_fwd} forward launches in all forms")
+    return err_fwd, err_adj
 
 
 def snapshot(tensors):
@@ -379,12 +507,24 @@ def main() -> int:
             max_err[kname] = max(max_err[kname], e)
         # the step's two no-grad renders: D-phase fakes, then worst-view candidates
         err = check_inference_form(fr, f"{case}, V=8, L={n_train}", tex, rx, ry, q, scal, False)
-        tex_w = tex.repeat_interleave(n_cand, dim=0)
-        err = max(err, check_inference_form(fr, f"{case}, V={8 * n_cand}, L={n_train}, repeated "
-                                            f"stacks", tex_w, *rays_w, False))
-        max_err["fused_fwd"] = max(max_err["fused_fwd"], err)
-        del tex, tex_w
+        err = worse(err, check_inference_form(fr, f"{case}, V={8 * n_cand}, L={n_train}, 8 stacks "
+                                               f"in groups of {n_cand} views", tex, *rays_w, False))
+        max_err["fused_fwd"] = worse(max_err["fused_fwd"], err)
+        if case == "uniform":  # the grouped read against the kernel on a materialized repeat
+            tex_w = tex.repeat_interleave(n_cand, dim=0)
+            same = all(torch.equal(a, b) for a, b in zip(
+                fr.warp_composite_fwd(tex, *rays_w, with_disp=False),
+                fr.warp_composite_fwd(tex_w, *rays_w, with_disp=False)))
+            if not same:
+                raise RuntimeError("fused_fwd: grouped stacks render unlike their repeat")
+            del tex_w
+        del tex
     torch.cuda.empty_cache()
+
+    # -- 2e. the forward and the adjoint at the edges of their designs ------------------
+    err_fwd, err_adj = check_edges(fr, cam, poses, cfg, dev)
+    max_err["fused_fwd"] = worse(max_err["fused_fwd"], err_fwd)
+    max_err["adjoint"] = worse(max_err["adjoint"], err_adj)
 
     # -- 2c. patch gather vs plain version at the banded serving path's shapes ---------
     t0 = time.perf_counter()
@@ -480,13 +620,15 @@ def main() -> int:
                                *[float((a - b).abs().max()) for a, b in zip(out, ref)])
     with torch.no_grad():
         fwd_ms, fwd_plain_ms = time_ms(kernel), time_ms(plain, iters=20, warmup=1)
+        fwd_queued_ms = time_ms(kernel, queued=10)
         gather_ms = time_ms(lambda: render_mpi(mpi_v, geom.dhw, ray_dir, eye, z_dir),
                             iters=5, warmup=1)
     texels, pairs = needed_work(fr, mpi_v, rx, ry, scal)
     n_pix = rx.numel()
     fwd_bytes = texels * 16 + 3 * n_pix * 4 + scal.numel() * 4 + 6 * n_pix * 4
     fwd_bound = bound(fwd_bytes, FLOP_PER_PAIR["fused_fwd"] * pairs, rates)
-    log(f"fused_fwd serving inputs: {fwd_ms:.4f} ms, plain {fwd_plain_ms:.3f} ms, gather "
+    log(f"fused_fwd serving inputs: {fwd_ms:.4f} ms as the path launches it (10 launches "
+        f"queued: {fwd_queued_ms:.4f} a launch), plain {fwd_plain_ms:.3f} ms, gather "
         f"renderer (F.grid_sample + composite, informational) {gather_ms:.3f} ms; needs "
         f"{fwd_bytes} B, {FLOP_PER_PAIR['fused_fwd'] * pairs} FLOP ({pairs} live pixel-plane "
         f"pairs of {n_views * n_planes * res * res}); bound {fwd_bound[0]:.5f} ms ({card})")
@@ -641,8 +783,8 @@ def main() -> int:
         "composite_bwd": pairs * 16 + 5 * n_pix * 4 + scal.numel() * 4 + stack,
         # live d_samp + rx, ry, n_live + scal; d_tex written whole
         "splat": pairs * 16 + 3 * n_pix * 4 + scal.numel() * 4 + stack,
-        # live d_samp + rx, ry + scal + the window starts; d_tex written whole
-        "adjoint": pairs * 16 + 2 * n_pix * 4 + scal.numel() * 4 + bs * n_train * res * 4 + stack,
+        # live d_samp + rx, ry + scal; d_tex written whole
+        "adjoint": pairs * 16 + 2 * n_pix * 4 + scal.numel() * 4 + stack,
     }
     with torch.no_grad():
         t_fwd_train = time_ms(fwd_train)
@@ -662,9 +804,12 @@ def main() -> int:
                  for _ in range(2)]
         t_splat_again = time_ms(lambda: fr.warp_splat(d_samp, rx, ry, scal, res, res,
                                                       n_live=n_live))
-        t_adj_starts = time_ms(lambda: fr.adjoint_starts(rx, ry, scal, adj_bands, res, res))
         t_adj_plain = time_ms(lambda: fr.warp_adjoint_ref(d_samp, rx, ry, scal, res, res),
                               iters=5, warmup=1)
+        t_adj_queued = time_ms(lambda: fr.warp_adjoint(d_samp, rx, ry, scal, adj_bands, res, res),
+                               queued=10)
+        t_splat_queued = time_ms(lambda: fr.warp_splat(d_samp, rx, ry, scal, res, res,
+                                                       n_live=n_live), queued=10)
     t_adj = min(t_adj)
     # one PyTorch call that computes the splat's and the adjoint's function:
     # grid_sample's backward (timed here as a yardstick, used nowhere in the port)
@@ -683,33 +828,35 @@ def main() -> int:
               for key, val in work.items()}
     log(f"training inputs: {pairs} live pixel-plane pairs of {all_pairs} "
         f"(mean n_live {float(n_live.float().mean()):.2f} of {n_train}), {texels} texels touched")
-    log(f"fused_fwd training form: {t_fwd_train:.4f} ms, plain {t_fwd_train_plain:.3f} ms, "
-        f"needs {work['fused_fwd_train']} B; bound {bounds['fused_fwd_train'][0]:.5f} ms ({card})")
+    log(f"fused_fwd training form: {t_fwd_train:.4f} ms as the path launches it, plain "
+        f"{t_fwd_train_plain:.3f} ms, needs {work['fused_fwd_train']} B; bound {bounds['fused_fwd_train'][0]:.5f} ms ({card})")
     log(f"composite_bwd: {t_bwd:.4f} ms, plain {t_bwd_plain:.3f} ms, needs "
         f"{work['composite_bwd']} B; bound {bounds['composite_bwd'][0]:.5f} ms ({card})")
     log(f"splat: {t_splat:.4f} ms, plain {t_splat_plain:.3f} ms, grid_sample backward "
         f"{t_splat_lib:.4f} ms, needs {work['splat']} B; bound {bounds['splat'][0]:.5f} ms "
         f"({card})")
-    log(f"adjoint (windows {adj_bands}): {t_adj:.4f} ms, of which the window starts "
-        f"(searchsorted, PyTorch ops) {t_adj_starts:.4f} ms; the splat timed around it "
-        f"{t_splat:.4f} / {t_splat_again:.4f} ms; plain {t_adj_plain:.3f} ms, grid_sample "
+    log(f"adjoint (measured windows {adj_bands}): {t_adj:.4f} ms with everything its wrapper "
+        f"launches (the kernel alone: no op precedes it); the splat timed around it "
+        f"{t_splat:.4f} / {t_splat_again:.4f} ms; 10 launches queued: adjoint "
+        f"{t_adj_queued:.4f}, splat {t_splat_queued:.4f} a launch; plain {t_adj_plain:.3f} ms, "
+        f"grid_sample "
         f"backward {t_splat_lib:.4f} ms, needs {work['adjoint']} B; bound "
         f"{bounds['adjoint'][0]:.5f} ms ({card})")
     del warped, d_samp
     torch.cuda.empty_cache()
 
     # the forward's two no-grad launches of a step at the main path's inputs: the D phase's
-    # fakes (these 8 MPIs and views) and worst-view selection (each MPI repeated over its
-    # candidate views, a materialized copy, as TrainStep.worst_views renders it)
+    # fakes (these 8 MPIs and views) and worst-view selection (each MPI read by the group of
+    # its candidate views, as TrainStep.worst_views renders it; beside it the materialized
+    # repeat that this form read before stacks could be grouped)
     yv_w, pv_w = step.sample_views(rng, bs * n_cand)
-    mpi_w = mpi.repeat_interleave(n_cand, dim=0)
     rays_w = fused_inputs(fr, geom_train.dhw, *rays_at(yv_w, pv_w), res)
     no_grad_forms = {}
     for form, tex, rays in (("d_phase_form", mpi, (rx, ry, q, scal)),
-                            ("worst_views_form", mpi_w, rays_w)):
-        err = check_inference_form(fr, f"main path's inputs, {form}, V={tex.shape[0]}", tex,
-                                   *rays, False)
-        max_err["fused_fwd"] = max(max_err["fused_fwd"], err)
+                            ("worst_views_form", mpi, rays_w)):
+        n_v = rays[0].shape[0]
+        err = check_inference_form(fr, f"main path's inputs, {form}, V={n_v}", tex, *rays, False)
+        max_err["fused_fwd"] = worse(max_err["fused_fwd"], err)
         t_kernel = time_ms(lambda: fr.warp_composite_fwd(tex, *rays, with_disp=False))
         t_plain = time_ms(lambda: fr.warp_composite_fwd_ref(tex, *rays, with_disp=False),
                           iters=5, warmup=1)
@@ -717,12 +864,17 @@ def main() -> int:
         n_pix_f = rays[0].numel()
         bytes_f = texels_f * 16 + 3 * n_pix_f * 4 + rays[3].numel() * 4 + 5 * n_pix_f * 4
         b = bound(bytes_f, FLOP_PER_PAIR["fused_fwd"] * pairs_f, rates)
-        log(f"fused_fwd {form} (V={tex.shape[0]}, L={n_train}, no gradient): {t_kernel:.4f} ms, "
-            f"plain {t_plain:.3f} ms, needs {bytes_f} B ({pairs_f} live pixel-plane pairs of "
-            f"{tex.shape[0] * n_train * res * res}, {texels_f} texels touched); bound "
-            f"{b[0]:.5f} ms by {b[1]} ({card})")
+        log(f"fused_fwd {form} (V={n_v}, {tex.shape[0]} stacks, L={n_train}, no gradient): "
+            f"{t_kernel:.4f} ms as the path launches it, plain {t_plain:.3f} ms, needs {bytes_f} B "
+            f"({pairs_f} live pixel-plane pairs of {n_v * n_train * res * res}, {texels_f} "
+            f"texels touched); bound {b[0]:.5f} ms by {b[1]} ({card})")
         no_grad_forms.update({f"{form}_ms": t_kernel, f"{form}_plain_ms": t_plain,
                               f"{form}_bound_ms": b[0]})
+    mpi_w = mpi.repeat_interleave(n_cand, dim=0)
+    t_repeat = time_ms(lambda: fr.warp_composite_fwd(mpi_w, *rays_w, with_disp=False))
+    log(f"fused_fwd worst_views_form on a materialized repeat of the stacks ({mpi_w.numel() * 4} "
+        f"B): {t_repeat:.4f} ms ({card})")
+    no_grad_forms["worst_views_form_repeat_ms"] = t_repeat
     del mpi, mpi_w
     torch.cuda.empty_cache()
 
@@ -864,6 +1016,7 @@ def main() -> int:
         entry("fused_fwd", 518, fwd_ms, fwd_plain_ms, fwd_bound, None,
               serving_launches=serving_launches["fused_fwd"],
               train_launches=train_launches["fused_fwd"], train_form_ms=t_fwd_train,
+              queued_ms=fwd_queued_ms,
               train_form_plain_ms=t_fwd_train_plain,
               train_form_bound_ms=bounds["fused_fwd_train"][0], **no_grad_forms),
         entry("composite_bwd", 2407, t_bwd, t_bwd_plain, bounds["composite_bwd"], None,
@@ -871,8 +1024,8 @@ def main() -> int:
         entry("splat", 1355, t_splat, t_splat_plain, bounds["splat"], t_splat_lib,
               also_replaces="gmpi_tpu/ops/pallas_warp.py:1184"),
         entry("adjoint", 2029, t_adj, t_adj_plain, bounds["adjoint"], t_splat_lib,
-              window_starts_ms=t_adj_starts, splat_ms_around=[t_splat, t_splat_again],
-              windows=list(adj_bands)),
+              splat_ms_around=[t_splat, t_splat_again], windows=list(adj_bands),
+              queued_ms=t_adj_queued, splat_queued_ms=t_splat_queued),
         entry("patch_gather", 33, t_pg, t_pg_plain, pg_bound, t_pg_lib,
               replaces="gmpi_tpu/ops/pallas_patch.py", err_scale="exact equality required"),
     ], "train_steps": n_steps, "train_step_ms": statistics.median(timed),

@@ -333,7 +333,10 @@ def render_mpi_fused(rgba: torch.Tensor, dhw: torch.Tensor, ray_dir: torch.Tenso
     Same semantics as :func:`render_mpi` with align_corners=True, float32
     throughout (a bf16 ``rgba`` is cast on the way in and its gradient back on
     the way out); the gradient reaches ``rgba`` only.  ``rgba [V, L, 4, Th,
-    Tw]`` may be an ``expand`` of one MPI over views.  Without a gradient to
+    Tw]`` may be an ``expand`` of one MPI over views; without a gradient it
+    may also hold ``S`` MPIs for ``V = S * k`` views, MPI ``n`` rendered into
+    views ``n * k ... (n + 1) * k - 1`` and read once for all of them (with a
+    gradient this raises: expand the MPIs instead).  Without a gradient to
     compute (``torch.no_grad()``, or ``rgba`` not requiring one) the forward
     kernel runs in its inference form: no residual, ``early_out`` on the
     transmittance.  With one, it keeps the residual and stops a pixel by the

@@ -8,7 +8,8 @@ PyTorch version that repeats the kernel's arithmetic:
 * :func:`warp_composite_fwd` -> ``csrc/fused_fwd.cu`` (``_fwd_kernel``): warp
   every plane into the view and over-composite front to back; in its training
   form it also returns the VJP residual and, with ``early_out="grad"``, the
-  per-pixel count of live planes;
+  per-pixel count of live planes.  Views may share texture stacks in groups
+  (view ``v`` reads stack ``v // k``);
 * :func:`composite_bwd` -> ``csrc/composite_bwd.cu`` (``_composite_bwd_fat_kernel``
   and ``_composite_bwd_kernel``): cotangents of the composited outputs back
   onto the warped samples;
@@ -16,9 +17,7 @@ PyTorch version that repeats the kernel's arithmetic:
   ``_splat_kernel``): the warp's transpose, sample cotangents onto texels,
   scattered pixel by pixel with atomics;
 * :func:`warp_adjoint` -> ``csrc/adjoint.cu`` (``_adj_kernel``): the same
-  transpose gathered texel by texel, with static windows planned on the host
-  (:func:`plan_adjoint`, :class:`AdjointBands`); no atomics, bitwise
-  repeatable.
+  transpose gathered texel by texel; no atomics, bitwise repeatable.
 
 A CUDA tensor goes to the kernel or the call raises; a CPU tensor goes to the
 plain version (``*_ref``), which is what the CPU tests and the on-card
@@ -29,9 +28,17 @@ the adjoint.
 
 Layout is the port's public ``[V, C, H, W]``: the TPU kernels' subtile-flat
 pixel layout, DMA bands, forward and splat band planning and per-plane
-liveness bitmap have no counterpart, because a thread per pixel gathers,
-scatters and skips on its own.  Only the adjoint keeps a plan: a texel's
-thread has to know where in the image to look.
+liveness bitmap have no counterpart.  What holds the two gathers back on an
+H100 is instruction issue and the latency of dependent loads from device
+memory, not its bytes, so both work from shared memory: a block of the
+forward finds, from its pixel tile's extreme rays, each plane's box of texels
+and copies it in asynchronously, a group of planes ahead of the compositing;
+a block of the adjoint owns a tile of texels, finds that tile's box of pixels
+with a few cooperative searches of the ray fields, stages it the same way,
+and each thread sums its two texels' pixels from there.  Neither needs a plan
+made on the host: :func:`plan_adjoint` only checks, once per pose range, that
+the ray fields are monotone as the adjoint's search assumes, and measures the
+windows that :class:`AdjointBands` reports.
 """
 
 from __future__ import annotations
@@ -53,7 +60,7 @@ EARLY_OUT_T = 1e-6   # inference: a pixel stops once its transmittance falls bel
 # Every gradient path out of a plane divides by at most one such factor, and
 # S / M removes exactly the smallest, so what is dropped is O(tau) absolute.
 GRAD_TAU = 1e-7
-MAX_PLANES = 2048    # the [L, 6] affine table is staged in 48 KB of shared memory
+MAX_PLANES = 2048    # the per-plane tables are staged in shared memory (40 B a plane)
 
 
 def plane_affine(dhw: torch.Tensor, eye_pos: torch.Tensor, tex_h: int, tex_w: int
@@ -88,11 +95,15 @@ def ray_fields(ray_dir: torch.Tensor, z_dir: torch.Tensor
 
 
 def sample_bilinear(tex_l: torch.Tensor, fx: torch.Tensor, fy: torch.Tensor) -> torch.Tensor:
-    """Bilinear sample of ``tex_l [V, 4, Th, Tw]`` at texel coordinates
-    ``fx, fy [V, H, W]``, zeros outside: ``[V, 4, H, W]``."""
+    """Bilinear sample of ``tex_l [S, 4, Th, Tw]`` at texel coordinates
+    ``fx, fy [V, H, W]``, zeros outside: ``[V, 4, H, W]``.  ``V`` is a multiple
+    of ``S``: view ``v`` samples texture ``v // (V // S)``."""
     v, h, w = fx.shape
     th, tw = tex_l.shape[-2:]
-    flat = tex_l.reshape(tex_l.shape[0], 4, th * tw).expand(v, 4, th * tw)
+    flat = tex_l.reshape(tex_l.shape[0], 4, th * tw)
+    if flat.shape[0] not in (1, v):
+        flat = flat.repeat_interleave(_views_per_stack(flat.shape[0], v), dim=0)
+    flat = flat.expand(v, 4, th * tw)
     x0, y0 = torch.floor(fx), torch.floor(fy)
     wx, wy = fx - x0, fy - y0
 
@@ -106,6 +117,13 @@ def sample_bilinear(tex_l: torch.Tensor, fx: torch.Tensor, fy: torch.Tensor) -> 
     top = tap(y0, x0) * (1.0 - wx) + tap(y0, x0 + 1) * wx
     bot = tap(y0 + 1, x0) * (1.0 - wx) + tap(y0 + 1, x0 + 1) * wx
     return top * (1.0 - wy) + bot * wy
+
+
+def _views_per_stack(n_stacks: int, n_views: int) -> int:
+    """``k`` of the grouping "view ``v`` reads stack ``v // k``"."""
+    if n_stacks < 1 or n_views % n_stacks:
+        raise ValueError(f"tex: {n_views} views are not a multiple of {n_stacks} texture stacks")
+    return n_views // n_stacks
 
 
 def _factor(alpha: torch.Tensor, eps: float) -> torch.Tensor:
@@ -126,6 +144,7 @@ def warp_composite_fwd_ref(tex: torch.Tensor, rx: torch.Tensor, ry: torch.Tensor
     leaves them unwritten), so a consumer that reads one shows.  Arguments and
     results as :func:`warp_composite_fwd`."""
     v = rx.shape[0]
+    _views_per_stack(tex.shape[0], v)
     n_l = scal.shape[1]
     grad_rule = early_out == "grad"
     zeros = torch.zeros_like(rx)
@@ -182,10 +201,10 @@ def _ptr(x: Optional[torch.Tensor]) -> Optional[int]:
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = {  # of the C entry point gmpi_<name> of csrc/<name>.cu; the last is the stream
-    "fused_fwd": [_P, ctypes.c_longlong] + [_P] * 10 + [_I] * 8 + [_F, _P],
+    "fused_fwd": [_P, ctypes.c_longlong] + [_P] * 10 + [_I] * 9 + [_F, _P],
     "composite_bwd": [_P] * 9 + [_I] * 4 + [_F, _I, _F, _P],
     "splat": [_P] * 6 + [_I] * 6 + [_P],
-    "adjoint": [_P] * 6 + [_I] * 8 + [_P],
+    "adjoint": [_P] * 5 + [_I] * 6 + [_P],
 }
 
 
@@ -200,10 +219,13 @@ def warp_composite_fwd(tex: torch.Tensor, rx: torch.Tensor, ry: torch.Tensor,
                        ) -> Tuple[torch.Tensor, ...]:
     """Warp + over-composite all planes of each view, front to back.
 
-    tex ``[V, L, 4, Th, Tw]`` f32 RGBA planes (plane 0 nearest); its view
-    dimension may be an ``expand`` of one stack (stride 0), which all views
-    then read.  rx, ry, q ``[V, H, W]`` from :func:`ray_fields`; scal
-    ``[V, L, 6]`` from :func:`plane_affine`.
+    tex ``[S, L, 4, Th, Tw]`` f32 RGBA planes (plane 0 nearest): ``S`` texture
+    stacks for ``V = S * k`` views, view ``v`` reading stack ``v // k`` (``k =
+    1``: a stack per view; ``S = 1``: one stack for every view; in between:
+    each stack rendered into ``k`` consecutive views, read from device memory
+    once).  An ``expand`` of one stack over the views (``[V, ...]``, stride 0)
+    is read as ``S = 1``.  rx, ry, q ``[V, H, W]`` from :func:`ray_fields`;
+    scal ``[V, L, 6]`` from :func:`plane_affine`.
 
     ``early_out``: ``True`` stops a pixel once its transmittance is below
     ``EARLY_OUT_T`` (inference); ``"grad"`` stops it by the grad-safe rule
@@ -224,16 +246,19 @@ def warp_composite_fwd(tex: torch.Tensor, rx: torch.Tensor, ry: torch.Tensor,
     if tex.device.type != "cuda":
         raise ValueError(f"warp_composite_fwd: unsupported device {tex.device}")
     if tex.ndim != 5 or tex.shape[2] != 4:
-        raise ValueError(f"tex: expected [V, L, 4, Th, Tw], got {tuple(tex.shape)}")
+        raise ValueError(f"tex: expected [S, L, 4, Th, Tw], got {tuple(tex.shape)}")
     v, h, w = rx.shape
-    n_l, th, tw = tex.shape[1], tex.shape[3], tex.shape[4]
+    n_stacks, n_l, th, tw = tex.shape[0], tex.shape[1], tex.shape[3], tex.shape[4]
     if tex.dtype != torch.float32:
         raise TypeError(f"tex: expected float32, got {tex.dtype}")
-    if tex.shape[0] != v or not tex[0].is_contiguous():
-        raise ValueError(f"tex: expected {v} views of contiguous [L, 4, Th, Tw] stacks")
-    view_stride = tex.stride(0) if v > 1 else 0  # 0 (expanded), packed, or a slab's parent
-    if view_stride != 0 and view_stride < n_l * 4 * th * tw:
-        raise ValueError(f"tex: view stride {view_stride} is neither 0 (one stack expanded over "
+    if n_stacks > 1 and tex.stride(0) == 0:
+        n_stacks = 1  # one stack expanded over the views
+    k = _views_per_stack(n_stacks, v)
+    if not tex[0].is_contiguous():
+        raise ValueError("tex: expected contiguous [L, 4, Th, Tw] stacks")
+    stack_stride = tex.stride(0) if n_stacks > 1 else 0  # packed, or a slab's parent
+    if n_stacks > 1 and stack_stride < n_l * 4 * th * tw:
+        raise ValueError(f"tex: view stride {stack_stride} is neither 0 (one stack expanded over "
                          f"the views) nor at least one stack ({n_l * 4 * th * tw})")
     if not 1 <= n_l <= MAX_PLANES:
         raise ValueError(f"tex: {n_l} planes, supported 1..{MAX_PLANES}")
@@ -251,9 +276,9 @@ def warp_composite_fwd(tex: torch.Tensor, rx: torch.Tensor, ry: torch.Tensor,
               if with_warped else None)
     n_live = torch.empty((v, h, w), dtype=torch.int32, device=dev) if grad_rule else None
     _launch("fused_fwd", dev,
-            tex.data_ptr(), view_stride, rx.data_ptr(), ry.data_ptr(), q.data_ptr(),
+            tex.data_ptr(), stack_stride, rx.data_ptr(), ry.data_ptr(), q.data_ptr(),
             scal.data_ptr(), color.data_ptr(), depth.data_ptr(), _ptr(disp), trans.data_ptr(),
-            _ptr(warped), _ptr(n_live), v, n_l, th, tw, h, w,
+            _ptr(warped), _ptr(n_live), v, n_l, th, tw, h, w, k,
             2 if grad_rule else int(bool(early_out)), int(bool(with_disp)), eps)
     outs = (color, depth) + ((disp,) if with_disp else ()) + (trans,)
     return outs + ((warped,) if with_warped else ()) + ((n_live,) if grad_rule else ())
@@ -433,8 +458,9 @@ def warp_splat(d_samp: torch.Tensor, rx: torch.Tensor, ry: torch.Tensor, scal: t
 
 
 class AdjointBands(NamedTuple):
-    """Static windows of the texture-space adjoint kernel, planned on the host
-    (:func:`plan_adjoint`) for a pose range.
+    """Windows of the texture-space adjoint, measured on the host
+    (:func:`plan_adjoint`) for a pose range; holding one is the caller's word
+    that the range's ray fields passed :func:`plan_adjoint`'s checks.
 
     The numbers are plain pixel counts: ``d_u`` is how many image rows can
     hold a pixel whose ``fy`` lies within one texel of a given texel row, the
@@ -442,8 +468,8 @@ class AdjointBands(NamedTuple):
     ``d_v`` the same for image columns and ``fx``.  (The TPU kernel's fields
     of the same names count tap offsets along a 16-row strip's rebased
     diagonal and carry a third, DMA-row field; neither notion exists here.)
-    The kernel walks the smaller of the two windows and bisects the other
-    axis, so it needs the windows and that the warp is monotone, nothing else.
+    They say how large a texel tile's box of pixels gets; the kernel does not
+    read them: each block finds its own box, of whatever size, on the card.
     """
     d_u: int
     d_v: int
@@ -459,13 +485,23 @@ def _line_extrema(rx, ry, scal, rows: bool, largest: bool = True) -> torch.Tenso
     return scal[..., a, None] * pick(field, dim=dim)[:, None] + scal[..., b, None]
 
 
+def _monotone_either_way(field: torch.Tensor, dim: int, tol: float = 1e-6) -> bool:
+    """Every line of ``field [V, H, W]`` along ``dim`` rises or falls
+    throughout (to ``tol``), each line in its own direction."""
+    d = torch.diff(field, dim=dim)
+    return bool(((d >= -tol).all(dim=dim) | (d <= tol).all(dim=dim)).all())
+
+
 def plan_adjoint(scal, rx, ry, tex_h: int, tex_w: int, margin: int = 2) -> AdjointBands:
-    """Windows of the adjoint kernel for the poses given (host work on
-    concrete tensors; plan at the corners of the pose range so the windows
-    cover every pose in it).  scal ``[V, L, 6]`` (or ``[L, 6]``), rx, ry ``[V,
-    H, W]``.  Raises ``ValueError`` where the warp is not monotone: the kernel
-    bisects ``fy`` along image columns and ``fx`` along image rows, and finds
-    its window starts from sorted row and column extrema."""
+    """Check the ray fields of the poses given for the adjoint kernel and
+    measure its windows (host work on concrete tensors; plan at the corners of
+    the pose range so the result covers every pose in it).  scal ``[V, L, 6]``
+    (or ``[L, 6]``), rx, ry ``[V, H, W]``.  Raises ``ValueError`` where the
+    warp is not monotone: the kernel searches ``fx`` along image rows and
+    ``fy`` along image columns for a texel tile's box, and takes the box's
+    extent over an interval of rows (columns) from the interval's two ends,
+    which holds when ``fx`` is monotone along columns and ``fy`` along rows as
+    well: the ray field of a pinhole camera is."""
     scal = torch.as_tensor(scal, dtype=torch.float32).cpu()
     rx = torch.as_tensor(rx, dtype=torch.float32).cpu()
     ry = torch.as_tensor(ry, dtype=torch.float32).cpu()
@@ -477,6 +513,11 @@ def plan_adjoint(scal, rx, ry, tex_h: int, tex_w: int, margin: int = 2) -> Adjoi
         raise ValueError("plan_adjoint: the warp is not monotone along image rows and columns "
                          "(fx must not decrease along a row, fy along a column); the adjoint "
                          "kernel cannot serve these poses, use the splat route")
+    if not (_monotone_either_way(rx, 1) and _monotone_either_way(ry, 2)):
+        raise ValueError("plan_adjoint: the warp is not monotone across image rows and columns "
+                         "(fx must rise or fall throughout along a column, fy along a row, as a "
+                         "pinhole camera's do); the adjoint kernel cannot serve these poses, use "
+                         "the splat route")
     spans = []
     for rows, n_tex in ((True, tex_h), (False, tex_w)):
         f_max = _line_extrema(rx, ry, scal, rows).numpy()
@@ -488,28 +529,8 @@ def plan_adjoint(scal, rx, ry, tex_h: int, tex_w: int, margin: int = 2) -> Adjoi
                 first = np.searchsorted(f_max[vi, li], t - 1.0, side="right")
                 last = np.searchsorted(f_min[vi, li], t + 1.0, side="left") - 1
                 span = max(span, int((last - first + 1).max()))
-        spans.append(span + 1 + margin)  # one pixel for the start's rounding guard
+        spans.append(span + 1 + margin)
     return AdjointBands(d_u=spans[0], d_v=spans[1])
-
-
-def adjoint_starts(rx: torch.Tensor, ry: torch.Tensor, scal: torch.Tensor,
-                   bands: AdjointBands, tex_h: int, tex_w: int) -> Tuple[torch.Tensor, bool]:
-    """Window starts of the adjoint kernel (device work, no synchronization):
-    ``(starts, scan_cols)``.  The kernel walks the smaller of the two planned
-    windows and bisects the other axis.  With ``scan_cols`` (``d_v <= d_u``)
-    ``starts [V, L, tex_w]`` int32 holds, per texel column ``x``, the first
-    image column whose largest ``fx`` reaches ``x - 1``; else ``starts [V, L,
-    tex_h]`` holds the first image row per texel row.  Each start is taken one
-    pixel early, a guard against the last-bit difference between these
-    coordinates and the kernel's fused multiply-add; the planned windows carry
-    that pixel."""
-    scan_cols = bands.d_v <= bands.d_u
-    ext = _line_extrema(rx, ry, scal, rows=not scan_cols)
-    n_tex = tex_w if scan_cols else tex_h
-    v, n_l = scal.shape[:2]
-    below = (torch.arange(n_tex, device=rx.device, dtype=ext.dtype) - 1.0).expand(v, n_l, n_tex)
-    starts = torch.searchsorted(ext.contiguous(), below.contiguous(), right=True) - 1
-    return starts.clamp_(min=0).to(torch.int32), scan_cols
 
 
 def warp_adjoint_ref(d_samp: torch.Tensor, rx: torch.Tensor, ry: torch.Tensor,
@@ -552,11 +573,13 @@ def warp_adjoint(d_samp: torch.Tensor, rx: torch.Tensor, ry: torch.Tensor, scal:
     d_samp ``[V, L, 4, H, W]`` f32 (exact zeros where a pixel never reached a
     plane, as :func:`composite_bwd` writes them); rx, ry ``[V, H, W]``; scal
     ``[V, L, 6]``; ``bands`` from :func:`plan_adjoint` for a pose range that
-    holds these poses.  Returns ``d_tex [V, L, 4, tex_h, tex_w]``.  Every texel
-    is owned by one thread that visits its pixels in a fixed order and writes
-    once: no atomics, no zero fill, bitwise repeatable (unlike
-    :func:`warp_splat`).  CPU tensors run :func:`warp_adjoint_ref`; CUDA
-    tensors launch the kernel."""
+    holds these poses (the kernel relies on what it checked, not on its
+    numbers).  Returns ``d_tex [V, L, 4, tex_h, tex_w]``.  A block owns a tile
+    of texels and finds that tile's pixels itself; every texel is owned by one
+    thread that visits its pixels in a fixed order and writes once: no
+    atomics, no zero fill, no work before the launch, bitwise repeatable
+    (unlike :func:`warp_splat`).  CPU tensors run :func:`warp_adjoint_ref`;
+    CUDA tensors launch the kernel."""
     if not isinstance(bands, AdjointBands) or min(bands) < 1:
         raise ValueError(f"bands: expected AdjointBands of positive windows, got {bands!r}")
     if d_samp.device.type == "cpu":
@@ -566,19 +589,15 @@ def warp_adjoint(d_samp: torch.Tensor, rx: torch.Tensor, ry: torch.Tensor, scal:
     if d_samp.ndim != 5 or d_samp.shape[2] != 4:
         raise ValueError(f"d_samp: expected [V, L, 4, H, W], got {tuple(d_samp.shape)}")
     v, n_l, _, h, w = d_samp.shape
-    if not 1 <= v * n_l <= 65535:
-        raise ValueError(f"d_samp: {v} x {n_l} (view, plane) pairs, supported 1..65535")
     dev = d_samp.device
     _check("d_samp", d_samp, (v, n_l, 4, h, w), dev)
     _check("rx", rx, (v, h, w), dev)
     _check("ry", ry, (v, h, w), dev)
     _check("scal", scal, (v, n_l, 6), dev)
-    starts, scan_cols = adjoint_starts(rx, ry, scal, bands, tex_h, tex_w)
     d_tex = torch.empty((v, n_l, 4, tex_h, tex_w), dtype=torch.float32, device=dev)
     _launch("adjoint", dev,
-            d_samp.data_ptr(), rx.data_ptr(), ry.data_ptr(), scal.data_ptr(), starts.data_ptr(),
-            d_tex.data_ptr(), v, n_l, tex_h, tex_w, h, w,
-            bands.d_v if scan_cols else bands.d_u, int(scan_cols))
+            d_samp.data_ptr(), rx.data_ptr(), ry.data_ptr(), scal.data_ptr(), d_tex.data_ptr(),
+            v, n_l, tex_h, tex_w, h, w)
     return d_tex
 
 
@@ -603,6 +622,10 @@ class FusedRender(torch.autograd.Function):
     @staticmethod
     def forward(ctx, tex, rx, ry, q, scal, with_disp: bool, grad_sparsity: bool,
                 adjoint_bands: Optional[AdjointBands] = None):
+        if tex.shape[0] != rx.shape[0]:
+            raise ValueError(f"FusedRender: {tex.shape[0]} texture stacks for {rx.shape[0]} "
+                             f"views; stacks shared by groups of views render without a "
+                             f"gradient only (expand the stacks over their views instead)")
         outs = warp_composite_fwd(tex, rx, ry, q, scal,
                                   early_out="grad" if grad_sparsity else False,
                                   with_disp=with_disp, with_warped=True)

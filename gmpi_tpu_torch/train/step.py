@@ -186,13 +186,22 @@ class TrainStep:
                      low_res: int = 0
                      ) -> Tuple[torch.Tensor, Optional[torch.Tensor], torch.Tensor]:
         """Render each MPI into its camera: ``(imgs in [-1, 1], flat pose,
-        depth)``.  ``low_res > 0`` renders at that resolution through the
-        gather path and upsamples bilinearly to ``img_size``: the cheap
+        depth)``.  With ``k`` times as many cameras as MPIs, MPI ``n`` renders
+        into cameras ``n * k ... (n + 1) * k - 1`` (no gradient): the fused
+        kernel reads each MPI once for its ``k`` views, the other routes get
+        a repeated copy.  ``low_res > 0`` renders at that resolution through
+        the gather path and upsamples bilinearly to ``img_size``: the cheap
         no-grad mode of worst-view selection, whose candidates only need to
         be rankable by D."""
         cfg, t = self.cfg, self.cfg.train
+        n_views = yaws.shape[0]
+        if n_views % mpi.shape[0]:
+            raise ValueError(f"{n_views} cameras are not a multiple of {mpi.shape[0]} MPIs")
+        grouped_fused = self.use_fused and not low_res and not t.fused_remat
+        if n_views != mpi.shape[0] and not grouped_fused:
+            mpi = mpi.repeat_interleave(n_views // mpi.shape[0], dim=0)
         c2w, _, _ = poses_mod.sample_sphere_poses(
-            None, mpi.shape[0], cfg.camera, given_yaws=yaws, given_pitches=pitches,
+            None, n_views, cfg.camera, given_yaws=yaws, given_pitches=pitches,
             device=self.device)
         dhw = self.geom.dhw
         intr = cam.intrinsics_from_fov(cfg.fov_deg, low_res, low_res) if low_res else self.intr
@@ -321,14 +330,14 @@ class TrainStep:
     def worst_views(self, state: TrainState, z: torch.Tensor,
                     generator: Optional[torch.Generator]):
         """Per z the camera that D scores lowest among ``n_view_per_z``
-        candidates.  The MPIs are repeated over their candidate views (a
-        materialized copy), so all candidates render in one call."""
+        candidates.  All candidates render in one call, each MPI into its
+        ``n_view_per_z`` consecutive views (z-major)."""
         t = self.cfg.train
         bs, v = z.shape[0], t.n_view_per_z
         mpi = self.synth(state.G, z, generator)
         yaws, pitches = self.sample_views(generator, bs * v)
         # z-major: [z0v0, z0v1, ...]
-        imgs, flat_pose, _ = self.render_views(mpi.repeat_interleave(v, dim=0), yaws, pitches,
+        imgs, flat_pose, _ = self.render_views(mpi, yaws, pitches,
                                                low_res=t.worst_view_render_res)
         scores = state.D(imgs, flat_pose).reshape(bs, v)
         sel = torch.argmin(scores, dim=1) + torch.arange(bs, device=scores.device) * v

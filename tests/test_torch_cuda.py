@@ -345,3 +345,150 @@ def test_adjoint_route_gradient_matches_splat_route_and_gather_on_the_card(cuda)
             == launched
     assert torch.equal(grads[0], grads[1])  # no atomics: bitwise repeatable
     assert _rel(grads[0], grads[2]) <= 1e-3 and _rel(grads[0], grads[3]) <= 1e-3
+
+
+# label -> image (H, W), texture (Th, Tw), tweak: the edges of the staged forward's and the
+# adjoint's designs (tiles of 32 x 8 pixels and 32 x 16 texels, groups of 2 planes, 16-byte copies)
+EDGES = {
+    "ragged_tiles": ((243, 250), (131, 200), None),
+    "odd_texture_width": ((244, 252), (200, 131), None),
+    "unaligned_slab_of_a_parent": ((243, 250), (131, 200), "slab"),
+    "texture_far_larger_than_image": ((64, 96), (300, 520), None),
+    "strong_minification": ((256, 256), (40, 64), None),
+    "every_tap_outside": ((243, 250), (131, 200), "outside"),
+    "nan_ray": ((244, 252), (131, 200), "nan"),
+}
+N_EDGE_PLANES = 9  # not a multiple of the staged group
+
+
+def _unaligned_copy(x):
+    """A contiguous copy of ``x`` that starts 4 bytes past a 16-byte boundary."""
+    flat = torch.empty((x.numel() + 1,), dtype=x.dtype, device=x.device)
+    out = flat[1:].view(x.shape)
+    out.copy_(x)
+    return out
+
+
+def _edge_scene(dev, case):
+    (h, w), (th, tw), tweak = EDGES[case]
+    cfg = get_config("FFHQ256")
+    cfg = dataclasses.replace(cfg, planes=dataclasses.replace(cfg.planes,
+                                                              n_planes=N_EDGE_PLANES))
+    geom = cfg.plane_geometry(device=dev)
+    c2w, _, _ = poses.sample_sphere_poses(None, 3, cfg.camera,
+                                          given_yaws=torch.tensor([[0.5], [-0.3], [0.0]]),
+                                          given_pitches=torch.tensor([[0.2], [-0.25], [0.1]]),
+                                          device=dev)
+    ray_dir, eye, z_dir = cam.generate_rays(cam.intrinsics_from_fov(cfg.fov_deg, h, w), c2w)
+    scal = fused_render.plane_affine(geom.dhw, eye, th, tw).contiguous()
+    rx, ry, q = (x.contiguous() for x in fused_render.ray_fields(ray_dir, z_dir))
+    if tweak == "outside":
+        scal[..., 1] += 1e4
+    if tweak == "nan":
+        rx[0, 5, 7] = ry[0, 5, 7] = float("nan")
+        rx[1, 0, 0] = ry[2, h - 1, w - 1] = float("nan")
+    return (h, w), (th, tw), tweak, (rx, ry, q, scal)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("stack", ["uniform", "sparse", "opaque_mid"])
+@pytest.mark.parametrize("case", list(EDGES))
+def test_fused_fwd_kernel_matches_plain_version_at_the_edges(cuda, case, stack):
+    """The forward kernel in every form (the three ``early_out`` modes, with
+    and without disparity and residual) at sizes that are not multiples of the
+    tiles, a texture width that is not a multiple of 4, a plane count that is
+    not a multiple of the staged group, a slab of a parent stack on an
+    unaligned address, boxes beyond the staging tile, every tap outside the
+    texture, a NaN ray (held on the other pixels: there the kernels read zeros
+    and the plain version's lerp weights turn NaN).  1e-4 absolute."""
+    _, (th, tw), tweak, (rx, ry, q, scal) = _edge_scene(cuda, case)
+    g = torch.Generator(device=cuda).manual_seed(5)
+    parent = torch.rand((3, N_EDGE_PLANES + 4, 4, th, tw), device=cuda, generator=g)
+    if stack != "uniform":
+        parent[:, :, 3] *= 0.05
+    if stack == "opaque_mid":
+        parent[:, 5:8, 3] = 1.0
+    tex = _unaligned_copy(parent)[:, 2:2 + N_EDGE_PLANES] if tweak == "slab" else \
+        parent[:, 2:2 + N_EDGE_PLANES].contiguous()
+    real = torch.isfinite(rx) & torch.isfinite(ry)
+    planes = torch.arange(N_EDGE_PLANES, device=cuda).reshape(1, -1, 1, 1, 1)
+    for early_out in (False, True, "grad"):
+        for with_disp in (False, True):
+            for with_warped in (False, True):
+                kw = dict(early_out=early_out, with_disp=with_disp, with_warped=with_warped)
+                ref = fused_render.warp_composite_fwd_ref(tex, rx, ry, q, scal, **kw)
+                n_base = 4 if with_disp else 3
+                out = fused_render.warp_composite_fwd(tex, rx, ry, q, scal, **kw)
+                torch.cuda.synchronize()
+                assert len(out) == len(ref)
+                for a, b in zip(out[:n_base], ref[:n_base]):
+                    assert float(torch.where(real[:, None], a - b, 0.0).abs().max()) <= TOL
+                both = real[:, None, None]
+                if early_out == "grad":
+                    moved = (out[-1] != ref[-1]) & real
+                    assert int(torch.where(real, out[-1] - ref[-1], 0).abs().max()) <= 1
+                    assert float(moved.float().mean()) <= 1e-4
+                    both = both & (planes < torch.minimum(out[-1], ref[-1])[:, None, None])
+                if with_warped and early_out is not True:
+                    diff = torch.where(both, out[n_base] - ref[n_base], 0.0)
+                    assert float(diff.abs().max()) <= TOL
+                if tweak == "outside":
+                    assert float(out[0].abs().max()) == 0.0
+                    assert float(out[n_base - 1].min()) == 1.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(EDGES))
+def test_adjoint_kernel_matches_plain_version_at_the_edges(cuda, case):
+    """Random cotangents with exact zeros among them; 1e-4 of max|plain|,
+    within rounding of the splat, bitwise equal across two launches.  The
+    strong minification makes a texel tile's box of pixels many staged chunks."""
+    (h, w), (th, tw), tweak, (rx, ry, _, scal) = _edge_scene(cuda, case)
+    g = torch.Generator(device=cuda).manual_seed(6)
+    d_samp = torch.randn((3, N_EDGE_PLANES, 4, h, w), device=cuda, generator=g)
+    d_samp = d_samp * (torch.rand((3, N_EDGE_PLANES, 1, h, w), device=cuda, generator=g) > 0.3)
+    if tweak == "slab":
+        d_samp = _unaligned_copy(d_samp)
+    bands = fused_render.AdjointBands(8, 8) if tweak == "nan" else \
+        fused_render.plan_adjoint(scal, rx, ry, th, tw)
+    out = fused_render.warp_adjoint(d_samp, rx, ry, scal, bands, th, tw)
+    again = fused_render.warp_adjoint(d_samp, rx, ry, scal, bands, th, tw)
+    ref = fused_render.warp_adjoint_ref(d_samp, rx, ry, scal, th, tw)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+    assert torch.isfinite(out).all()
+    scale = float(ref.abs().max())
+    assert float((out - ref).abs().max()) <= TOL * scale
+    if tweak == "outside":
+        assert scale == 0.0 and float(out.abs().max()) == 0.0
+    if tweak != "nan":  # the splat's coordinates are not NaN-safe by contract
+        splat = fused_render.warp_splat(d_samp, rx, ry, scal, th, tw)
+        assert float((out - splat).abs().max()) <= TOL * scale
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_stacks,n_views", [(4, 4), (1, 4), (2, 4), (2, 6)],
+                         ids=["k1", "kV", "k2", "k3"])
+def test_grouped_stacks_on_the_card(cuda, n_stacks, n_views):
+    """Stacks read by groups of views: the kernel equals itself on the
+    materialized repeat bit for bit, and the plain version within 1e-4; bad
+    groupings raise."""
+    geom, (ray_dir, eye, z_dir) = _scene(cuda, 7, 128, torch.linspace(-0.5, 0.5, n_views)[:, None],
+                                         torch.linspace(0.2, -0.2, n_views)[:, None])
+    scal = fused_render.plane_affine(geom.dhw, eye, 128, 128).contiguous()
+    rx, ry, q = (x.contiguous() for x in fused_render.ray_fields(ray_dir, z_dir))
+    stacks = torch.rand((n_stacks, 7, 4, 128, 128), device=cuda,
+                        generator=torch.Generator(device=cuda).manual_seed(8))
+    repeated = stacks.repeat_interleave(n_views // n_stacks, dim=0)
+    ref = fused_render.warp_composite_fwd_ref(stacks, rx, ry, q, scal)
+    a = fused_render.warp_composite_fwd(stacks, rx, ry, q, scal)
+    b = fused_render.warp_composite_fwd(repeated, rx, ry, q, scal)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    assert all(float((x - y).abs().max()) <= TOL for x, y in zip(a, ref))
+    fused = render_mpi_fused(stacks, geom.dhw, ray_dir, eye, z_dir)
+    gather = render_mpi(repeated, geom.dhw, ray_dir, eye, z_dir)
+    assert all(float((x - y).abs().max()) <= 5e-4 for x, y in zip(fused, gather))
+    if n_views % 3:
+        with pytest.raises(ValueError, match="multiple"):
+            fused_render.warp_composite_fwd(stacks[:1].expand(3, -1, -1, -1, -1).contiguous(),
+                                            rx, ry, q, scal)

@@ -126,6 +126,65 @@ def test_expanded_mpi_renders_like_a_copy():
     assert all(torch.equal(x, y) for x, y in zip(a, b))
 
 
+@pytest.mark.parametrize("n_stacks,n_views", [(4, 4), (1, 4), (2, 4), (2, 6)],
+                         ids=["k1", "kV", "k2", "k3"])
+@pytest.mark.parametrize("early_out", [True, False, "grad"])
+def test_grouped_stacks_render_like_their_repeat(n_stacks, n_views, early_out):
+    """``S`` stacks for ``V = S * k`` views (view ``v`` reads stack ``v // k``)
+    give exactly what ``repeat_interleave(k)`` of the stacks gives, in
+    ``warp_composite_fwd`` (every form) and in ``render_mpi_fused``."""
+    yaws = np.linspace(-0.5, 0.5, n_views)
+    dt, rt, et, zt = setup_both(3, 32, yaws, yaws[::-1] * 0.4)[1]
+    stacks = torch.from_numpy(random_mpi(n_stacks, 3, 32, seed=12, opaque_plane=1))
+    repeated = stacks.repeat_interleave(n_views // n_stacks, dim=0)
+    scal = fused_render.plane_affine(dt, et, 32, 32)
+    rx, ry, q = fused_render.ray_fields(rt, zt)
+    kw = dict(early_out=early_out, with_warped=early_out != True)  # noqa: E712
+    a = fused_render.warp_composite_fwd(stacks, rx, ry, q, scal, **kw)
+    b = fused_render.warp_composite_fwd(repeated, rx, ry, q, scal, **kw)
+    assert len(a) == len(b)
+    assert all(torch.equal(x.nan_to_num(-7.0), y.nan_to_num(-7.0)) for x, y in zip(a, b))
+    if early_out is True:
+        c = render_mpi_fused(stacks, dt, rt, et, zt)
+        d = render_mpi_fused(repeated, dt, rt, et, zt)
+        assert all(torch.equal(x, y) for x, y in zip(c, d))
+
+
+def test_grouped_stacks_match_jax_fused_kernel_interpret():
+    """Two stacks, four views: the port's grouped render against the JAX fused
+    kernel (interpret mode) on the repeated stacks, 5e-4."""
+    yaws, pitches = [0.1, -0.2, 0.3, 0.0], [0.05, 0.1, -0.1, 0.0]
+    (dj, rj, ej, zj), (dt, rt, et, zt) = setup_both(2, 256, yaws, pitches)
+    rgba = random_mpi(2, 2, 256, seed=13)
+    plans = plan_fused(dj, rj, ej, zj, 256, 256)
+    ref = jax_render_mpi_fused(jnp.asarray(np.repeat(rgba, 2, axis=0)), dj, rj, ej, zj, plans,
+                               interpret=True)
+    out = render_mpi_fused(torch.from_numpy(rgba), dt, rt, et, zt)
+    assert out.color.shape == (4, 3, 256, 256)
+    for a, b in zip(ref, out):
+        _close(a, b)
+
+
+def test_bad_groupings_raise():
+    """Views that are not a multiple of the stacks; a gradient through
+    grouped stacks (the Function renders a stack per view)."""
+    dt, rt, et, zt = setup_both(2, 16, [0.1, 0.0, -0.1], [0.0, 0.1, 0.0])[1]
+    scal = fused_render.plane_affine(dt, et, 16, 16)
+    rx, ry, q = fused_render.ray_fields(rt, zt)
+    two = torch.from_numpy(random_mpi(2, 2, 16))
+    with pytest.raises(ValueError, match="multiple"):
+        fused_render.warp_composite_fwd(two, rx, ry, q, scal)
+    with pytest.raises(ValueError, match="multiple"):
+        render_mpi_fused(two, dt, rt, et, zt)
+    one = torch.from_numpy(random_mpi(1, 2, 16)).requires_grad_()
+    with pytest.raises(ValueError, match="without a\\s+gradient|gradient"):
+        render_mpi_fused(one, dt, rt, et, zt)
+    # the same stack expanded over its views does carry a gradient
+    out = render_mpi_fused(one.expand(3, -1, -1, -1, -1), dt, rt, et, zt)
+    (g,) = torch.autograd.grad(out.color.sum(), one)
+    assert g.shape == one.shape and torch.isfinite(g).all()
+
+
 def test_fused_is_forward_only():
     """Without a gradient to compute the fused render is forward only: the
     inference form, whose outputs carry no graph, under ``no_grad`` and for an

@@ -313,6 +313,40 @@ def test_train_step_switches_run(train):
         assert any(".toalpha." in k for k in grads["g"])
 
 
+@pytest.mark.parametrize("train", [
+    dict(use_fused_renderer=True, n_view_per_z=3),
+    dict(use_fused_renderer=True, fused_remat=True),
+    dict(n_view_per_z=3),
+    dict(worst_view_render_res=8),
+], ids=["fused_grouped_stacks", "fused_remat", "gather", "low_res"])
+def test_worst_views_picks_the_views_of_the_repeated_mpi_render(train):
+    """Worst-view selection hands the MPIs over once; the fused route reads
+    each stack for its group of candidate views, the other routes repeat it.
+    Either way the selected cameras are those of rendering
+    ``mpi.repeat_interleave(n_view_per_z)``, as before stacks could be grouped."""
+    cfg = tiny_config(**train)
+    state, _, _ = _fresh(cfg)
+    step = make_train_step(cfg, device="cpu")
+    z = torch.from_numpy(np.random.default_rng(5).standard_normal((BS, 32)).astype(np.float32))
+    yaws, pitches = step.worst_views(state, z, torch.Generator().manual_seed(9))
+
+    gen = torch.Generator().manual_seed(9)
+    v = cfg.train.n_view_per_z
+    with torch.no_grad():
+        mpi = step.synth(state.G, z, gen)
+        all_yaws, all_pitches = step.sample_views(gen, BS * v)
+        imgs, flat_pose, _ = step.render_views(mpi.repeat_interleave(v, dim=0), all_yaws,
+                                               all_pitches, low_res=cfg.train.worst_view_render_res)
+        grouped, _, _ = step.render_views(mpi, all_yaws, all_pitches,
+                                          low_res=cfg.train.worst_view_render_res)
+        sel = torch.argmin(state.D(imgs, flat_pose).reshape(BS, v), dim=1) + torch.arange(BS) * v
+    assert torch.equal(grouped, imgs)
+    assert torch.equal(yaws, all_yaws[sel]) and torch.equal(pitches, all_pitches[sel])
+    assert yaws.shape == (BS, 1)
+    with pytest.raises(ValueError, match="multiple"):
+        step.render_views(mpi[:3], all_yaws[:4], all_pitches[:4])
+
+
 def test_lighting_changes_the_fakes_only_past_its_start():
     cfg = tiny_config(lighting=True)
     step = make_train_step(cfg, device="cpu")

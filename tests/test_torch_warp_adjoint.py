@@ -5,9 +5,11 @@ against the Pallas kernel it replaces (``_adj_kernel`` run by the interpreter,
 at the smallest shape its asserts admit), against ``jax.vjp`` of the JAX
 gather warp (that kernel's own oracle; 1e-3 absolute) and against the port's
 splat (1e-4 of max: the two differ in the last bit of a tap weight).  The CUDA
-kernel cannot run here, so its search (window starts, walked window, bisected
-axis) is repeated in Python on the same starts and bands and must reproduce
-the plain version: that is the test of ``plan_adjoint`` and ``adjoint_starts``.
+kernel cannot run here, so its search (a texel tile's image box from
+cooperative searches on end rows and columns, the box staged chunk by chunk,
+each texel's walk through the staged rows) is repeated in Python, block by
+block, and must reproduce the plain version: that is the test of the search
+and of what ``plan_adjoint`` checks for it.
 """
 
 import numpy as np
@@ -94,58 +96,152 @@ def test_warp_adjoint_matches_vjp_of_jax_gather_warp_and_the_splat():
     assert float((out - splat).abs().max()) <= 1e-4 * float(splat.abs().max())
 
 
-def _kernel_search_in_python(d_samp, rx, ry, scal, bands, tex_h, tex_w):
-    """What ``csrc/adjoint.cu`` does, thread by thread, in float32 numpy."""
-    starts, scan_cols = fr.adjoint_starts(rx, ry, scal, bands, tex_h, tex_w)
-    starts, g = starts.numpy(), d_samp.numpy()
+def _warp_first(lo, hi, pred, lanes):
+    """``warp_first`` of ``csrc/adjoint.cu``: the first n of [lo, hi) with
+    pred(n), hi if none, ``lanes`` candidates a step."""
+    while lo < hi:
+        step = (hi - lo + lanes - 1) // lanes
+        cand = [min(lo + (k + 1) * step - 1, hi - 1) for k in range(lanes)]
+        hits = [k for k, n in enumerate(cand) if pred(n)]
+        if not hits:
+            return hi
+        lo, hi = lo + hits[0] * step, cand[hits[0]]
+    return lo
+
+
+def _kernel_search_in_python(d_samp, rx, ry, scal, tex_h, tex_w, tile=(32, 16), chunk=(44, 20),
+                             lanes=32, vec=True):
+    """What ``csrc/adjoint.cu`` does, block by block and thread by thread, in
+    float32 numpy: ``(d_tex, the largest number of chunks a block staged)``.
+    ``tile`` (texels of a block, x by y), ``chunk`` (staged pixels, columns by
+    rows) and ``lanes`` are the kernel's constants, smaller here so that small
+    cases reach the multi-step search and the multi-chunk loop."""
+    g = d_samp.numpy()
     rx, ry, scal = rx.numpy(), ry.numpy(), scal.numpy()
     v_n, l_n, _, h, w = g.shape
     out = np.zeros((v_n, l_n, 4, tex_h, tex_w), np.float32)
-    d_out = bands.d_v if scan_cols else bands.d_u
-    one = np.float32(1.0)
+    (tile_x, tile_y), (chunk_w, chunk_h) = tile, chunk
+    one, slack, most_chunks = np.float32(1.0), np.float32(1.0 / 64.0), 0
+    vec = vec and w % 4 == 0
     for v in range(v_n):
         for l in range(l_n):
             ax, bx, ay, by = scal[v, l, :4]
-            fx, fy = ax * rx[v] + bx, ay * ry[v] + by  # [H, W]
-            # "o" walked, "i" bisected; index [o, i]
-            f_o, f_i, gg = (fx.T, fy.T, g[v, l].transpose(0, 2, 1)) if scan_cols else \
-                (fy, fx, g[v, l])
-            n_o, n_i = f_o.shape
-            for u in range(tex_h):
-                for x in range(tex_w):
-                    t_o, t_i = (x, u) if scan_cols else (u, x)
-                    s = starts[v, l, t_o]
-                    acc = np.zeros(4, np.float32)
-                    for o in range(s, min(s + d_out, n_o)):
-                        lo = int(np.searchsorted(f_i[o], np.float32(t_i - 1), side="right"))
-                        for n in range(lo, n_i):
-                            if f_i[o, n] >= t_i + 1:
-                                break
-                            wgt = max(0.0, one - abs(f_i[o, n] - t_i)) * \
-                                max(0.0, one - abs(f_o[o, n] - t_o))
-                            if wgt > 0:
-                                acc += np.float32(wgt) * gg[:, o, n]
-                    out[v, l, :, u, x] = acc
-    return out
+            with np.errstate(invalid="ignore"):
+                fx, fy = ax * rx[v] + bx, ay * ry[v] + by  # [H, W]
+            for u0 in range(0, tex_h, tile_y):
+                for x0 in range(0, tex_w, tile_x):
+                    # 1. the tile's image box [ia, ib) x [ja, jb)
+                    x_lo, x_hi = x0 - one - slack, min(x0 + tile_x, tex_w) + slack
+                    u_lo, u_hi = u0 - one - slack, min(u0 + tile_y, tex_h) + slack
+                    ia, ib, ja, jb = 0, h, 0, w
+                    for _ in range(2):
+                        # eight searches at once, all on the box as the round found it
+                        cols, rows = [fy[:, ja], fy[:, jb - 1]], [fx[ia], fx[ib - 1]]
+                        found = (
+                            min(_warp_first(ia, ib, lambda i: not e[i] <= u_lo, lanes)
+                                for e in cols),
+                            max(_warp_first(ia, ib, lambda i: e[i] >= u_hi, lanes) for e in cols),
+                            min(_warp_first(ja, jb, lambda j: not e[j] <= x_lo, lanes)
+                                for e in rows),
+                            max(_warp_first(ja, jb, lambda j: e[j] >= x_hi, lanes) for e in rows))
+                        ia, ib, ja, jb = found
+                        if ia >= ib or ja >= jb:
+                            break
+                    if ia >= ib or ja >= jb:
+                        continue  # nothing of the image under this tile: zeros
+                    # 2. chunks of the box, in the kernel's order
+                    if vec:
+                        ja &= ~3
+                    chunks = [(ci, min(chunk_h, ib - ci), cj, min(chunk_w, jb - cj))
+                              for ci in range(ia, ib, chunk_h) for cj in range(ja, jb, chunk_w)]
+                    most_chunks = max(most_chunks, len(chunks))
+                    # 3. each thread's walk through the staged rows
+                    for u in range(u0, min(u0 + tile_y, tex_h)):
+                        for x in range(x0, min(x0 + tile_x, tex_w)):
+                            acc = np.zeros(4, np.float32)
+                            below, above = np.float32(x - 1), np.float32(x + 1)
+                            for ci, nr, cj, nc in chunks:
+                                lo, searched = 0, False
+                                for r in range(nr):
+                                    # rows whose fy, bounded by the staged row's two
+                                    # ends, cannot come within a texel of the thread's
+                                    # two texel rows (u_a, u_a + 1) are skipped
+                                    e0, e1 = fy[ci + r, cj], fy[ci + r, cj + nc - 1]
+                                    u_a = u0 + 2 * ((u - u0) // 2)
+                                    under, over = u_a - one - slack, u_a + 2 * one + slack
+                                    if (e0 <= under and e1 <= under) or \
+                                            (e0 >= over and e1 >= over):
+                                        continue
+                                    row = fx[ci + r, cj:cj + nc]
+                                    if not searched:
+                                        searched = True
+                                        hi = nc
+                                        while lo < hi:
+                                            mid = (lo + hi) >> 1
+                                            if not row[mid] <= below:
+                                                hi = mid
+                                            else:
+                                                lo = mid + 1
+                                    else:
+                                        while lo > 0 and not row[lo - 1] <= below:
+                                            lo -= 1
+                                        while lo < nc and not row[lo] > below:
+                                            lo += 1
+                                    for n in range(lo, nc):
+                                        if row[n] >= above:
+                                            break
+                                        wx = max(0.0, one - abs(row[n] - x))
+                                        wgt = wx * max(0.0, one - abs(fy[ci + r, cj + n] - u))
+                                        if wgt > 0:
+                                            acc += np.float32(wgt) * g[v, l, :, ci + r, cj + n]
+                            out[v, l, :, u, x] = acc
+    return out, most_chunks
 
 
-@pytest.mark.parametrize("res,tex,yaw,pitch", [(24, 24, 0.578, 0.254), (32, 16, -0.578, 0.1),
-                                               (16, 32, 0.0, -0.254)],
-                         ids=["square_corner", "minified", "magnified"])
-def test_kernel_search_with_planned_windows_finds_every_contribution(res, tex, yaw, pitch):
-    """The kernel's search, repeated in Python with ``plan_adjoint``'s windows
-    and ``adjoint_starts``, equals the plain version (1e-5 of max): no pixel
-    of any texel's footprint lies outside the walked window or before the
-    bisected start.  Both scan directions."""
-    _, scal, rx, ry = _port_fields(2, res, [yaw, 0.0], [pitch, 0.0], tex=tex)
-    bands = fr.plan_adjoint(scal, rx, ry, tex, tex)
+# (image, texture, yaws, pitches, texel tile, staged chunk, lanes, chunks a block must reach)
+_SEARCH_CASES = {
+    "square_corner": (24, 24, [0.578, 0.0], [0.254, 0.0], (8, 4), (16, 8), 4, 1),
+    "minified": (32, 16, [-0.578, 0.0], [0.1, 0.0], (8, 4), (20, 12), 4, 1),
+    "magnified": (16, 32, [0.0, 0.0], [-0.254, 0.0], (8, 4), (12, 8), 32, 1),
+    "yaw_heavy": (24, 24, [0.9, -0.9], [0.05, 0.0], (8, 8), (16, 12), 4, 1),
+    "pitch_heavy": (24, 24, [0.05, 0.0], [0.5, -0.5], (8, 8), (16, 12), 4, 1),
+    "box_exceeds_staging": (32, 16, [0.578, -0.3], [-0.254, 0.2], (8, 4), (8, 4), 4, 6),
+    "kernel_constants": (72, 40, [0.578, -0.578], [0.254, -0.254], (32, 16), (44, 20), 32, 2),
+    "poses_outside_planned_range": (24, 24, [1.2, -1.0], [0.6, -0.5], (8, 4), (12, 8), 4, 1),
+    "nan_ray": (24, 24, [0.578, 0.0], [0.254, 0.0], (8, 4), (12, 8), 4, 1),
+}
+
+
+@pytest.mark.parametrize("case", list(_SEARCH_CASES))
+def test_kernel_search_with_planned_windows_finds_every_contribution(case):
+    """The kernel's search, repeated in Python, equals the plain version (1e-5
+    of max): no pixel of any texel's footprint lies outside its tile's box, a
+    chunk or the walked range, and none is counted twice.  Magnified and
+    minified, yaw-heavy and pitch-heavy, a box larger than the staging chunk,
+    the kernel's own tile and chunk sizes, poses outside the range that was
+    planned (the plan decides nothing about which pixels are visited), a NaN
+    ray (weight 0, and it hides no other pixel); 16-byte and 4-byte staging."""
+    res, tex, yaws, pitches, tile, chunk, lanes, want_chunks = _SEARCH_CASES[case]
+    _, scal, rx, ry = _port_fields(2, res, yaws, pitches, tex=tex)
+    if case == "poses_outside_planned_range":
+        _, scal_p, rx_p, ry_p = _port_fields(2, res, [0.1, -0.1], [0.05, -0.05], tex=tex)
+        bands = fr.plan_adjoint(scal_p, rx_p, ry_p, tex, tex)
+    else:
+        bands = fr.plan_adjoint(scal, rx, ry, tex, tex)  # accepts these ray fields
     g = torch.from_numpy(np.random.default_rng(3).standard_normal(
         (2, 2, 4, res, res)).astype(np.float32))
-    ref = fr.warp_adjoint_ref(g, rx, ry, scal, tex, tex).numpy()
-    for b in (bands, fr.AdjointBands(d_u=bands.d_u, d_v=bands.d_u + 1),
-              fr.AdjointBands(d_u=bands.d_v + 1, d_v=bands.d_v)):
-        out = _kernel_search_in_python(g, rx, ry, scal, b, tex, tex)
-        assert np.abs(out - ref).max() <= 1e-5 * np.abs(ref).max(), b
+    if case == "nan_ray":
+        rx, ry = rx.clone(), ry.clone()
+        rx[0, 5, 7] = ry[0, 5, 7] = float("nan")  # inside the image
+        rx[1, 0, 0] = float("nan")                # on an end row and column of the searches
+        ry[1, res - 1, res - 1] = float("nan")
+    ref = fr.warp_adjoint(g, rx, ry, scal, bands, tex, tex).numpy()  # the plain version here
+    assert np.isfinite(ref).all() and np.abs(ref).max() > 0
+    for vec in (True, False):
+        out, most_chunks = _kernel_search_in_python(g, rx, ry, scal, tex, tex, tile, chunk,
+                                                    lanes, vec)
+        assert np.abs(out - ref).max() <= 1e-5 * np.abs(ref).max(), vec
+        assert most_chunks >= want_chunks
 
 
 def test_plan_adjoint_windows_and_non_monotone_warp():
