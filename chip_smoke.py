@@ -29,13 +29,18 @@ Phases, each of which raises on failure (nonzero exit, no result line):
    exact equality (it is a copy).  (d) The texture-space adjoint, on the
    three stacks' ``d_samp`` of (b), against its plain version and against the
    splat, max error <= 1e-4 x max|plain|, and two launches bitwise equal.
-   (e) The forward and the adjoint at the edges of their designs: image and texture sizes that are not multiples of the tiles, a
-   texture width that is not a multiple of 4, a plane count that is not a
-   multiple of the staged group, a slab of a parent stack on an unaligned
-   address, a texture far larger than the image (boxes beyond the staging
-   tile), a strong minification (an adjoint box of many chunks), a pose with
-   every tap outside the texture, a NaN ray, every ``early_out`` mode, with
-   and without disparity and residual, on the three stacks;
+   (e) The forward, the adjoint, the splat and the composite backward at the
+   edges of their designs: image and texture sizes that are not multiples of
+   the tiles, a texture width that is not a multiple of 4, a plane count that
+   is not a multiple of the staged group or of the composite backward's chunk,
+   a slab of a parent stack on an unaligned address, a texture far larger than
+   the image (boxes beyond the staging tile and beyond the splat's texel box),
+   a strong minification (an adjoint box of many chunks), a pose with every
+   tap outside the texture, a NaN ray, every ``early_out`` mode, with and
+   without disparity and residual, on the three stacks; the splat in both
+   paths, with and without ``n_live`` over NaN-poisoned dead slots; the
+   composite backward with and without masks and optional cotangents, also at
+   9 and 600 planes (checkpoints past one a chunk) on an odd pixel count;
 3. serving main path — ``FakeImageGenerator`` at full FFHQ256 width with
    seeded random weights and the fused renderer: for 4 seeds, ``sample_mpi``
    then ``render`` of 4 views.  Kernel launch counts are reset just before and
@@ -52,9 +57,13 @@ Phases, each of which raises on failure (nonzero exit, no result line):
    gradient finite; then the fused renderer's ``rgba`` gradient against the
    gather renderer's autograd on the same inputs (relative 1e-3);
 5. timing at the main paths' inputs (CUDA events, median of 20 after
-   warm-up) and each kernel's bound from the bytes and operations those inputs
-   need: the forward in each of the three forms a train step launches (D
-   phase, worst views at V=32, G phase), the composite backward, the splat and
+   warm-up, one launch per event pair with everything the wrapper launches,
+   and for the backward kernels also 10 launches queued) and each kernel's
+   bound from the bytes and operations those inputs need: the forward in each
+   of the three forms a train step launches (D phase, worst views at V=32, G
+   phase), the composite backward, the splat in both of its paths (a tile's
+   taps summed in its texel box, what the path takes at 256^2; every tap into
+   ``d_tex``, the path of a box beyond the kernel's shared memory), and
    the adjoint (at phase 7's inputs); the patch gather is timed in phase 6 at
    that path's inputs;
 6. banded serving path — ``FakeImageGenerator(use_fused=False)`` (on a card
@@ -314,10 +323,50 @@ def unaligned_copy(x):
     return out
 
 
+def check_splat_paths(fr, d_samp, rx, ry, scal, th, tw, n_live=None):
+    """The splat kernel in both paths (texel boxes in shared memory, as the
+    wrapper launches it; every tap into ``d_tex``) against its plain version;
+    returns each one's error relative to max|plain|."""
+    ref = fr.warp_splat_ref(d_samp, rx, ry, scal, th, tw, n_live=n_live)
+    outs = {"box": fr.warp_splat(d_samp, rx, ry, scal, th, tw, n_live=n_live),
+            "direct": fr._launch_splat(d_samp, rx, ry, scal, n_live, th, tw, boxed=False)}
+    torch.cuda.synchronize()
+    return {path: rel_err(out, ref) for path, out in outs.items()}
+
+
+def check_composite_bwd(fr, warped, q, scal, gen):
+    """The composite backward against its plain version on ``warped`` with
+    random cotangents (the optional ones off and on) and a random ``n_live``
+    whose dead slots hold NaN, and on the whole stack without masks; returns
+    the largest error relative to max|plain| per field (rgb, alpha)."""
+    v, n_l, _, h, w = warped.shape
+    gc = torch.randn((v, 3, h, w), device=warped.device, generator=gen)
+    opt = [torch.randn((v, h, w), device=warped.device, generator=gen) for _ in range(3)]
+    n_live = torch.randint(0, n_l + 1, (v, h, w), device=warped.device, generator=gen,
+                           dtype=torch.int32)
+    planes = torch.arange(n_l, device=warped.device).reshape(1, n_l, 1, 1, 1)
+    poisoned = torch.where(planes < n_live[:, None, None], warped, float("nan"))
+    if warped.data_ptr() % 16:  # keep the caller's unaligned address
+        poisoned = unaligned_copy(poisoned)
+    err = 0.0
+    for x, kw in ((poisoned, dict(n_live=n_live, grad_tau=fr.GRAD_TAU)), (warped, {})):
+        for cot in ((None, None, None), opt):
+            out = fr.composite_bwd(x, q, scal, gc, *cot, **kw)
+            ref = fr.composite_bwd_ref(x, q, scal, gc, *cot, **kw)
+            torch.cuda.synchronize()
+            err = worse(err, worse(rel_err(out[:, :, :3], ref[:, :, :3]),
+                                   rel_err(out[:, :, 3], ref[:, :, 3])))
+            if "n_live" in kw and float(torch.where(planes >= n_live[:, None, None], out,
+                                                    0.0).abs().max()) != 0.0:
+                raise RuntimeError("composite_bwd: a dead slot's cotangent is not zero")
+    return err
+
+
 def check_edges(fr, cam, poses, cfg, dev):
-    """Phase 2e: the forward and the adjoint against their plain versions at
-    the edges of their designs.  Returns the largest error of each (absolute
-    for the forward, relative to max|plain| for the adjoint)."""
+    """Phase 2e: the forward, the adjoint, the splat (both paths) and the
+    composite backward against their plain versions at the edges of their
+    designs.  Returns the largest error of each (absolute for the forward,
+    relative to max|plain| for the others)."""
     n_v, n_l = 3, 9  # 9 planes: not a multiple of the staged group
     geom = dataclasses.replace(
         cfg, planes=dataclasses.replace(cfg.planes, n_planes=n_l)).plane_geometry(device=dev)
@@ -327,6 +376,7 @@ def check_edges(fr, cam, poses, cfg, dev):
     gen = torch.Generator(device=dev).manual_seed(5)
     planes = torch.arange(n_l, device=dev).reshape(1, n_l, 1, 1, 1)
     err_fwd, err_adj, n_fwd = 0.0, 0.0, 0
+    err_splat, err_bwd = {"box": 0.0, "direct": 0.0}, 0.0
     for label, (h, w), (th, tw), tweak in EDGE_CASES:
         ray_dir, eye, z_dir = cam.generate_rays(cam.intrinsics_from_fov(cfg.fov_deg, h, w), c2w)
         scal = fr.plane_affine(geom.dhw, eye, th, tw).contiguous()
@@ -394,14 +444,54 @@ def check_edges(fr, cam, poses, cfg, dev):
             e = worse(e, rel_err(a_tex, fr.warp_splat(d_samp, rx, ry, scal, th, tw)))
         if not torch.equal(a_tex, a_again):
             raise RuntimeError(f"adjoint [{label}]: two launches on one input differ")
+        err_adj = worse(err_adj, e)
+
+        # the splat in both paths, with n_live masking over NaN-poisoned dead slots
+        n_live = torch.randint(0, n_l + 1, (n_v, h, w), device=dev, generator=gen,
+                               dtype=torch.int32)
+        d_dead = torch.where(planes < n_live[:, None, None], d_samp, float("nan"))
+        if tweak == "slab":
+            d_dead = unaligned_copy(d_dead)
+        e_s = check_splat_paths(fr, d_samp, rx, ry, scal, th, tw)
+        e_m = check_splat_paths(fr, d_dead, rx, ry, scal, th, tw, n_live)
+        for key in e_s:
+            err_splat[key] = worse(err_splat[key], worse(e_s[key], e_m[key]))
+        # the composite backward on the forward's residual of the last stack
+        warped = fr.warp_composite_fwd(tex, rx, ry, q, scal, early_out=False, with_disp=False,
+                                       with_warped=True)[-1].nan_to_num(0.0)
+        if tweak == "slab":
+            warped = unaligned_copy(warped)
+        e_b = check_composite_bwd(fr, warped, q, scal, gen)
+        err_bwd = worse(err_bwd, e_b)
         log(f"edge [{label}: image {h} x {w}, texture {th} x {tw}, {n_l} planes]: fused_fwd max "
             f"abs err {case_err:.3e}, adjoint rel err {e:.3e} (max|plain| "
-            f"{float(a_ref.abs().max()):.3e}), bitwise repeatable")
-        err_adj = worse(err_adj, e)
-    if not (err_fwd <= TOL and err_adj <= TOL):  # also catches NaN
-        raise RuntimeError(f"edge cases: fused_fwd {err_fwd}, adjoint {err_adj} > {TOL}")
-    log(f"edge cases: {n_fwd} forward launches in all forms")
-    return err_fwd, err_adj
+            f"{float(a_ref.abs().max()):.3e}), bitwise repeatable; splat by path "
+            + ", ".join(f"{k} {worse(e_s[k], e_m[k]):.3e}" for k in e_s)
+            + f"; composite_bwd {e_b:.3e}")
+    # the composite backward at plane counts off its chunk of 4 and past one
+    # checkpoint a chunk (600 planes: one every 20), on an odd pixel count
+    for n_deep, (h, w) in ((9, (15, 13)), (600, (15, 13))):
+        warped = torch.rand((2, n_deep, 4, h, w), device=dev, generator=gen)
+        warped[:, :, 3] *= 0.1
+        warped[:, n_deep // 2, 3] = 1.0
+        scal = torch.zeros((2, n_deep, 6), device=dev)
+        scal[..., 4] = torch.rand((2, n_deep), device=dev, generator=gen) + 0.5
+        q = torch.rand((2, h, w), device=dev, generator=gen) + 0.9
+        e_b = check_composite_bwd(fr, warped, q, scal, gen)
+        log(f"edge [composite_bwd, {n_deep} planes, image {h} x {w}]: rel err {e_b:.3e}")
+        err_bwd = worse(err_bwd, e_b)
+    errs = {"fused_fwd": err_fwd, "adjoint": err_adj, "composite_bwd": err_bwd,
+            "splat": worse(err_splat["box"], err_splat["direct"])}
+    if not all(e <= TOL for e in errs.values()):  # also catches NaN
+        raise RuntimeError(f"edge cases: {errs} > {TOL}")
+    log(f"edge cases: {n_fwd} forward launches in all forms; splat by path {err_splat}")
+    return errs
+
+
+def reset_counts(fr):
+    """Zero the launch counts by kernel."""
+    for key in fr.LAUNCHES:
+        fr.LAUNCHES[key] = 0
 
 
 def snapshot(tensors):
@@ -522,9 +612,8 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # -- 2e. the forward and the adjoint at the edges of their designs ------------------
-    err_fwd, err_adj = check_edges(fr, cam, poses, cfg, dev)
-    max_err["fused_fwd"] = worse(max_err["fused_fwd"], err_fwd)
-    max_err["adjoint"] = worse(max_err["adjoint"], err_adj)
+    for kname, e in check_edges(fr, cam, poses, cfg, dev).items():
+        max_err[kname] = worse(max_err[kname], e)
 
     # -- 2c. patch gather vs plain version at the banded serving path's shapes ---------
     t0 = time.perf_counter()
@@ -566,8 +655,7 @@ def main() -> int:
     seeds, n_views = (0, 1, 2, 3), 4
     gen_ms, render_ms, mpis = [], [], []
     lo, hi = cfg.planes.min_d * 0.9, cfg.planes.max_d * 1.4
-    for kname in fr.LAUNCHES:
-        fr.LAUNCHES[kname] = 0
+    reset_counts(fr)
     for seed in seeds:
         mpi, ms = host_ms(lambda: gen.sample_mpi(seed))
         gen_ms.append(ms)
@@ -657,8 +745,7 @@ def main() -> int:
               snapshot([state.G.mapping.w_avg])]
     rng = torch.Generator().manual_seed(2)
     torch.cuda.reset_peak_memory_stats()
-    for kname in fr.LAUNCHES:
-        fr.LAUNCHES[kname] = 0
+    reset_counts(fr)
     step_ms, all_metrics = [], []
     for _ in range(sum(N_STEPS)):
         (_, metrics), ms = host_ms(lambda: step(state, real, real_pose, rng))
@@ -727,8 +814,7 @@ def main() -> int:
 
     # -- 7. adjoint route at the training shapes ---------------------------------------------
     grads_a = []
-    for kname in fr.LAUNCHES:
-        fr.LAUNCHES[kname] = 0
+    reset_counts(fr)
     for _ in range(2):
         x = mpi.clone().requires_grad_()
         out = render_mpi_fused(x, geom_train.dhw, ray_dir, eye, z_dir, plans=adj_plans,
@@ -759,12 +845,15 @@ def main() -> int:
     d_samp_ref = fr.composite_bwd_ref(warped, q, scal, cot, n_live=n_live, grad_tau=fr.GRAD_TAU)
     d_tex = fr.warp_splat(d_samp, rx, ry, scal, res, res, n_live=n_live)
     d_tex_ref = fr.warp_splat_ref(d_samp, rx, ry, scal, res, res, n_live=n_live)
+    d_tex_direct = fr._launch_splat(d_samp, rx, ry, scal, n_live, res, res, boxed=False)
     torch.cuda.synchronize()
+    splat_errs = {"box": rel_err(d_tex, d_tex_ref), "direct": rel_err(d_tex_direct, d_tex_ref)}
+    del d_tex_direct
     a_tex = fr.warp_adjoint(d_samp, rx, ry, scal, adj_bands, res, res)
     a_tex_ref = fr.warp_adjoint_ref(d_samp, rx, ry, scal, res, res)
     torch.cuda.synchronize()
     max_err["composite_bwd"] = max(max_err["composite_bwd"], rel_err(d_samp, d_samp_ref))
-    max_err["splat"] = max(max_err["splat"], rel_err(d_tex, d_tex_ref))
+    max_err["splat"] = worse(max_err["splat"], max(splat_errs.values()))
     max_err["adjoint"] = max(max_err["adjoint"], rel_err(a_tex, a_tex_ref), rel_err(a_tex, d_tex))
     del a_tex, a_tex_ref
     if not (max_err["composite_bwd"] <= TOL and max_err["splat"] <= TOL
@@ -793,9 +882,16 @@ def main() -> int:
             iters=5, warmup=1)
         t_bwd = time_ms(lambda: fr.composite_bwd(warped, q, scal, cot, n_live=n_live,
                                                  grad_tau=fr.GRAD_TAU))
+        t_bwd_queued = time_ms(lambda: fr.composite_bwd(warped, q, scal, cot, n_live=n_live,
+                                                        grad_tau=fr.GRAD_TAU), queued=10)
         t_bwd_plain = time_ms(lambda: fr.composite_bwd_ref(warped, q, scal, cot, n_live=n_live,
                                                            grad_tau=fr.GRAD_TAU),
                               iters=5, warmup=1)
+        # the splat's direct path at the same inputs (that of a box beyond its shared memory)
+        splat_direct = lambda: fr._launch_splat(  # noqa: E731
+            d_samp, rx, ry, scal, n_live, res, res, boxed=False)
+        t_splat_direct = time_ms(splat_direct)
+        t_splat_direct_queued = time_ms(splat_direct, queued=10)
         t_splat = time_ms(lambda: fr.warp_splat(d_samp, rx, ry, scal, res, res, n_live=n_live))
         t_splat_plain = time_ms(lambda: fr.warp_splat_ref(d_samp, rx, ry, scal, res, res,
                                                           n_live=n_live), iters=5, warmup=1)
@@ -830,9 +926,13 @@ def main() -> int:
         f"(mean n_live {float(n_live.float().mean()):.2f} of {n_train}), {texels} texels touched")
     log(f"fused_fwd training form: {t_fwd_train:.4f} ms as the path launches it, plain "
         f"{t_fwd_train_plain:.3f} ms, needs {work['fused_fwd_train']} B; bound {bounds['fused_fwd_train'][0]:.5f} ms ({card})")
-    log(f"composite_bwd: {t_bwd:.4f} ms, plain {t_bwd_plain:.3f} ms, needs "
+    log(f"composite_bwd: {t_bwd:.4f} ms with everything its wrapper launches (10 launches "
+        f"queued: {t_bwd_queued:.4f} a launch), plain {t_bwd_plain:.3f} ms, needs "
         f"{work['composite_bwd']} B; bound {bounds['composite_bwd'][0]:.5f} ms ({card})")
-    log(f"splat: {t_splat:.4f} ms, plain {t_splat_plain:.3f} ms, grid_sample backward "
+    log(f"splat (texel boxes, as the path launches it): {t_splat:.4f} ms with everything its "
+        f"wrapper launches, the zero fill of d_tex included (10 queued: {t_splat_queued:.4f} a "
+        f"launch); every tap into d_tex {t_splat_direct:.4f} (10 queued: "
+        f"{t_splat_direct_queued:.4f}); errors by path {splat_errs}; plain {t_splat_plain:.3f} ms, grid_sample backward "
         f"{t_splat_lib:.4f} ms, needs {work['splat']} B; bound {bounds['splat'][0]:.5f} ms "
         f"({card})")
     log(f"adjoint (measured windows {adj_bands}): {t_adj:.4f} ms with everything its wrapper "
@@ -896,8 +996,7 @@ def main() -> int:
     tw._warp_row_tiles, tw.gather_patches = counted_row_step, recorded_gather
     banded_ms, errs_b = [], []
     torch.cuda.reset_peak_memory_stats()
-    for kname in fr.LAUNCHES:
-        fr.LAUNCHES[kname] = 0
+    reset_counts(fr)
     try:
         for seed, mpi in zip(seeds, mpis):
             yv, pv = gen_b.sample_views(seed, n_views)
@@ -1020,9 +1119,11 @@ def main() -> int:
               train_form_plain_ms=t_fwd_train_plain,
               train_form_bound_ms=bounds["fused_fwd_train"][0], **no_grad_forms),
         entry("composite_bwd", 2407, t_bwd, t_bwd_plain, bounds["composite_bwd"], None,
-              also_replaces="gmpi_tpu/ops/pallas_warp.py:2295"),
+              also_replaces="gmpi_tpu/ops/pallas_warp.py:2295", queued_ms=t_bwd_queued),
         entry("splat", 1355, t_splat, t_splat_plain, bounds["splat"], t_splat_lib,
-              also_replaces="gmpi_tpu/ops/pallas_warp.py:1184"),
+              also_replaces="gmpi_tpu/ops/pallas_warp.py:1184", form="texel boxes",
+              queued_ms=t_splat_queued, errs_by_path=splat_errs, direct_path_ms=t_splat_direct,
+              direct_path_queued_ms=t_splat_direct_queued),
         entry("adjoint", 2029, t_adj, t_adj_plain, bounds["adjoint"], t_splat_lib,
               splat_ms_around=[t_splat, t_splat_again], windows=list(adj_bands),
               queued_ms=t_adj_queued, splat_queued_ms=t_splat_queued),

@@ -15,7 +15,8 @@ PyTorch version that repeats the kernel's arithmetic:
   onto the warped samples;
 * :func:`warp_splat` -> ``csrc/splat.cu`` (``_splat_plane_kernel`` and
   ``_splat_kernel``): the warp's transpose, sample cotangents onto texels,
-  scattered pixel by pixel with atomics;
+  scattered pixel by pixel: a tile's taps summed in its texel box in shared
+  memory, the box added into ``d_tex`` with 16-byte reductions;
 * :func:`warp_adjoint` -> ``csrc/adjoint.cu`` (``_adj_kernel``): the same
   transpose gathered texel by texel; no atomics, bitwise repeatable.
 
@@ -203,7 +204,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = {  # of the C entry point gmpi_<name> of csrc/<name>.cu; the last is the stream
     "fused_fwd": [_P, ctypes.c_longlong] + [_P] * 10 + [_I] * 9 + [_F, _P],
     "composite_bwd": [_P] * 9 + [_I] * 4 + [_F, _I, _F, _P],
-    "splat": [_P] * 6 + [_I] * 6 + [_P],
+    "splat": [_P] * 6 + [_I] * 7 + [_P],
     "adjoint": [_P] * 5 + [_I] * 6 + [_P],
 }
 
@@ -424,6 +425,19 @@ def warp_splat_ref(d_samp: torch.Tensor, rx: torch.Tensor, ry: torch.Tensor,
     return torch.stack(planes, dim=1)
 
 
+def _launch_splat(d_samp, rx, ry, scal, n_live, tex_h: int, tex_w: int,
+                  boxed: bool = True) -> torch.Tensor:
+    """Launch the splat kernel on checked CUDA tensors into a zeroed ``d_tex``.
+    ``boxed=False`` makes every block add its taps into ``d_tex`` directly, the
+    kernel's path for a texel box beyond its shared memory (tests and timing)."""
+    v, n_l, _, h, w = d_samp.shape
+    d_tex = torch.zeros((v, n_l, 4, tex_h, tex_w), dtype=torch.float32, device=d_samp.device)
+    _launch("splat", d_samp.device,
+            d_samp.data_ptr(), rx.data_ptr(), ry.data_ptr(), scal.data_ptr(), _ptr(n_live),
+            d_tex.data_ptr(), v, n_l, tex_h, tex_w, h, w, int(boxed))
+    return d_tex
+
+
 def warp_splat(d_samp: torch.Tensor, rx: torch.Tensor, ry: torch.Tensor, scal: torch.Tensor,
                tex_h: int, tex_w: int, n_live: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Exact transpose of the forward's bilinear warp: sample cotangents
@@ -432,8 +446,9 @@ def warp_splat(d_samp: torch.Tensor, rx: torch.Tensor, ry: torch.Tensor, scal: t
     + By`` and bounds.  rx, ry ``[V, H, W]``; scal ``[V, L, 6]``; ``n_live
     [V, H, W]`` int32 or None: planes ``l >= n_live`` of a pixel are skipped
     unread.  CPU tensors run :func:`warp_splat_ref`; CUDA tensors launch the
-    kernel, which scatters with fp32 atomics, so its sums are repeatable to
-    rounding only, not bitwise."""
+    kernel: a block sums the taps of a 32 x 32 pixel tile in its box of texels
+    in shared memory and adds the box into a zeroed ``d_tex``; its fp32 sums
+    are repeatable to rounding only, not bitwise."""
     if d_samp.device.type == "cpu":
         return warp_splat_ref(d_samp, rx, ry, scal, tex_h, tex_w, n_live)
     if d_samp.device.type != "cuda":
@@ -450,11 +465,7 @@ def warp_splat(d_samp: torch.Tensor, rx: torch.Tensor, ry: torch.Tensor, scal: t
     _check("scal", scal, (v, n_l, 6), dev)
     if n_live is not None:
         _check("n_live", n_live, (v, h, w), dev, torch.int32)
-    d_tex = torch.zeros((v, n_l, 4, tex_h, tex_w), dtype=torch.float32, device=dev)
-    _launch("splat", dev,
-            d_samp.data_ptr(), rx.data_ptr(), ry.data_ptr(), scal.data_ptr(), _ptr(n_live),
-            d_tex.data_ptr(), v, n_l, tex_h, tex_w, h, w)
-    return d_tex
+    return _launch_splat(d_samp, rx, ry, scal, n_live, tex_h, tex_w)
 
 
 class AdjointBands(NamedTuple):

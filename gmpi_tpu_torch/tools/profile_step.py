@@ -28,7 +28,7 @@ from gmpi_tpu_torch.train import flat_pose_from_c2w, init_train_state, make_trai
 
 
 SPAN = "train_step."  # the step's own profiler spans (train/step.py)
-OWN_KERNELS = ("fused_fwd_kernel", "composite_bwd_kernel", "splat_kernel")
+OWN_KERNELS = ("fused_fwd_kernel", "composite_bwd_kernel", "splat_tile_kernel")
 
 
 def _profiled(name, fn, top):

@@ -369,8 +369,8 @@ def _unaligned_copy(x):
     return out
 
 
-def _edge_scene(dev, case):
-    (h, w), (th, tw), tweak = EDGES[case]
+def _edge_scene(dev, case, cases=EDGES):
+    (h, w), (th, tw), tweak = cases[case]
     cfg = get_config("FFHQ256")
     cfg = dataclasses.replace(cfg, planes=dataclasses.replace(cfg.planes,
                                                               n_planes=N_EDGE_PLANES))
@@ -492,3 +492,107 @@ def test_grouped_stacks_on_the_card(cuda, n_stacks, n_views):
         with pytest.raises(ValueError, match="multiple"):
             fused_render.warp_composite_fwd(stacks[:1].expand(3, -1, -1, -1, -1).contiguous(),
                                             rx, ry, q, scal)
+
+
+# label -> image (H, W), texture (Th, Tw), tweak: the splat's tiles and texel boxes
+SPLAT_CASES = {
+    "same_size": ((128, 128), (128, 128), None),
+    "ragged_tiles": ((243, 250), (131, 200), None),
+    "odd_texture_width": ((244, 252), (200, 131), None),
+    "magnified_beyond_the_box": ((64, 96), (300, 520), None),
+    "strong_minification": ((256, 256), (40, 64), None),
+    "every_tap_outside": ((243, 250), (131, 200), "outside"),
+    "unaligned_slab": ((243, 250), (131, 200), "slab"),
+    "nan_ray": ((244, 252), (131, 200), "nan"),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("masked", [False, True], ids=["all_live", "n_live"])
+@pytest.mark.parametrize("case", list(SPLAT_CASES))
+def test_splat_kernel_paths_match_plain_version(cuda, case, masked):
+    """Both paths of the splat kernel (a tile's taps summed in its texel box
+    in shared memory, then 16- or 4-byte reductions into ``d_tex``; and every
+    tap added into ``d_tex``, which a box beyond the shared memory takes, as
+    the magnified case's boxes do) against ``warp_splat_ref``, 1e-4 of
+    max|plain|.  With ``n_live`` the dead slots hold NaN: they must not be read."""
+    (h, w), (th, tw), tweak, (rx, ry, _, scal) = _edge_scene(cuda, case, SPLAT_CASES)
+    g = torch.Generator(device=cuda).manual_seed(9)
+    n_l = N_EDGE_PLANES
+    d_samp = torch.randn((3, n_l, 4, h, w), device=cuda, generator=g)
+    d_samp = d_samp * (torch.rand((3, n_l, 1, h, w), device=cuda, generator=g) > 0.3)
+    n_live = None
+    if masked:
+        n_live = torch.randint(0, n_l + 1, (3, h, w), device=cuda, generator=g, dtype=torch.int32)
+        planes = torch.arange(n_l, device=cuda).reshape(1, n_l, 1, 1, 1)
+        d_samp = torch.where(planes < n_live[:, None, None], d_samp, float("nan"))
+    if tweak == "slab":
+        d_samp = _unaligned_copy(d_samp)
+    ref = fused_render.warp_splat_ref(d_samp, rx, ry, scal, th, tw, n_live=n_live)
+    before = fused_render.LAUNCHES["splat"]
+    outs = [fused_render.warp_splat(d_samp, rx, ry, scal, th, tw, n_live=n_live),
+            fused_render._launch_splat(d_samp, rx, ry, scal, n_live, th, tw, boxed=False)]
+    torch.cuda.synchronize()
+    assert fused_render.LAUNCHES["splat"] == before + 2
+    scale = float(ref.abs().max())
+    for out in outs:
+        assert torch.isfinite(out).all()
+        assert float((out - ref).abs().max()) <= TOL * scale
+    if tweak == "outside":
+        assert scale == 0.0 and float(outs[0].abs().max()) == 0.0
+
+
+COMPOSITE_CASES = {  # label -> L, image (H, W), opaque planes, unaligned
+    "one_plane": (1, (24, 20), (), False),
+    "chunk_minus_one": (3, (24, 20), (1,), False),
+    "chunk_plus_one": (5, (24, 20), (1, 3), False),
+    "between_chunks": (9, (24, 20), (2, 5), False),
+    "serving_depth": (96, (24, 20), (40,), False),
+    "deep_stack": (600, (16, 24), (300, 301), False),
+    "odd_pixel_count": (9, (15, 13), (2, 5), False),
+    "unaligned_slab": (33, (24, 20), (7,), True),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("optional", [False, True], ids=["color_only", "all_cotangents"])
+@pytest.mark.parametrize("case", list(COMPOSITE_CASES))
+def test_composite_bwd_kernel_matches_plain_version(cuda, case, optional):
+    """Plane counts around the kernel's chunk of 4 and beyond one checkpoint a
+    chunk (600 planes: a checkpoint every 20), an odd pixel count and an
+    unaligned slab (the scalar path), opaque planes (one: the planes behind keep
+    their cotangents; two: the grad_tau cut falls inside a chunk), with
+    and without the optional cotangents; random n_live with NaN in the dead
+    slots, and the slab form (no mask).  1e-4 of max|plain| per field."""
+    n_l, (h, w), opaque, unaligned = COMPOSITE_CASES[case]
+    g = torch.Generator(device=cuda).manual_seed(12)
+    warped = torch.rand((2, n_l, 4, h, w), device=cuda, generator=g)
+    warped[:, :, 3] *= 0.1  # transmittance lasts through the deep stack
+    for l in opaque:
+        warped[:, l, 3] = 1.0
+    scal = torch.zeros((2, n_l, 6), device=cuda)
+    scal[..., 4] = torch.rand((2, n_l), device=cuda, generator=g) + 0.5
+    q = torch.rand((2, h, w), device=cuda, generator=g) + 0.9
+    gc = torch.randn((2, 3, h, w), device=cuda, generator=g)
+    opt = tuple(torch.randn((2, h, w), device=cuda, generator=g) if optional else None
+                for _ in range(3))
+    n_live = torch.randint(0, n_l + 1, (2, h, w), device=cuda, generator=g, dtype=torch.int32)
+    n_live[0, :4] = n_l  # whole pixel rows reach every plane
+    planes = torch.arange(n_l, device=cuda).reshape(1, n_l, 1, 1, 1)
+    poisoned = torch.where(planes < n_live[:, None, None], warped, float("nan"))
+    if unaligned:
+        poisoned, warped = _unaligned_copy(poisoned), _unaligned_copy(warped)
+    before = fused_render.LAUNCHES["composite_bwd"]
+    for x, kw in ((poisoned, dict(n_live=n_live, grad_tau=fused_render.GRAD_TAU)),
+                  (warped, dict(grad_tau=fused_render.GRAD_TAU)), (warped, {})):
+        out = fused_render.composite_bwd(x, q, scal, gc, *opt, **kw)
+        ref = fused_render.composite_bwd_ref(x, q, scal, gc, *opt, **kw)
+        torch.cuda.synchronize()
+        assert torch.isfinite(out).all()
+        assert _rel(out[:, :, :3], ref[:, :, :3]) <= TOL
+        assert _rel(out[:, :, 3], ref[:, :, 3]) <= TOL
+        if "n_live" in kw:
+            assert float(torch.where(planes >= n_live[:, None, None], out, 0.0).abs().max()) == 0
+        if len(opaque) == 2 and opaque[1] == opaque[0] + 1 and kw:
+            assert float(out[:, opaque[1] + 1:].abs().max()) == 0.0  # S / M collapsed
+    assert fused_render.LAUNCHES["composite_bwd"] == before + 3
