@@ -83,7 +83,22 @@ Phases, each of which raises on failure (nonzero exit, no result line):
    corner poses))`` forward and backward on the 8 MPIs of 32 planes: one
    ``fused_fwd``, one ``composite_bwd``, one ``adjoint`` launch and no
    ``splat``; the ``rgba`` gradient within 1e-3 of max|grad| of the splat
-   route's and of the gather renderer's, and bitwise equal across two runs.
+   route's and of the gather renderer's, and bitwise equal across two runs;
+8. training loop from a dataset — in a temp dir, 20 seeded noise PNGs of
+   256^2 in a zip with Deep3DFace ``.mat`` poses, one fail-listed (19 images,
+   2 batches an epoch); ``train_gmpi_torch.main`` on the full FFHQ256 preset
+   for 6 steps with snapshots and checkpoints every 3 (3 epochs); a checkpoint
+   loaded into a fresh state must equal the saved state bitwise (G, D, both
+   optimizers, both EMAs, step); 4 steps of the same step outside the loop on
+   that state, timed as phase 4 times them; a resumed run to step 8 (starts at
+   6, ``latest`` names step 8, 3 step directories kept); a third run
+   warm-started from ``.npz`` exports of G and D, whose weights must equal
+   the exports before its first step.  Launch counts are reset just before
+   and read just after: per step 3 forward launches and ``batch_split`` each
+   of the composite backward and the splat, 24 forward launches a snapshot,
+   nothing else.  Every step's metrics finite, ``r1 > 0``; the PNG decodes
+   counted by decoder.  Prints steps/s, step and data-wait ms, checkpoint
+   seconds and bytes; the temp dir (~3 GB of checkpoints) is removed.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -108,6 +123,7 @@ FLOP_PER_PAIR = {"fused_fwd": 60, "composite_bwd": 25, "splat": 30, "adjoint": 3
 TOL = 1e-4
 GRAD_REL = 1e-3
 N_STEPS = (2, 3)  # warm-up, timed
+N_DIRECT_STEPS = 4  # phase 8: steps timed outside the loop (the first warms up)
 
 
 def log(*args):
@@ -500,6 +516,217 @@ def snapshot(tensors):
 
 def changed(before, tensors) -> bool:
     return any(not torch.equal(a, b) for a, b in zip(before, tensors))
+
+
+def write_ffhq_dataset(root, n_images, res, seed):
+    """An FFHQ-style dataset in ``root``: ``n_images`` seeded noise PNGs of
+    ``res``^2 in a zip, a Deep3DFace ``.mat`` file per image and a
+    ``fail_list.txt`` that leaves out the fourth.  Returns ``(zip, pose dir)``."""
+    import io
+    import os
+    import zipfile
+
+    import numpy as np
+    import scipy.io as sio
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    zpath, pose_dir = os.path.join(root, f"ffhq{res}.zip"), os.path.join(root, "coeffs")
+    os.makedirs(pose_dir)
+    with zipfile.ZipFile(zpath, "w") as zf:
+        for i in range(n_images):
+            buf = io.BytesIO()
+            Image.fromarray(rng.integers(0, 256, (res, res, 3), dtype=np.uint8)).save(
+                buf, format="PNG")
+            zf.writestr(f"{i:05d}.png", buf.getvalue())
+            sio.savemat(os.path.join(pose_dir, f"{i:05d}.mat"), {
+                "angle": (rng.standard_normal((1, 3)) * 0.2).astype(np.float32),
+                "trans": (rng.standard_normal((1, 3)) * 0.1).astype(np.float32)})
+    with open(os.path.join(pose_dir, "fail_list.txt"), "w") as f:
+        f.write("00003.png\n")
+    return zpath, pose_dir
+
+
+def same_tree(a, b) -> bool:
+    """Nested dicts/lists of tensors and numbers bitwise equal (dtype too)."""
+    if isinstance(a, torch.Tensor):
+        return isinstance(b, torch.Tensor) and a.dtype == b.dtype and torch.equal(
+            a, b.to(a.device))
+    if isinstance(a, dict):
+        return isinstance(b, dict) and set(a) == set(b) and all(same_tree(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(same_tree(x, y) for x, y in zip(a, b))
+    return a == b
+
+
+def training_loop_phase(fr, cfg, card, dev):
+    """Phase 8: ``train_gmpi_torch.main`` trains the full FFHQ256 preset from a
+    dataset of 256^2 PNGs in a zip with Deep3DFace poses (6 steps, snapshots
+    and checkpoints every 3), resumes to 8 steps, then warm-starts a third run
+    from ``.npz`` exports of the second one's G and D.  Returns the phase's
+    record; raises on a failed check."""
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    import train_gmpi_torch
+    from gmpi_tpu_torch.data import datasets as ds_mod
+    from gmpi_tpu_torch.data import fastpng
+    from gmpi_tpu_torch.models.converter import module_trees
+    from gmpi_tpu_torch.train import checkpoint as ckpt_mod
+    from gmpi_tpu_torch.train import init_train_state, make_train_step
+    from gmpi_tpu_torch.train.loop import LoopStats
+
+    t0 = time.perf_counter()
+    native = fastpng.available()
+    log(f"PNG decoder: native fastpng {'built' if native else 'UNAVAILABLE, PIL decodes'} "
+        f"({fastpng.library_path()}) in {time.perf_counter() - t0:.1f} s"
+        + ("" if native else f": {fastpng.build_log()}"))
+    split = cfg.hparams.batch_split
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_loop_")
+    try:
+        t0 = time.perf_counter()
+        zpath, pose_dir = write_ffhq_dataset(tmp, 20, cfg.resolution, seed=8)
+        log(f"dataset: 20 PNGs of {cfg.resolution}^2 in a zip ({os.path.getsize(zpath)} B), "
+            f"Deep3DFace .mat poses, one fail-listed, written in {time.perf_counter() - t0:.1f} s")
+        out = os.path.join(tmp, "run")
+        ckpt_dir = os.path.join(out, "checkpoints")
+        args = ["--dataset", "FFHQ256", "--data_root", zpath, "--pose_root", pose_dir,
+                "--output_dir", out, "--seed", "5", "--model_save_interval", "3",
+                "--sample_interval", "3"]
+        decodes0 = dict(ds_mod.DECODES)
+        reset_counts(fr)
+        runs = []
+        # 8a: 6 steps from scratch (19 images, 2 batches an epoch: 3 epochs)
+        stats1 = LoopStats()
+        t0 = time.perf_counter()
+        state = train_gmpi_torch.main(args + ["--total_iters", "6"], stats=stats1)
+        runs.append(("first", stats1, time.perf_counter() - t0))
+        dirs = sorted(d for d in os.listdir(ckpt_dir) if d.startswith("step_"))
+        if state.step != 6 or dirs != ["step_00000004", "step_00000006"]:
+            raise RuntimeError(f"first run ended at step {state.step} with checkpoints {dirs}")
+        # what was saved, loaded back into a fresh state: bitwise the live state
+        fresh = init_train_state(cfg, torch.Generator().manual_seed(77), device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loaded = ckpt_mod.load_checkpoint(ckpt_dir, fresh)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        restored = same_tree(ckpt_mod.state_payload(loaded), ckpt_mod.state_payload(state))
+        log(f"checkpoint step 6 loaded into a fresh state in {load_s:.2f} s: G, D, both "
+            f"optimizers, both EMAs and step bitwise equal to the saved state: {restored}")
+        if not restored:
+            raise RuntimeError("the loaded checkpoint differs from the state that was saved")
+        del fresh, loaded
+        # the step outside the loop, timed as phase 4 times it (host clock around a
+        # synchronize, one batch of the dataset already on the card), on run 1's state,
+        # between the two loop runs: the loop's own cost is the difference
+        ds = ds_mod.get_dataset("FFHQ", dataset_path=zpath, raw_img_size=cfg.resolution,
+                                img_size=cfg.hparams.img_size, pose_data_path=pose_dir,
+                                sphere_center=cfg.camera.sphere_center_z,
+                                flat_pose_dim=cfg.train.d_cond_pose_dim)
+        items = [ds[i] for i in range(cfg.hparams.batch_size)]
+        imgs = torch.from_numpy(np.stack([it[0] for it in items])).to(dev)
+        pose = torch.from_numpy(np.stack([it[1] for it in items])).to(dev)
+        step_fn, rng = make_train_step(cfg, device=dev), torch.Generator().manual_seed(9)
+        direct_ms = [host_ms(lambda: step_fn(state, imgs, pose, rng))[1]
+                     for _ in range(N_DIRECT_STEPS)]
+        log(f"the same step outside the loop on run 1's state (phase 4's timing): ms "
+            f"{['%.1f' % x for x in direct_ms]} ({card})")
+        del state, step_fn, ds, items, imgs, pose
+        torch.cuda.empty_cache()
+
+        # 8b: resume to 8 steps
+        stats2 = LoopStats()
+        t0 = time.perf_counter()
+        state = train_gmpi_torch.main(args + ["--total_iters", "8"], stats=stats2)
+        runs.append(("resumed", stats2, time.perf_counter() - t0))
+        dirs = sorted(d for d in os.listdir(ckpt_dir) if d.startswith("step_"))
+        with open(os.path.join(ckpt_dir, "latest")) as f:
+            latest = f.read().strip()
+        log(f"resumed run: started at step {stats2.start_step}, ended at {state.step}; "
+            f"checkpoints {dirs}, latest {latest}")
+        if (stats2.start_step != 6 or state.step != 8 or latest != "step_00000008"
+                or dirs != ["step_00000006", "step_00000007", "step_00000008"]):
+            raise RuntimeError("the resumed run did not continue from step 6 to 8 with 3 "
+                               "checkpoints kept")
+
+        # 8c: warm start of a third run from .npz exports of G and D
+        g_npz, d_npz = os.path.join(tmp, "g.npz"), os.path.join(tmp, "d.npz")
+        ckpt_mod.export_torch_style(g_npz, *module_trees(state.G))
+        ckpt_mod.export_torch_style(d_npz, *module_trees(state.D))
+        want_g, want_d = ckpt_mod.load_torch_style(g_npz), ckpt_mod.load_torch_style(d_npz)
+        del state
+        shutil.rmtree(out)
+        torch.cuda.empty_cache()
+        stats3 = LoopStats()
+        t0 = time.perf_counter()
+        warm = train_gmpi_torch.main(args + ["--total_iters", "0", "--warm_start", g_npz,
+                                             "--warm_start_d", d_npz], stats=stats3)
+        runs.append(("warm start", stats3, time.perf_counter() - t0))
+        warm_ok = (same_tree({**want_g[0], **want_g[1]}, warm.G.state_dict())
+                   and same_tree(want_d[0], warm.D.state_dict())
+                   and same_tree(want_g[0], warm.ema) and same_tree(want_g[0], warm.ema2)
+                   and warm.step == 0)
+        log(f"warm start from {os.path.getsize(g_npz)} + {os.path.getsize(d_npz)} B of .npz: "
+            f"G, D and both EMAs equal the exported weights before the first step: {warm_ok}")
+        if not warm_ok:
+            raise RuntimeError("the warm start did not copy G and D exactly")
+        del warm
+        torch.cuda.empty_cache()
+        launches = dict(fr.LAUNCHES)
+        decodes = {k: ds_mod.DECODES[k] - decodes0[k] for k in decodes0}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    n_steps = sum(len(st.step_ms) for _, st, _ in runs)
+    n_snaps = sum(len(st.snapshot_steps) for _, st, _ in runs)
+    renders = 2 * 3 * 4  # a snapshot: EMA and raw weights x 3 view rows x 4 images
+    all_steps = n_steps + N_DIRECT_STEPS
+    expected = {**dict.fromkeys(fr.LAUNCHES, 0), "fused_fwd": 3 * all_steps + renders * n_snaps,
+                "composite_bwd": split * all_steps, "splat": split * all_steps}
+    log(f"training loop: {n_steps} loop steps, {N_DIRECT_STEPS} steps outside it and {n_snaps} "
+        f"snapshots, launches {launches} (per step 3 forward, {split} composite backward, "
+        f"{split} splat; {renders} forward a snapshot)")
+    if n_steps != 8 or launches != expected:
+        raise RuntimeError(f"the training loop launched {launches} in {n_steps} steps, "
+                           f"expected {expected}")
+    for _, st, _ in runs:
+        for i, m in enumerate(st.metrics):
+            if not all(v == v and abs(v) != float("inf") for v in m.values()) or not m["r1"] > 0:
+                raise RuntimeError(f"loop step {st.start_step + i}: bad metrics {m}")
+    if sum(decodes.values()) == 0 or (native and decodes["pil"]):
+        raise RuntimeError(f"PNG decodes {decodes} with the native decoder "
+                           f"{'available' if native else 'unavailable'}")
+    wait = [x for _, st, _ in runs for x in st.data_wait_ms]
+    steps = [x for _, st, _ in runs for x in st.step_ms]
+    warm = [x for _, st, _ in runs for x in st.step_ms[1:]]  # each run's first step warms up
+    saves = [(s, b) for _, st, _ in runs for s, b in zip(st.save_s, st.save_bytes)]
+    for label, st, total in runs:
+        log(f"loop run [{label}]: steps {st.start_step}..{st.end_step}, "
+            + (f"{len(st.step_ms) / st.seconds:.3f} steps/s over the loop ({st.seconds:.1f} s "
+               f"with snapshots at {st.snapshot_steps} and checkpoints), " if st.step_ms else "")
+            + f"step ms {['%.1f' % x for x in st.step_ms]}, data wait ms "
+            f"{['%.2f' % x for x in st.data_wait_ms]}; call {total:.1f} s with set-up ({card})")
+        for i, m in enumerate(st.metrics):
+            log(f"  step {st.start_step + i}: " + ", ".join(f"{k} {v:.4f}" for k, v in m.items()))
+    log(f"training loop: median step {statistics.median(steps):.1f} ms ({statistics.median(warm):.1f} "
+        f"without each run's first; outside the loop {statistics.median(direct_ms[1:]):.1f} "
+        f"after its first), median data wait "
+        f"{statistics.median(wait):.3f} ms a step (max {max(wait):.3f}); checkpoint saves "
+        f"{['%.2f s %d B' % sb for sb in saves]}; load by the resumed run "
+        f"{stats2.load_s:.2f} s {stats2.load_bytes} B, into a fresh state {load_s:.2f} s; "
+        f"PNG decodes {decodes} ({card})")
+    return {"steps": n_steps, "snapshots": n_snaps, "launches": launches,
+            "steps_per_s": n_steps / sum(st.seconds for _, st, _ in runs),
+            "step_ms_median": statistics.median(steps),
+            "step_ms_median_after_first": statistics.median(warm),
+            "direct_step_ms": direct_ms,
+            "data_wait_ms_median": statistics.median(wait), "data_wait_ms_max": max(wait),
+            "save_s": [sb[0] for sb in saves], "save_bytes": [sb[1] for sb in saves],
+            "load_s": stats2.load_s, "load_bytes": stats2.load_bytes, "decodes": decodes}
 
 
 def main() -> int:
@@ -1100,7 +1327,13 @@ def main() -> int:
     del mpis, mpi_v, gen_b, gen_module, chunked, gather
     torch.cuda.empty_cache()
 
-    main_paths = (serving_launches, train_launches, adjoint_launches, banded_launches)
+    # -- 8. training loop from a dataset --------------------------------------------------
+    del state, step, step_with_grads
+    torch.cuda.empty_cache()
+    loop = training_loop_phase(fr, cfg, card, dev)
+
+    main_paths = (serving_launches, train_launches, adjoint_launches, banded_launches,
+                  loop["launches"])
 
     def entry(kname, line, ms, plain_ms, b, library_ms, replaces="gmpi_tpu/ops/pallas_warp.py",
               **extra):
@@ -1133,7 +1366,7 @@ def main() -> int:
         "banded_render_ms": t_banded, "banded_spans_ms": banded_spans,
         "banded_same_mpi_fused_ms": t_fused_same, "banded_same_mpi_gather_ms": t_gather_same,
         "banded_peak_gb": peak_banded, "banded_chunked_peak_gb": peak_chunked,
-        "serving_gather_ms": serving_gather_ms}
+        "serving_gather_ms": serving_gather_ms, "loop": loop}
     log(json.dumps(record))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -1,13 +1,14 @@
 """Typed experiment configuration (port of ``gmpi_tpu/config.py``).
 
 The same frozen dataclass presets as the JAX package, field for field, so a
-configuration reads the same in both.  Serving (``eval.harness``) and the
-train step (``train.step``) read them.  Training fields that do not act yet:
-``renderer_plane_chunk``, ``debug_ray_check`` and ``fused_compute_dtype``
-make ``make_train_step`` raise ``NotImplementedError``;
-``renderer_plane_shards`` / ``renderer_tile_shards`` belong to the sharded
-renderers (``mesh=``, which raises too); ``total_iters`` belongs to the
-training loop, which is not ported.
+configuration reads the same in both.  Serving (``eval.harness``), the
+train step (``train.step``) and the training loop (``train.loop``, which
+reads ``total_iters``) read them.  Every field acts (``renderer_plane_chunk``
+and ``debug_ray_check`` on the step's non-fused routes) except two kinds
+that raise ``NotImplementedError``: ``fused_compute_dtype`` in
+``make_train_step`` (bf16 textures in the fused kernels, ``ROADMAP`` Queue
+A4) and ``renderer_plane_shards`` / ``renderer_tile_shards`` > 1 in
+``train.loop.train`` (the sharded renderers, Queue A9).
 """
 
 from __future__ import annotations

@@ -127,3 +127,22 @@ def linspace_sphere_poses(n: int, cfg: SphereCameraConfig, horizontal: bool = Tr
         yaws = torch.full((n, 1), cfg.yaw_mean, device=dev)
         pitches = sweep * cfg.pitch_std + cfg.pitch_mean
     return c2w_from_yaw_pitch(yaws, pitches, cfg.sphere_center_z, cfg.sphere_r), yaws, pitches
+
+
+def yaw_pitch_from_w2c(w2c: torch.Tensor, sphere_center: torch.Tensor
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Recover ``(yaw, pitch)`` ``[..., 1]`` from world-to-camera matrices
+    ``[..., 4, 4]`` (the inverse of the construction; ``cam_utils.py:1005-1050``
+    semantics).  The eye in world coordinates is ``-R^T t``; moved into the
+    sphere frame, the spherical parameterization inverts to the angles."""
+    rot = w2c[..., :3, :3]
+    t = w2c[..., :3, 3]
+    eye_world = -torch.einsum("...ji,...j->...i", rot, t)
+    rel = eye_world - torch.as_tensor(sphere_center, dtype=w2c.dtype, device=w2c.device)
+    # world -> sphere frame: the inverse (transpose) of the sphere-to-world rotation
+    rot_ws = torch.as_tensor(_SPHERE_TO_WORLD_ROT.T, dtype=w2c.dtype, device=w2c.device)
+    p = torch.einsum("ij,...j->...i", rot_ws, rel)
+    r = torch.linalg.vector_norm(p, dim=-1)
+    pitch = torch.arcsin(torch.clamp(p[..., 2] / r, -1.0, 1.0))
+    yaw = torch.atan2(p[..., 1], p[..., 0])
+    return yaw[..., None], pitch[..., None]

@@ -1,4 +1,5 @@
-"""GAN training (port of ``gmpi_tpu/train``): losses and the train step."""
+"""GAN training (port of ``gmpi_tpu/train``): losses, the train step,
+checkpoints (``train.checkpoint``) and the training loop (``train.loop``)."""
 
 from gmpi_tpu_torch.train.losses import d_gan_loss, g_gan_loss, r1_penalty
 from gmpi_tpu_torch.train.step import (
@@ -8,6 +9,7 @@ from gmpi_tpu_torch.train.step import (
     init_train_state,
     make_optimizers,
     make_train_step,
+    set_learning_rates,
 )
 
 __all__ = [
@@ -20,4 +22,5 @@ __all__ = [
     "make_optimizers",
     "make_train_step",
     "r1_penalty",
+    "set_learning_rates",
 ]

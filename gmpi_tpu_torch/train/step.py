@@ -83,6 +83,20 @@ def make_optimizers(cfg: ExperimentConfig, G: Generator, D: Discriminator
     return opt_g, opt_d
 
 
+def set_learning_rates(cfg: ExperimentConfig, opt_g: torch.optim.Optimizer,
+                       opt_d: torch.optim.Optimizer) -> None:
+    """Set every Adam group's ``lr`` from ``cfg`` as :func:`make_optimizers`
+    does: mapping ``gen_lr * mapping_lr_mult``, synthesis ``gen_lr``, D
+    ``disc_lr``.  The learning rate lives in the optimizer here (the JAX step
+    rebuilds its optax transforms from the config), so a curriculum stage or
+    a resume sets it through this."""
+    h, t = cfg.hparams, cfg.train
+    mapping, synthesis = opt_g.param_groups
+    mapping["lr"], synthesis["lr"] = h.gen_lr * t.mapping_lr_mult, h.gen_lr
+    for group in opt_d.param_groups:
+        group["lr"] = h.disc_lr
+
+
 def init_train_state(cfg: ExperimentConfig, generator: Optional[torch.Generator] = None,
                      device="cuda") -> TrainState:
     """Fresh G, D (weights drawn from ``generator`` on the CPU), their

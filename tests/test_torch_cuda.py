@@ -15,6 +15,7 @@ and must be bitwise repeatable.
 
 import dataclasses
 
+import numpy as np
 import pytest
 import torch
 
@@ -596,3 +597,47 @@ def test_composite_bwd_kernel_matches_plain_version(cuda, case, optional):
         if len(opaque) == 2 and opaque[1] == opaque[0] + 1 and kw:
             assert float(out[:, opaque[1] + 1:].abs().max()) == 0.0  # S / M collapsed
     assert fused_render.LAUNCHES["composite_bwd"] == before + 3
+
+
+@pytest.mark.gpu
+def test_training_loop_on_the_card(cuda, tmp_path):
+    """The training loop at a tiny width on the card: the fused kernels run
+    (per step ``batch_split`` forward launches for the D phase's fakes, one
+    for worst-view selection, ``batch_split`` for the G phase, and
+    ``batch_split`` composite backward and splat launches), the weights stay
+    finite, the checkpoint loads bitwise."""
+    from gmpi_tpu_torch import config as tcfg
+    from gmpi_tpu_torch.core.poses import SphereCameraConfig
+    from gmpi_tpu_torch.train import checkpoint, init_train_state
+    from gmpi_tpu_torch.train.loop import LoopStats, train
+
+    bs, split = 4, 2
+    cfg = tcfg.ExperimentConfig(
+        name="tiny", resolution=16, fov_deg=12.6,
+        camera=SphereCameraConfig(sphere_center_z=1.0, sphere_r=1.0, yaw_mean=0.0,
+                                  yaw_std=0.289, pitch_mean=0.0, pitch_std=0.127),
+        planes=tcfg.PlaneConfig(n_planes=4, min_d=0.95, max_d=1.12),
+        hparams=tcfg.StepHparams(batch_size=bs, img_size=16, tex_size=16, batch_split=split,
+                                 gen_lr=0.002, disc_lr=0.002),
+        train=tcfg.TrainHparams(z_dim=32, w_dim=32, n_view_per_z=2, aug_with_lighting=False),
+        model=tcfg.ModelPreset(channel_base=512, channel_max=32, num_bf16_res=0,
+                               conv_clamp=None, gen_alpha_largest_res=16, mbstd_group_size=2))
+    rng = np.random.default_rng(0)
+    batches = [(rng.uniform(-1, 1, (bs, 3, 16, 16)).astype(np.float32),
+                rng.standard_normal((bs, 16)).astype(np.float32)) for _ in range(3)]
+    before = dict(fused_render.LAUNCHES)
+    stats = LoopStats()
+    state = train(cfg, iter(batches), str(tmp_path), total_iters=3, sample_interval=100,
+                  model_save_interval=100, seed=0, stats=stats)
+    launched = {k: fused_render.LAUNCHES[k] - before[k] for k in before}
+    assert state.step == 3 and len(stats.step_ms) == 3
+    assert launched == {**dict.fromkeys(launched, 0), "fused_fwd": (2 * split + 1) * 3,
+                        "composite_bwd": split * 3, "splat": split * 3}
+    assert all(torch.isfinite(p).all() for p in state.G.parameters())
+    loaded = checkpoint.load_checkpoint(str(tmp_path / "checkpoints"),
+                                        init_train_state(cfg, device=cuda))
+    assert loaded.step == 3
+    for a, b in zip(loaded.G.state_dict().values(), state.G.state_dict().values()):
+        assert torch.equal(a, b)
+    for key in state.ema:
+        assert torch.equal(loaded.ema[key], state.ema[key])
