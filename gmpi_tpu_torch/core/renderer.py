@@ -296,13 +296,18 @@ def plan_fused(dhw: torch.Tensor, ray_dir: torch.Tensor, eye_pos: torch.Tensor,
                z_dir: torch.Tensor, tex_h: int, tex_w: int, margin: int = 2):
     """Host-side planning of the fused renderer's texture-space adjoint
     route: the ``plans`` pair for :func:`render_mpi_fused`, ``(None,
-    (AdjointBands,))``.  The forward and the splat need no plan here (a thread
-    per pixel gathers and scatters on its own), so the pair's first half is
-    None; the adjoint kernel needs the windows that
-    ``fused_render.plan_adjoint`` measures.  Call it with concrete poses at
-    the corners of the pose range (for training, the truncation corners), so
-    the static windows cover every pose the sampler can draw.  Raises where
-    the warp is not monotone."""
+    (AdjointBands,))``, whose second half selects the adjoint as the
+    backward's last stage in place of the splat.  No kernel reads a plan:
+    the forward and the splat are tile kernels that find each tile's texel
+    box on the card, and so does the adjoint for each texel tile's box of
+    pixels; the first half is therefore None.  What ``plans`` still carries
+    is ``fused_render.plan_adjoint``'s word that the poses passed its checks:
+    every plane in front of the eye, and ``fx`` and ``fy`` monotone along and
+    across image rows and columns, which the adjoint's search needs.  Its
+    windows (``AdjointBands``) are kept as a measure of the boxes' size.
+    Call it with concrete poses at the corners of the pose range (for
+    training, the truncation corners), so the check covers every pose the
+    sampler can draw.  Raises where the warp is not monotone."""
     with torch.no_grad():
         scal = fused_render.plane_affine(dhw.float().cpu(), eye_pos.float().cpu(), tex_h, tex_w)
         rx, ry, _ = fused_render.ray_fields(ray_dir.float().cpu(), z_dir.float().cpu())
