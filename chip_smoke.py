@@ -98,7 +98,29 @@ Phases, each of which raises on failure (nonzero exit, no result line):
    of the composite backward and the splat, 24 forward launches a snapshot,
    nothing else.  Every step's metrics finite, ``r1 > 0``; the PNG decodes
    counted by decoder.  Prints steps/s, step and data-wait ms, checkpoint
-   seconds and bytes; the temp dir (~3 GB of checkpoints) is removed.
+   seconds and bytes; the temp dir (~3 GB of checkpoints) is removed;
+9. eval at full FFHQ256 width — in a temp dir, a checkpoint of a seeded
+   state, seeded random InceptionV3 weights as a ``.pth`` under torchvision
+   names, phase 8's kind of dataset and the stub adapters below:
+   ``eval_gmpi_torch.main --task all`` (64 fakes, 16 consistency pairs, 16
+   geometry images at 224^2, 96 planes, the banded renderer) twice, whose
+   FID/KID, consistency and geometry numbers must be present, finite and
+   equal; ``prepare_fake`` once more with ``--fused_renderer``, whose PNGs
+   must be within 1 level of the banded run's.  Launch counts are reset
+   before and read after each ``prepare_fake_images`` call: fused, one
+   forward launch an image; banded, one patch-gather launch a tile-row step;
+   nothing else.  The Inception features on the card against a CPU copy of
+   the module (8 images, 1e-4 of max|CPU|); then Inception ms an image at
+   batch 32 over 2048 random 256^2 images, ``frechet_distance`` seconds at
+   2048 features, and ``train_gmpi_torch.main`` for 2 steps with the
+   in-training FID (``--fid_interval 1 --fid_n_imgs 16``), which must log
+   one finite ``fid``;
+10. viz — ``render_gmpi_torch.main`` on phase 9's checkpoint: 8 frames of
+   96 planes and a mesh of 128 planes; ``rendered.png``, the three sheets,
+   the rgb and depth videos (mp4 or frame directories) and a ``mesh.ply``
+   with vertices and in-range faces must exist; no kernel launches (the
+   video renders by the per-pixel gather).  Prints ms a frame and the
+   marching tetrahedra's seconds and counts.  The temp dir is removed.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -518,6 +540,42 @@ def changed(before, tensors) -> bool:
     return any(not torch.equal(a, b) for a, b in zip(before, tensors))
 
 
+class StubEmbedder:
+    """Deterministic stand-in for the ArcFace adapter (the repository holds no
+    face model weights): image statistics as the identity embedding."""
+
+    def embed(self, img):
+        import numpy as np
+
+        x = np.asarray(img, np.float32)
+        return np.array([x.mean(), x.std(), x[..., 0].mean(), x[..., 1].mean()])
+
+
+class StubDetector:
+    """Stand-in for the MTCNN adapter: five fixed landmarks of a frontal face."""
+
+    def detect(self, img):
+        import numpy as np
+
+        h, w = img.shape[:2]
+        return np.array([[w * 0.3, h * 0.4], [w * 0.7, h * 0.4], [w * 0.5, h * 0.55],
+                         [w * 0.35, h * 0.7], [w * 0.65, h * 0.7]], np.float32)
+
+
+class StubEstimator:
+    """Stand-in for the Deep3DFace adapter: fixed angles, a depth map seeded by
+    the image's pixel sum, a full face mask."""
+
+    def estimate(self, img, landmarks):
+        import numpy as np
+
+        h, w = img.shape[:2]
+        rng = np.random.default_rng(int(np.asarray(img).sum()) % 1000)
+        return {"angles": np.array([0.01, -0.02, 0.0], np.float32),
+                "depth": rng.uniform(0.9, 1.2, (h, w)).astype(np.float32),
+                "mask": np.ones((h, w), bool)}
+
+
 def write_ffhq_dataset(root, n_images, res, seed):
     """An FFHQ-style dataset in ``root``: ``n_images`` seeded noise PNGs of
     ``res``^2 in a zip, a Deep3DFace ``.mat`` file per image and a
@@ -729,6 +787,307 @@ def training_loop_phase(fr, cfg, card, dev):
             "load_s": stats2.load_s, "load_bytes": stats2.load_bytes, "decodes": decodes}
 
 
+def _timed(obj, name, record):
+    """Replace ``obj.name`` by a wrapper that appends each call's host ms
+    (around a synchronize) to ``record``; returns the original."""
+    orig = getattr(obj, name)
+
+    def timed(*args, **kw):
+        out, ms = host_ms(lambda: orig(*args, **kw))
+        record.append(ms)
+        return out
+
+    setattr(obj, name, timed)
+    return orig
+
+
+def _pngs_apart(dir_a, dir_b):
+    """``(max level difference, share of differing pixels)`` of two PNG dumps
+    with the same file names."""
+    import os
+
+    import numpy as np
+    from PIL import Image
+
+    names = sorted(os.listdir(dir_a))
+    if not names or names != sorted(os.listdir(dir_b)):
+        raise RuntimeError(f"{dir_a} and {dir_b} hold different files")
+    worst, n_diff, n_all = 0, 0, 0
+    for name in names:
+        a = np.asarray(Image.open(os.path.join(dir_a, name)), np.int32)
+        b = np.asarray(Image.open(os.path.join(dir_b, name)), np.int32)
+        worst = max(worst, int(np.abs(a - b).max()))
+        n_diff += int((a != b).sum())
+        n_all += a.size
+    return worst, n_diff / n_all
+
+
+EVAL_KEYS = {"fid_kid": ("frechet_inception_distance", "kernel_inception_distance_mean",
+                         "kernel_inception_distance_std"),
+             "consistency": ("consistency_mean", "consistency_std"),
+             "geometry": ("n_evaluated", "n_skipped", "angle_error_mse", "depth_error_mse")}
+
+
+def eval_phase(fr, tw, cfg, card, dev, tmp, n_fakes=64, n_pairs=16, n_planes=96,
+               n_inception=2048, fid_n_imgs=16):
+    """Phase 9: ``eval_gmpi_torch.main --task all`` twice on a checkpoint of a
+    seeded state (banded renders), ``prepare_fake`` once more with the fused
+    renderer, the Inception features on the card against a CPU copy, the
+    timings of the eval layers, and ``train_gmpi_torch.main`` with the
+    in-training FID.  Returns the phase's record and the checkpoint's
+    directory; everything is written under ``tmp``, which the caller
+    removes.  Raises on a failed check."""
+    import copy
+    import json
+    import os
+
+    import numpy as np
+
+    import eval_gmpi_torch
+    import train_gmpi_torch
+    from gmpi_tpu_torch.eval import harness, inception, metrics
+    from gmpi_tpu_torch.train import checkpoint as ckpt_mod
+    from gmpi_tpu_torch.train import init_train_state
+    from gmpi_tpu_torch.train import loop as loop_mod
+
+    zpath, pose_dir = write_ffhq_dataset(tmp, 20, cfg.resolution, seed=9)
+    ckpt_dir = os.path.join(tmp, "ckpt")
+    os.makedirs(ckpt_dir)
+    state = init_train_state(cfg, torch.Generator().manual_seed(3), device=dev)
+    ckpt_mod.save_checkpoint(ckpt_dir, state)
+    del state
+    torch.cuda.empty_cache()
+    weights = os.path.join(tmp, "inception.pth")
+    torch.save({k: torch.from_numpy(v) for k, v in inception.random_params(seed=4).items()},
+               weights)
+    common = ["--ckpt", ckpt_dir, "--n_planes", str(n_planes), "--device", str(dev)]
+    chain = common + ["--task", "all", "--data_root", zpath, "--pose_root", pose_dir,
+                      "--n_imgs", str(n_fakes), "--n_consistency", str(n_pairs),
+                      "--n_geometry", str(n_pairs), "--inception_weights", weights,
+                      "--embedder", "chip_smoke:StubEmbedder",
+                      "--landmark_detector", "chip_smoke:StubDetector",
+                      "--pose_estimator", "chip_smoke:StubEstimator"]
+
+    # each prepare_fake_images call: launches reset just before and read just after
+    tasks, row_steps = [], {"n": 0}
+    prepare, row_step = harness.prepare_fake_images, tw._warp_row_tiles
+    gen_ms, render_ms = {False: [], True: []}, {False: [], True: []}
+
+    def counted_prepare(gen, out_dir, n_imgs, task="fid_kid"):
+        reset_counts(fr)
+        row_steps["n"] = 0
+        _, ms = host_ms(lambda: prepare(gen, out_dir, n_imgs, task=task))
+        tasks.append({"task": task, "fused": gen.use_fused, "size": gen.img_size,
+                      "n_imgs": n_imgs, "launches": dict(fr.LAUNCHES),
+                      "row_steps": row_steps["n"], "seconds": ms / 1e3})
+
+    def counted_row_step(*args, **kw):
+        row_steps["n"] += 1
+        return row_step(*args, **kw)
+
+    originals = [(harness, "prepare_fake_images", prepare), (tw, "_warp_row_tiles", row_step)]
+    harness.prepare_fake_images, tw._warp_row_tiles = counted_prepare, counted_row_step
+    cls = harness.FakeImageGenerator
+    for name, record in (("sample_mpi", gen_ms), ("render", render_ms)):
+        originals.append((cls, name, getattr(cls, name)))
+
+        def timed(self, *args, _orig=getattr(cls, name), _record=record, **kw):
+            out, ms = host_ms(lambda: _orig(self, *args, **kw))
+            _record[self.use_fused].append(ms)
+            return out
+
+        setattr(cls, name, timed)
+    try:
+        runs = []
+        for k in range(2):
+            t0 = time.perf_counter()
+            res = eval_gmpi_torch.main(chain + ["--out", os.path.join(tmp, f"eval{k}")], cfg=cfg)
+            runs.append((res, time.perf_counter() - t0))
+        fused_dir = os.path.join(tmp, "fused")
+        eval_gmpi_torch.main(common + ["--task", "prepare_fake", "--fused_renderer", "--out",
+                                       fused_dir, "--n_imgs", str(n_fakes)], cfg=cfg)
+    finally:
+        for obj, name, orig in originals:
+            setattr(obj, name, orig)
+
+    # results: every key present and finite, n_evaluated == n_pairs, reproducible
+    (res, chain_s), (res2, chain2_s) = runs
+    for key, fields in EVAL_KEYS.items():
+        vals = res.get(key, {})
+        if set(vals) != set(fields) or not all(np.isfinite(vals[f]) for f in fields):
+            raise RuntimeError(f"eval --task all: {key} is {vals}")
+    if res["geometry"]["n_evaluated"] != n_pairs:
+        raise RuntimeError(f"geometry evaluated {res['geometry']['n_evaluated']} of {n_pairs}")
+    repeat = {f"{key}.{f}": (res[key][f], res2[key][f]) for key, fields in EVAL_KEYS.items()
+              for f in fields}
+    log(f"eval --task all ({n_fakes} fakes, {n_pairs} pairs, {n_pairs} geometry images, "
+        f"{n_planes} planes, 19 real images): {json.dumps(res)} in {chain_s:.1f} s; the second "
+        f"run in {chain2_s:.1f} s equal in every number: "
+        f"{all(a == b for a, b in repeat.values())} ({card})")
+    if not all(a == b for a, b in repeat.values()):
+        raise RuntimeError(f"the second eval run differs: {repeat}")
+
+    # launches by task: fused, one K1 a render call; banded, one K7 a tile-row step
+    by_task = {}
+    for t in tasks:
+        renders = t["n_imgs"]  # one render call an image (its views in one call)
+        want = dict.fromkeys(fr.LAUNCHES, 0)
+        if t["fused"]:
+            want["fused_fwd"] = renders
+        else:
+            want["patch_gather"] = t["row_steps"]
+        label = f"{t['task']} {t['size']}^2 {'fused' if t['fused'] else 'banded'}"
+        log(f"prepare_fake_images [{label}]: {t['n_imgs']} images in {t['seconds']:.2f} s, "
+            f"{t['n_imgs'] / t['seconds']:.2f} images/s; {t['row_steps']} tile-row steps, "
+            f"launches {t['launches']} ({card})")
+        if t["launches"] != want or (not t["fused"] and t["row_steps"] == 0):
+            raise RuntimeError(f"prepare_fake_images [{label}] launched {t['launches']}, "
+                               f"expected {want}")
+        by_task.setdefault(label, []).append(t)
+    launches = {k: sum(t["launches"][k] for t in tasks) for k in fr.LAUNCHES}
+    fps = {label: [t["n_imgs"] / t["seconds"] for t in ts] for label, ts in by_task.items()}
+
+    # the fused dump against the banded one: at most 1 level apart, and their FID
+    banded_rgb = os.path.join(tmp, "eval0", "fake", "rgb")
+    worst, share = _pngs_apart(banded_rgb, os.path.join(fused_dir, "rgb"))
+    model = inception.load_inception(weights)
+    cpu_model = copy.deepcopy(model)
+    feature_fn = inception.make_feature_fn(model, device=dev)
+    fid_pair = harness.compute_fid_kid_dirs(banded_rgb, os.path.join(fused_dir, "rgb"),
+                                            feature_fn)["frechet_inception_distance"]
+    log(f"fused vs banded prepare_fake ({n_fakes} PNGs of {cfg.resolution}^2): at most {worst} "
+        f"level apart, {share:.3e} of pixel channels differ; FID between the dumps {fid_pair:.6e}")
+    if worst > 1:
+        raise RuntimeError(f"fused and banded fakes differ by {worst} levels")
+
+    # Inception on the card against a CPU copy of the same module (8 images)
+    imgs8 = harness.load_images_chw(banded_rgb)[:8]
+    ref = inception.make_feature_fn(cpu_model, device="cpu")(imgs8)
+    feats8 = feature_fn(imgs8)
+    err_inc = float(np.abs(feats8 - ref).max() / np.abs(ref).max())
+    log(f"Inception pool3 on the card vs its CPU copy (8 images): rel err {err_inc:.3e} "
+        f"(gate 1e-4 of max|CPU|)")
+    if not err_inc <= 1e-4:
+        raise RuntimeError(f"Inception features on the card disagree with the CPU: {err_inc}")
+
+    # timings: Inception at batch 32 over random 256^2 images, frechet_distance at 2048
+    imgs = np.random.default_rng(6).random((n_inception, 3, cfg.resolution, cfg.resolution),
+                                           dtype=np.float32)
+    feature_fn(imgs[:64])  # warm-up: cuDNN's algorithms for batch 32
+    feats, inc_ms = host_ms(lambda: feature_fn(imgs))
+    del imgs
+    t0 = time.perf_counter()
+    fid_feats = metrics.fid_from_features(feats[: n_inception // 2], feats[n_inception // 2:])
+    fid_s = time.perf_counter() - t0
+    log(f"Inception: {inc_ms / n_inception:.4f} ms an image at batch 32 over {n_inception} "
+        f"random {cfg.resolution}^2 images ({inc_ms / 1e3:.2f} s with the host copies); "
+        f"frechet_distance at {feats.shape[1]} features ({n_inception // 2} + "
+        f"{n_inception // 2} images): {fid_s:.2f} s on the host, FID {fid_feats:.4f} ({card})")
+    per_image = {route: {"sample_mpi_ms": statistics.median(gen_ms[fused]),
+                         "render_ms": statistics.median(render_ms[fused])}
+                 for route, fused in (("banded", False), ("fused", True))}
+    log(f"per image (median over the calls, host clock after synchronize; one render call an "
+        f"image, 1-2 views): {per_image} ({card})")
+    del feature_fn, model, cpu_model
+    torch.cuda.empty_cache()
+
+    # 7. in-training FID through the train CLI
+    fid_s_train = []
+    orig_fid = _timed(loop_mod, "compute_training_fid", fid_s_train)
+    out = os.path.join(tmp, "train")
+    reset_counts(fr)
+    try:
+        train_gmpi_torch.main(["--dataset", "FFHQ256", "--data_root", zpath, "--pose_root",
+                               pose_dir, "--output_dir", out, "--device", str(dev),
+                               "--total_iters", "2", "--inception_weights", weights,
+                               "--fid_interval", "1", "--fid_n_imgs", str(fid_n_imgs)], cfg=cfg)
+    finally:
+        loop_mod.compute_training_fid = orig_fid
+    train_launches = dict(fr.LAUNCHES)
+    with open(os.path.join(out, "metrics.jsonl")) as f:
+        fids = [json.loads(line)["fid"] for line in f if '"fid"' in line]
+    split = cfg.hparams.batch_split
+    want = {**dict.fromkeys(fr.LAUNCHES, 0), "composite_bwd": 2 * split, "splat": 2 * split,
+            "fused_fwd": 2 * 3 + -(-fid_n_imgs // 8)}  # 3 a step; the FID's renders of 8
+    log(f"in-training FID (train_gmpi_torch.main, 2 steps, --fid_interval 1 --fid_n_imgs "
+        f"{fid_n_imgs}): logged {fids}, {fid_s_train[0] / 1e3:.2f} s for one; launches "
+        f"{train_launches} ({card})")
+    if len(fids) != 1 or not np.isfinite(fids[0]):
+        raise RuntimeError(f"the in-training FID logged {fids}")
+    if train_launches != want:
+        raise RuntimeError(f"the train CLI with the FID launched {train_launches}, "
+                           f"expected {want}")
+    for k in launches:
+        launches[k] += train_launches[k]
+
+    return {"results": res, "chain_s": [chain_s, chain2_s], "images_per_s": fps,
+            "launches": launches, "tasks": tasks, "fused_vs_banded_max_level": worst,
+            "fused_vs_banded_share": share, "fused_vs_banded_fid": fid_pair,
+            "inception_rel_err": err_inc, "inception_ms_per_image": inc_ms / n_inception,
+            "frechet_distance_s": fid_s, "per_image": per_image,
+            "training_fid": fids[0], "training_fid_s": fid_s_train[0] / 1e3}, ckpt_dir
+
+
+def viz_phase(fr, cfg, ckpt_dir, out_dir, card, dev, n_frames=8, n_planes=96,
+              mesh_planes=128):
+    """Phase 10: ``render_gmpi_torch.main`` with a video and a mesh on the
+    checkpoint of phase 9.  No kernel runs (the video renders through the
+    per-pixel gather).  Returns the phase's record."""
+    import os
+
+    import numpy as np
+
+    import render_gmpi_torch
+    from gmpi_tpu_torch.viz import mesh as mesh_mod
+    from gmpi_tpu_torch.viz import render_video
+
+    frame_ms, mt_ms = [], []
+    originals = [(render_video, "render_mpi_chunked",
+                  _timed(render_video, "render_mpi_chunked", frame_ms)),
+                 (mesh_mod, "marching_tetrahedra",
+                  _timed(mesh_mod, "marching_tetrahedra", mt_ms))]
+    reset_counts(fr)
+    try:
+        t0 = time.perf_counter()
+        out = render_gmpi_torch.main(["--ckpt", ckpt_dir, "--out", out_dir, "--device",
+                                      str(dev), "--n_frames", str(n_frames), "--nplanes",
+                                      str(n_planes), "--mesh", "--mesh_planes",
+                                      str(mesh_planes)], cfg=cfg)
+        total_s = time.perf_counter() - t0
+    finally:
+        for obj, name, orig in originals:
+            setattr(obj, name, orig)
+    launches = dict(fr.LAUNCHES)
+    missing = [n for n in ("rendered.png", "mpi_rgb.png", "mpi_alpha.png", "mpi_rgba.png")
+               if not os.path.isfile(os.path.join(out_dir, n))]
+    videos = {}
+    for key in ("rgb", "depth"):
+        path = out[key]
+        videos[key] = ("mp4" if path.endswith(".mp4") and os.path.isfile(path) else
+                       "frames" if os.path.isdir(path) and len(os.listdir(path)) == n_frames
+                       else None)
+    with open(out["mesh"], "rb") as f:
+        data = f.read()
+    head, body = data.split(b"end_header\n", 1)
+    n_v = int(head.split(b"element vertex ")[1].split()[0])
+    n_f = int(head.split(b"element face ")[1].split()[0])
+    faces = np.frombuffer(body[n_v * 12:], dtype=[("n", "u1"), ("idx", "<i4", 3)])
+    faces_ok = (len(faces) == n_f and bool((faces["n"] == 3).all())
+                and bool((faces["idx"] >= 0).all()) and bool((faces["idx"] < n_v).all()))
+    log(f"render_gmpi_torch.main ({n_frames} frames, {n_planes} planes, mesh of {mesh_planes} "
+        f"planes) in {total_s:.1f} s: videos {videos}, sheets missing {missing}; "
+        f"{statistics.median(frame_ms):.2f} ms a frame (median of {len(frame_ms)}); marching "
+        f"tetrahedra {mt_ms[0] / 1e3:.2f} s, {n_v} vertices, {n_f} faces, indices in range: "
+        f"{faces_ok}; launches {launches} ({card})")
+    if missing or None in videos.values() or not (n_v > 0 and faces_ok):
+        raise RuntimeError("render_gmpi_torch.main left an artifact missing or malformed")
+    if any(launches.values()):
+        raise RuntimeError(f"the video path launched {launches}; it renders by the gather")
+    return {"launches": launches, "frame_ms_median": statistics.median(frame_ms),
+            "marching_tetrahedra_s": mt_ms[0] / 1e3, "verts": n_v, "faces": n_f,
+            "videos": videos, "seconds": total_s}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs a CUDA card",
@@ -756,7 +1115,11 @@ def main() -> int:
     name = torch.cuda.get_device_name(0)
     rates = card_rates(name)
     log(f"card: {card}")
-    log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
+    import numpy
+    import scipy
+
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]} "
+        f"numpy {numpy.__version__} scipy {scipy.__version__}")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     log("tf32: off for cuDNN convolutions and CUDA matmuls (full fp32)")
@@ -1332,8 +1695,21 @@ def main() -> int:
     torch.cuda.empty_cache()
     loop = training_loop_phase(fr, cfg, card, dev)
 
+    # -- 9. eval and 10. viz at full FFHQ256 width ----------------------------------------
+    import os
+    import shutil
+    import tempfile
+
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_eval_")
+    try:
+        evaluation, ckpt_dir = eval_phase(fr, tw, cfg, card, dev, tmp)
+        viz = viz_phase(fr, cfg, ckpt_dir, os.path.join(tmp, "vis"), card, dev)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
     main_paths = (serving_launches, train_launches, adjoint_launches, banded_launches,
-                  loop["launches"])
+                  loop["launches"], evaluation["launches"], viz["launches"])
 
     def entry(kname, line, ms, plain_ms, b, library_ms, replaces="gmpi_tpu/ops/pallas_warp.py",
               **extra):
@@ -1366,7 +1742,8 @@ def main() -> int:
         "banded_render_ms": t_banded, "banded_spans_ms": banded_spans,
         "banded_same_mpi_fused_ms": t_fused_same, "banded_same_mpi_gather_ms": t_gather_same,
         "banded_peak_gb": peak_banded, "banded_chunked_peak_gb": peak_chunked,
-        "serving_gather_ms": serving_gather_ms, "loop": loop}
+        "serving_gather_ms": serving_gather_ms, "loop": loop,
+        "eval": {**{k: v for k, v in evaluation.items() if k != "tasks"}, "viz": viz}}
     log(json.dumps(record))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -50,11 +50,11 @@ def xflip_augment_folder(src_dir: str, out_dir: str) -> int:
 
 def default_detector() -> Callable[[np.ndarray], Optional[np.ndarray]]:
     """The MTCNN adapter as a ``detect_fn`` (``prepare_landmarks_ffhq.py``'s
-    detector).  The port's eval adapters are not written yet: pass
-    ``prepare_landmarks(detect_fn=...)`` any callable meanwhile."""
-    raise NotImplementedError(
-        "the MTCNN landmark adapter (eval/adapters.py) is not ported yet: ROADMAP Queue A7; "
-        "pass prepare_landmarks(detect_fn=...)")
+    detector).  Raises the adapter's ``ImportError`` when neither ``mtcnn``
+    nor ``facenet_pytorch`` is installed."""
+    from gmpi_tpu_torch.eval.adapters import MTCNNLandmarkDetector
+
+    return MTCNNLandmarkDetector().detect
 
 
 def prepare_landmarks(
@@ -65,7 +65,7 @@ def prepare_landmarks(
     """Run a 5-point landmark detector over a dataset.
 
     ``detect_fn`` maps an HWC uint8 image to a [5, 2] landmark array or None
-    (detection failure); defaults to the MTCNN adapter (not ported yet).  Writes
+    (detection failure); defaults to the MTCNN adapter.  Writes
     ``<stem>.txt`` per image (x y per line, the Deep3DFace input convention)
     and ``fail_list.txt``.  Returns (n_ok, n_failed)."""
     if detect_fn is None:

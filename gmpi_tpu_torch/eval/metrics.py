@@ -13,10 +13,9 @@ extractor is pluggable:
   over random subsets (torch_fidelity defaults: subset size 1000, 100
   subsets).
 
-Feature extraction (InceptionV3 pool3) plugs in via any callable
-``images -> [N, D]``.  The port's Inception network is not written yet
-(``ROADMAP`` Queue A7); the tests exercise the metric math on synthetic
-features.
+Feature extraction plugs in via any callable ``images -> [N, D]``: the
+InceptionV3 pool3 extractor of ``eval/inception.py`` (``make_feature_fn``)
+for FID/KID, or synthetic features in the tests of the metric math.
 """
 
 from __future__ import annotations
@@ -37,9 +36,11 @@ def feature_statistics(features: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
 def frechet_distance(
     mu1: np.ndarray, sigma1: np.ndarray, mu2: np.ndarray, sigma2: np.ndarray, eps: float = 1e-6
 ) -> float:
-    """pytorch_fid's ``calculate_frechet_distance`` semantics."""
+    """pytorch_fid's ``calculate_frechet_distance`` semantics.  ``sqrtm`` is
+    called without ``disp`` (SciPy 1.18 removed it; the square root is the
+    same either way)."""
     diff = mu1 - mu2
-    covmean, _ = scipy.linalg.sqrtm(sigma1 @ sigma2, disp=False)
+    covmean = scipy.linalg.sqrtm(sigma1 @ sigma2)
     if not np.isfinite(covmean).all():
         offset = np.eye(sigma1.shape[0]) * eps
         covmean = scipy.linalg.sqrtm((sigma1 + offset) @ (sigma2 + offset))

@@ -13,6 +13,8 @@ the same items and cannot resume, ``gmpi/train.py:79-80, 427-437``).
 :func:`export_torch_style` / :func:`load_torch_style` write and read a flat
 ``.npz`` in the reference's state-dict naming, the same file the JAX package
 writes, so weights flow both ways between the packages.
+:func:`load_generator` reads G alone from a checkpoint, for the eval and
+render CLIs.
 """
 
 from __future__ import annotations
@@ -27,7 +29,9 @@ import numpy as np
 import torch
 
 from gmpi_tpu_torch.models.converter import Tree, convert_state_dict, tree_to_state_dict
+from gmpi_tpu_torch.models.generator import Generator
 from gmpi_tpu_torch.train.step import TrainState
+from gmpi_tpu_torch.utils.device import resolve_device
 
 STATE_FILE = "state.pt"
 
@@ -94,6 +98,25 @@ def load_checkpoint(base_dir: str, state: TrainState, step: Optional[int] = None
                 ema[k].copy_(v)
     state.step = int(ckpt["step"])
     return state
+
+
+def load_generator(base_dir: str, cfg, use_ema: bool = True, step: Optional[int] = None,
+                   device="cuda") -> Generator:
+    """G of a checkpoint (the one ``latest`` names, or ``step``) on ``device``
+    in eval mode: G's saved state, with the EMA parameters in place of G's
+    own when ``use_ema`` (G's buffers, ``w_avg`` and the noise constants,
+    either way, as the loop's snapshots pair them)."""
+    dev = resolve_device(device)
+    ckpt = torch.load(checkpoint_file(base_dir, step), map_location="cpu", weights_only=True)
+    G = Generator(cfg.generator_cfg())
+    sd = dict(ckpt["G"])
+    if use_ema:
+        params = dict(G.named_parameters())
+        if set(ckpt["ema"]) != set(params):
+            raise KeyError("ema: the checkpoint's keys differ from the generator's parameters")
+        sd.update(ckpt["ema"])
+    G.load_state_dict(sd, strict=True)
+    return G.to(dev).eval()
 
 
 def save_config_snapshot(out_dir: str, cfg) -> None:

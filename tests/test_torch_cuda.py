@@ -641,3 +641,62 @@ def test_training_loop_on_the_card(cuda, tmp_path):
         assert torch.equal(a, b)
     for key in state.ema:
         assert torch.equal(loaded.ema[key], state.ema[key])
+
+
+@pytest.fixture
+def cuda_default_tf32():
+    """The card under PyTorch's default TF32 settings (cuDNN convolutions may
+    take TF32; matmuls not), restored afterwards."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = True, False
+    yield torch.device("cuda")
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+@pytest.mark.gpu
+def test_inception_features_on_the_card_are_fp32(cuda_default_tf32):
+    """The feature function runs its forward in fp32 whatever the caller's
+    TF32 setting: the card's features match the CPU's within 1e-4 x max, and
+    the caller's setting is left as it was."""
+    import copy
+
+    from gmpi_tpu_torch.eval import inception
+
+    model = inception.InceptionV3()
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in
+                           inception.random_params(seed=1).items()}, strict=True)
+    x = np.random.default_rng(0).random((6, 3, 256, 256), np.float32)
+    ref = inception.make_feature_fn(copy.deepcopy(model), batch=4, device="cpu")(x)
+    fn = inception.make_feature_fn(model, batch=4, device=cuda_default_tf32)
+    out, again = fn(x), fn(x)
+    assert torch.backends.cudnn.allow_tf32
+    assert out.shape == (6, 2048) and np.array_equal(out, again)
+    assert np.abs(out - ref).max() <= 1e-4 * np.abs(ref).max()
+
+
+@pytest.mark.gpu
+def test_fused_harness_render_at_224_matches_banded(cuda):
+    """``FakeImageGenerator(use_fused=True)`` at the geometry task's 224^2
+    (ragged tiles) at full FFHQ256 width: one forward launch per render call,
+    and the banded render of the same MPI and views within 5e-4."""
+    from gmpi_tpu_torch.eval.harness import FakeImageGenerator
+    from gmpi_tpu_torch.models.generator import Generator
+
+    cfg = get_config("FFHQ256")
+    g = Generator(cfg.generator_cfg(), generator=torch.Generator().manual_seed(3))
+    fused = FakeImageGenerator(cfg, g, img_size=224, use_fused=True, device=cuda)
+    banded = FakeImageGenerator(cfg, g, img_size=224, use_fused=False, device=cuda)
+    assert banded.tiled_bands is not None
+    mpi = fused.sample_mpi(seed=5).expand(2, -1, -1, -1, -1)
+    yaws, pitches = fused.sample_views(seed=5, n_views=2)
+    before = dict(fused_render.LAUNCHES)
+    color, depth = fused.render(mpi, yaws, pitches)
+    torch.cuda.synchronize()
+    assert {k: v - before[k] for k, v in fused_render.LAUNCHES.items() if v != before[k]} == {
+        "fused_fwd": 1}
+    color_b, depth_b = banded.render(mpi, yaws, pitches)
+    assert color.shape == (2, 3, 224, 224)
+    assert float((color - color_b).abs().max()) <= 5e-4
+    assert float((depth - depth_b).abs().max()) <= 5e-4

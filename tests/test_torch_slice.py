@@ -130,8 +130,9 @@ def test_harness_raises_on_cuda_without_a_card(both_generators):
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     """Importing every module of the port (found by walking the package),
-    ``chip_smoke.py`` and ``train_gmpi_torch.py`` adds no ``jax``, ``jaxlib``
-    or ``gmpi_tpu`` module to ``sys.modules`` (checked in a fresh
+    ``chip_smoke.py`` and the CLIs ``train_gmpi_torch.py``,
+    ``eval_gmpi_torch.py`` and ``render_gmpi_torch.py`` adds no ``jax``,
+    ``jaxlib`` or ``gmpi_tpu`` module to ``sys.modules`` (checked in a fresh
     interpreter)."""
     code = textwrap.dedent("""
         import importlib, pkgutil, sys
@@ -139,10 +140,12 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         import gmpi_tpu_torch
         names = [m.name for m in pkgutil.walk_packages(gmpi_tpu_torch.__path__,
                                                        "gmpi_tpu_torch.")]
-        for name in names + ["chip_smoke", "train_gmpi_torch"]:
+        for name in names + ["chip_smoke", "train_gmpi_torch", "eval_gmpi_torch",
+                             "render_gmpi_torch"]:
             importlib.import_module(name)
-        assert "gmpi_tpu_torch.tools.time_backward" in names, names
-        assert "gmpi_tpu_torch.train.loop" in names, names
+        for walked in ("tools.time_backward", "train.loop", "eval.inception", "eval.adapters",
+                       "viz.mesh", "viz.render_video"):
+            assert "gmpi_tpu_torch." + walked in names, names
         bad = sorted(m for m in set(sys.modules) - before
                      if m.split(".")[0] in ("jax", "jaxlib", "gmpi_tpu"))
         print(len(names), bad)

@@ -337,7 +337,7 @@ def test_cli_warm_start_and_refusals(tmp_path):
     for ema in (state.ema, state.ema2):
         _assert_tree_equal(ema, dict(g.named_parameters()), "ema")
 
-    with pytest.raises(NotImplementedError, match="A7"):
+    with pytest.raises(FileNotFoundError, match="x.npz"):  # --inception_weights is read
         train_gmpi_torch.main(args + ["--inception_weights", "x.npz"], cfg=cfg)
     for extra in (["--multihost"], ["--renderer_plane_shards", "2"]):
         with pytest.raises(NotImplementedError, match="A9"):

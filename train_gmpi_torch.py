@@ -11,9 +11,11 @@ The flags are those of ``train_gmpi.py`` plus ``--device`` (``cuda`` by
 default; ``cpu`` runs the plain PyTorch path), ``--sample_interval`` and
 ``--model_save_interval``.  Warm-start files are flat ``.npz`` state dicts in
 the reference's naming (``train.checkpoint.export_torch_style`` of either
-package writes them).  Not ported yet: ``--inception_weights`` (in-training
-FID needs the port's Inception network, ``ROADMAP`` Queue A7) and
-``--multihost`` / ``--renderer_*_shards`` (Queue A9).
+package writes them).  ``--inception_weights`` (a local ``.npz`` or ``.pth``
+of InceptionV3 under torchvision names) turns on the in-training FID every
+``--fid_interval`` steps against the dataset's first ``--fid_n_imgs``
+images.  Not ported yet: ``--multihost`` / ``--renderer_*_shards``
+(``ROADMAP`` Queue A9).
 """
 
 from __future__ import annotations
@@ -38,7 +40,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help=".npz state dict to warm start D from (the reference copies BOTH G "
                         "and D from the StyleGAN2 pkl, gmpi/train.py:197-230)")
     p.add_argument("--inception_weights", default=None,
-                   help="InceptionV3 weights for in-training FID (not ported yet)")
+                   help="InceptionV3 weights (.npz/.pth, torchvision names) for "
+                        "in-training FID")
     p.add_argument("--fid_interval", type=int, default=5000)
     p.add_argument("--fid_n_imgs", type=int, default=2048)
     p.add_argument("--fused_renderer", action="store_true",
@@ -83,9 +86,6 @@ def main(argv=None, cfg=None, stats=None):
     if args.multihost or args.renderer_plane_shards > 1 or args.renderer_tile_shards > 1:
         raise NotImplementedError("--multihost and --renderer_*_shards (multi-GPU training) "
                                   "are not ported yet: ROADMAP Queue A9")
-    if args.inception_weights:
-        raise NotImplementedError("--inception_weights (in-training FID through the port's "
-                                  "Inception network) is not ported yet: ROADMAP Queue A7")
     device = resolve_device(args.device)
     cfg = cfg or get_config(args.dataset)
     if args.fused_renderer or args.no_fused_renderer:
@@ -122,6 +122,16 @@ def main(argv=None, cfg=None, stats=None):
             sd_d, cfg.discriminator_cfg(), warm_start=True,
             generator=torch.Generator().manual_seed(args.seed + 7))
 
+    fid_feature_fn = fid_real_images = None
+    if args.inception_weights:
+        from gmpi_tpu_torch.eval.inception import load_inception, make_feature_fn
+
+        fid_feature_fn = make_feature_fn(load_inception(args.inception_weights), device=device)
+        # the in-training FID's real set: the dataset's first fid_n_imgs images
+        # (gmpi/fid_evaluation.py:38-86's real-image cache)
+        n_real = min(args.fid_n_imgs, len(dataset))
+        fid_real_images = np.stack([np.asarray(dataset[i][0]) for i in range(n_real)])
+
     return train(
         cfg,
         iter(loader),
@@ -135,6 +145,8 @@ def main(argv=None, cfg=None, stats=None):
         sample_interval=args.sample_interval,
         model_save_interval=args.model_save_interval,
         eval_freq=args.fid_interval,
+        fid_feature_fn=fid_feature_fn,
+        fid_real_images=fid_real_images,
         device=device,
         stats=stats,
     )
