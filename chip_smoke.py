@@ -787,14 +787,15 @@ def training_loop_phase(fr, cfg, card, dev):
             "load_s": stats2.load_s, "load_bytes": stats2.load_bytes, "decodes": decodes}
 
 
-def _timed(obj, name, record):
+def _timed(obj, name, record, key=None):
     """Replace ``obj.name`` by a wrapper that appends each call's host ms
-    (around a synchronize) to ``record``; returns the original."""
+    (around a synchronize) to ``record``, or to ``record[key(*args)]`` when
+    ``key`` is given; returns the original."""
     orig = getattr(obj, name)
 
     def timed(*args, **kw):
         out, ms = host_ms(lambda: orig(*args, **kw))
-        record.append(ms)
+        (record if key is None else record[key(*args)]).append(ms)
         return out
 
     setattr(obj, name, timed)
@@ -822,21 +823,30 @@ def _pngs_apart(dir_a, dir_b):
     return worst, n_diff / n_all
 
 
+# phases 9 and 10: depth of the eval and viz runs (widths stay FFHQ256's)
+EVAL_FAKES = 64  # the JAX CLI's default is 2048
+EVAL_PAIRS = 16  # consistency pairs and geometry images; the default is 1024
+EVAL_PLANES = 96
+INCEPTION_IMAGES = 2048  # the train CLI's --fid_n_imgs default
+TRAIN_FID_IMAGES = 16
+VIDEO_FRAMES = 8
+MESH_PLANES = 128
+
 EVAL_KEYS = {"fid_kid": ("frechet_inception_distance", "kernel_inception_distance_mean",
                          "kernel_inception_distance_std"),
              "consistency": ("consistency_mean", "consistency_std"),
              "geometry": ("n_evaluated", "n_skipped", "angle_error_mse", "depth_error_mse")}
 
 
-def eval_phase(fr, tw, cfg, card, dev, tmp, n_fakes=64, n_pairs=16, n_planes=96,
-               n_inception=2048, fid_n_imgs=16):
+def eval_phase(fr, tw, pg, cfg, card, dev, tmp):
     """Phase 9: ``eval_gmpi_torch.main --task all`` twice on a checkpoint of a
     seeded state (banded renders), ``prepare_fake`` once more with the fused
-    renderer, the Inception features on the card against a CPU copy, the
-    timings of the eval layers, and ``train_gmpi_torch.main`` with the
-    in-training FID.  Returns the phase's record and the checkpoint's
-    directory; everything is written under ``tmp``, which the caller
-    removes.  Raises on a failed check."""
+    renderer, the patch gather and the banded render of each banded task
+    against their plain versions on that task's inputs, the Inception
+    features on the card against a CPU copy, the timings of the eval layers,
+    and ``train_gmpi_torch.main`` with the in-training FID.  Returns the
+    phase's record and the checkpoint's directory; everything is written
+    under ``tmp``, which the caller removes.  Raises on a failed check."""
     import copy
     import json
     import os
@@ -850,6 +860,8 @@ def eval_phase(fr, tw, cfg, card, dev, tmp, n_fakes=64, n_pairs=16, n_planes=96,
     from gmpi_tpu_torch.train import init_train_state
     from gmpi_tpu_torch.train import loop as loop_mod
 
+    n_fakes, n_pairs, n_planes = EVAL_FAKES, EVAL_PAIRS, EVAL_PLANES
+    n_inception, fid_n_imgs = INCEPTION_IMAGES, TRAIN_FID_IMAGES
     zpath, pose_dir = write_ffhq_dataset(tmp, 20, cfg.resolution, seed=9)
     ckpt_dir = os.path.join(tmp, "ckpt")
     os.makedirs(ckpt_dir)
@@ -868,14 +880,22 @@ def eval_phase(fr, tw, cfg, card, dev, tmp, n_fakes=64, n_pairs=16, n_planes=96,
                       "--landmark_detector", "chip_smoke:StubDetector",
                       "--pose_estimator", "chip_smoke:StubEstimator"]
 
-    # each prepare_fake_images call: launches reset just before and read just after
+    # each prepare_fake_images call: launches reset just before and read just after; the
+    # last gather_patches and render call of each banded task kept to hold against the plain
+    # versions below
     tasks, row_steps = [], {"n": 0}
-    prepare, row_step = harness.prepare_fake_images, tw._warp_row_tiles
+    kept, current = {}, {"label": None}
+    prepare, row_step, gather = harness.prepare_fake_images, tw._warp_row_tiles, tw.gather_patches
+    cls = harness.FakeImageGenerator
     gen_ms, render_ms = {False: [], True: []}, {False: [], True: []}
+
+    def label_of(gen, task):
+        return f"{task} {gen.img_size}^2 {'fused' if gen.use_fused else 'banded'}"
 
     def counted_prepare(gen, out_dir, n_imgs, task="fid_kid"):
         reset_counts(fr)
         row_steps["n"] = 0
+        current["label"] = label_of(gen, task)
         _, ms = host_ms(lambda: prepare(gen, out_dir, n_imgs, task=task))
         tasks.append({"task": task, "fused": gen.use_fused, "size": gen.img_size,
                       "n_imgs": n_imgs, "launches": dict(fr.LAUNCHES),
@@ -885,18 +905,22 @@ def eval_phase(fr, tw, cfg, card, dev, tmp, n_fakes=64, n_pairs=16, n_planes=96,
         row_steps["n"] += 1
         return row_step(*args, **kw)
 
-    originals = [(harness, "prepare_fake_images", prepare), (tw, "_warp_row_tiles", row_step)]
+    def recorded_gather(texf, offs, band_x, band_yc, **kw):
+        kept.setdefault(current["label"], {})["gather"] = (texf, offs, band_x, band_yc)
+        return gather(texf, offs, band_x, band_yc, **kw)
+
+    def recorded_render(gen, mpi, yaws, pitches):
+        if not gen.use_fused:
+            kept.setdefault(current["label"], {})["render"] = (gen, mpi, yaws, pitches)
+        return render(gen, mpi, yaws, pitches)
+
+    by_route = lambda gen, *_: gen.use_fused  # noqa: E731
+    originals = [(harness, "prepare_fake_images", prepare), (tw, "_warp_row_tiles", row_step),
+                 (tw, "gather_patches", gather),
+                 (cls, "sample_mpi", _timed(cls, "sample_mpi", gen_ms, key=by_route)),
+                 (cls, "render", _timed(cls, "render", render_ms, key=by_route))]
     harness.prepare_fake_images, tw._warp_row_tiles = counted_prepare, counted_row_step
-    cls = harness.FakeImageGenerator
-    for name, record in (("sample_mpi", gen_ms), ("render", render_ms)):
-        originals.append((cls, name, getattr(cls, name)))
-
-        def timed(self, *args, _orig=getattr(cls, name), _record=record, **kw):
-            out, ms = host_ms(lambda: _orig(self, *args, **kw))
-            _record[self.use_fused].append(ms)
-            return out
-
-        setattr(cls, name, timed)
+    tw.gather_patches, render, cls.render = recorded_gather, cls.render, recorded_render
     try:
         runs = []
         for k in range(2):
@@ -936,7 +960,7 @@ def eval_phase(fr, tw, cfg, card, dev, tmp, n_fakes=64, n_pairs=16, n_planes=96,
             want["fused_fwd"] = renders
         else:
             want["patch_gather"] = t["row_steps"]
-        label = f"{t['task']} {t['size']}^2 {'fused' if t['fused'] else 'banded'}"
+        label = f"{t['task']} {t['size']}^2 {'fused' if t['fused'] else 'banded'}"  # label_of
         log(f"prepare_fake_images [{label}]: {t['n_imgs']} images in {t['seconds']:.2f} s, "
             f"{t['n_imgs'] / t['seconds']:.2f} images/s; {t['row_steps']} tile-row steps, "
             f"launches {t['launches']} ({card})")
@@ -946,6 +970,35 @@ def eval_phase(fr, tw, cfg, card, dev, tmp, n_fakes=64, n_pairs=16, n_planes=96,
         by_task.setdefault(label, []).append(t)
     launches = {k: sum(t["launches"][k] for t in tasks) for k in fr.LAUNCHES}
     fps = {label: [t["n_imgs"] / t["seconds"] for t in ts] for label, ts in by_task.items()}
+
+    # each banded task at its own inputs (its last call): the patch gather against its plain
+    # version, exactly, and the banded render against the per-pixel gather renderer
+    banded = {label for label, ts in by_task.items() if not ts[0]["fused"]}
+    if set(kept) != banded or not all(set(k) == {"gather", "render"} for k in kept.values()):
+        raise RuntimeError(f"kept the inputs of {({b: sorted(k) for b, k in kept.items()})}, "
+                           f"expected a gather and a render of each of {sorted(banded)}")
+    banded_errs = {}
+    for label, k in sorted(kept.items()):
+        texf, offs, band_x, band_yc = k["gather"]
+        same = torch.equal(pg.gather_patches(texf, offs, band_x, band_yc),
+                           pg.gather_patches_ref(texf, offs, band_x, band_yc))
+        gen, mpi, yaws, pitches = k["render"]
+        plain = copy.copy(gen)
+        plain.tiled_bands = None
+        color, depth = gen.render(mpi, yaws, pitches)
+        color_g, depth_g = plain.render(mpi, yaws, pitches)
+        err = max(float((color - color_g).abs().max()), float((depth - depth_g).abs().max()))
+        banded_errs[label] = err
+        log(f"[{label}] patch_gather at the task's inputs ({tuple(texf.shape)} -> "
+            f"{band_x}x{band_yc} patches at {tuple(offs.shape[:2])} offsets): equal to its "
+            f"plain version: {same}; banded render of V={mpi.shape[0]} vs the gather renderer: "
+            f"{err:.2e} (gate 5e-4)")
+        if not same:
+            raise RuntimeError(f"[{label}] patch_gather disagrees with its plain version")
+        if not err <= 5e-4:  # also catches NaN
+            raise RuntimeError(f"[{label}] the banded render disagrees with the gather renderer")
+    del kept, texf, offs, gen, mpi, plain, color, depth, color_g, depth_g
+    torch.cuda.empty_cache()
 
     # the fused dump against the banded one: at most 1 level apart, and their FID
     banded_rgb = os.path.join(tmp, "eval0", "fake", "rgb")
@@ -1021,15 +1074,15 @@ def eval_phase(fr, tw, cfg, card, dev, tmp, n_fakes=64, n_pairs=16, n_planes=96,
         launches[k] += train_launches[k]
 
     return {"results": res, "chain_s": [chain_s, chain2_s], "images_per_s": fps,
-            "launches": launches, "tasks": tasks, "fused_vs_banded_max_level": worst,
+            "launches": launches, "tasks": tasks, "banded_vs_gather": banded_errs,
+            "fused_vs_banded_max_level": worst,
             "fused_vs_banded_share": share, "fused_vs_banded_fid": fid_pair,
             "inception_rel_err": err_inc, "inception_ms_per_image": inc_ms / n_inception,
             "frechet_distance_s": fid_s, "per_image": per_image,
             "training_fid": fids[0], "training_fid_s": fid_s_train[0] / 1e3}, ckpt_dir
 
 
-def viz_phase(fr, cfg, ckpt_dir, out_dir, card, dev, n_frames=8, n_planes=96,
-              mesh_planes=128):
+def viz_phase(fr, cfg, ckpt_dir, out_dir, card, dev):
     """Phase 10: ``render_gmpi_torch.main`` with a video and a mesh on the
     checkpoint of phase 9.  No kernel runs (the video renders through the
     per-pixel gather).  Returns the phase's record."""
@@ -1041,6 +1094,7 @@ def viz_phase(fr, cfg, ckpt_dir, out_dir, card, dev, n_frames=8, n_planes=96,
     from gmpi_tpu_torch.viz import mesh as mesh_mod
     from gmpi_tpu_torch.viz import render_video
 
+    n_frames, n_planes, mesh_planes = VIDEO_FRAMES, EVAL_PLANES, MESH_PLANES
     frame_ms, mt_ms = [], []
     originals = [(render_video, "render_mpi_chunked",
                   _timed(render_video, "render_mpi_chunked", frame_ms)),
@@ -1703,7 +1757,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     tmp = tempfile.mkdtemp(prefix="chip_smoke_eval_")
     try:
-        evaluation, ckpt_dir = eval_phase(fr, tw, cfg, card, dev, tmp)
+        evaluation, ckpt_dir = eval_phase(fr, tw, pg, cfg, card, dev, tmp)
         viz = viz_phase(fr, cfg, ckpt_dir, os.path.join(tmp, "vis"), card, dev)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)

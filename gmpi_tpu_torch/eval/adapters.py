@@ -140,8 +140,6 @@ class Deep3DFaceEstimator:
 
         from gmpi_tpu_torch.utils.device import resolve_device
 
-        device = resolve_device(device)
-
         if not os.path.isdir(repo_path):  # pragma: no cover - optional dep
             raise ImportError(
                 f"Deep3DFaceEstimator: repo_path {repo_path!r} not found "
@@ -155,6 +153,7 @@ class Deep3DFaceEstimator:
             raise ImportError(
                 "Deep3DFaceEstimator could not import the Deep3DFaceRecon "
                 "repo modules — check repo_path and its dependencies") from e
+        device = resolve_device(device)
         opt = TestOptions().parse(["--name", checkpoint_name, "--epoch", "20"])
         self.model = create_model(opt)
         self.model.setup(opt)

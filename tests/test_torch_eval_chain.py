@@ -159,8 +159,9 @@ def test_adapters_raise_import_errors_without_their_packages():
             make()
     with pytest.raises(ImportError, match="deepface"):
         adapters.ArcFaceEmbedder()
-    with pytest.raises(ImportError, match="repo_path"):
-        adapters.Deep3DFaceEstimator("/nonexistent/deep3dface", device="cpu")
+    for kw in ({"device": "cpu"}, {}):  # the missing repo is named before the device is resolved
+        with pytest.raises(ImportError, match="repo_path"):
+            adapters.Deep3DFaceEstimator("/nonexistent/deep3dface", **kw)
     det = adapters.load_adapter("chip_smoke:StubDetector")
     assert isinstance(det, adapters.LandmarkDetector)
     assert isinstance(adapters.load_adapter("chip_smoke:StubEmbedder"), adapters.FaceEmbedder)
