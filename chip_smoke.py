@@ -120,7 +120,32 @@ Phases, each of which raises on failure (nonzero exit, no result line):
    the rgb and depth videos (mp4 or frame directories) and a ``mesh.ply``
    with vertices and in-range faces must exist; no kernel launches (the
    video renders by the per-pixel gather).  Prints ms a frame and the
-   marching tetrahedra's seconds and counts.  The temp dir is removed.
+   marching tetrahedra's seconds and counts.  The temp dir is removed;
+11. variants and checkpoints at full FFHQ256 width — (a) one generator per
+   variant (``add_z``/``mlp``, ``normalize_add_z``/``conv_lrelu``,
+   ``normalize_add_xyz``/``modulated_lrelu``, ``cat_xyz``/``mlp`` with the
+   per-plane ``torgba`` head in plane chunks of 24, ``cond_z``/``mlp``,
+   ``cond_xyz``/``conv_lrelu``, ``learnable_param`` trained at 32 and
+   re-sampled to 96 planes, labels with ``c_dim`` 10): 96-plane MPIs of 2
+   seeds, 4 views each through ``FakeImageGenerator(use_fused=True)``; (b)
+   the vanilla and depth2alpha families at 32 fixed planes and
+   ``toy_mpi.layered_scene`` at 96.  Each render call is counted alone (one
+   K1 launch); K1 against its plain version on each stack (1e-4 absolute)
+   and the render against the gather renderer (5e-4); ``sample_mpi`` ms,
+   peak GB, K1 ms and its share of ``utils.roofline.render_cost``'s bound
+   through ``attained``.  (c) The discriminator's ``orig`` and ``skip`` at
+   256^2: scores on the card against a CPU copy (1e-4 of max|CPU|) and the
+   R1 gradient d(sum D)/d(img) against the CPU copy taking the card's lrelu
+   branches (1e-3 of max|CPU grad|; the disagreement with the CPU's own
+   branches is printed), then 2 train steps each through
+   ``make_train_step`` with that D in the state (per step 3 K1,
+   ``batch_split`` K2 and K4).  (d) A TF-era StyleGAN2 pickle at NVIDIA's
+   paper256 shapes with seeded values (``tools/tf_pickle.py``),
+   ``convert_checkpoint_torch.main --which G_ema``, a warm start through
+   ``train_gmpi_torch.main`` on phase 8's dataset whose mapping, trunk,
+   ``torgb`` and noise must equal the table's arrays bitwise and whose MPI
+   heads keep their initial values, then 2 warm-started steps (launches as
+   phase 4's).  Prints the convert seconds, the ``.npz`` bytes and step ms.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -135,10 +160,6 @@ import time
 
 import torch
 
-H100_RATES = {  # (bytes/s, fp32 FLOP/s): NVIDIA data sheets, dense, full power
-    "PCIe": (2.0e12, 51.2e12),
-    "SXM": (3.35e12, 67e12),
-}
 # fp32 operations per live (pixel, plane) pair: taps, lerps and composite;
 # the recurrence of the backward; coordinates, weights and 16 products
 FLOP_PER_PAIR = {"fused_fwd": 60, "composite_bwd": 25, "splat": 30, "adjoint": 30}
@@ -152,8 +173,9 @@ def log(*args):
     print(*args, flush=True)
 
 
-def card_rates(name: str):
-    return H100_RATES["PCIe" if "PCIe" in name else "SXM"]
+def card_rates(chip):
+    """``(bytes/s, fp32 FLOP/s)`` of a ``utils.roofline.ChipSpec``."""
+    return chip.hbm_gbps * 1e9, chip.fp32_tflops * 1e12
 
 
 def time_ms(fn, iters: int = 20, warmup: int = 3, queued: int = 1) -> float:
@@ -1141,6 +1163,352 @@ def viz_phase(fr, cfg, ckpt_dir, out_dir, card, dev):
             "marching_tetrahedra_s": mt_ms[0] / 1e3, "verts": n_v, "faces": n_f,
             "videos": videos, "seconds": total_s}
 
+# phase 11: depth of the variants and checkpoints run (widths stay FFHQ256's)
+VARIANT_SEEDS = (0, 1)
+VARIANT_VIEWS = 4
+VARIANT_CHUNK = 24  # plane chunk of generate_mpi for the per-plane RGBA head
+VANILLA_PLANES = 32
+D_BATCH = 4
+D_STEPS = 2  # train steps with each D architecture
+WARM_STEPS = 2
+LABELS = 10  # c_dim of the label-conditioned generator
+VARIANTS = (  # label, ModelPreset fields, extra inputs
+    ("add_z/mlp", dict(cond_mode="add_z", embed_func="mlp"), None),
+    ("normalize_add_z/conv_lrelu", dict(cond_mode="normalize_add_z", embed_func="conv_lrelu"),
+     None),
+    ("normalize_add_xyz/modulated_lrelu", dict(cond_mode="normalize_add_xyz",
+                                               embed_func="modulated_lrelu"), None),
+    ("cat_xyz/mlp/torgba", dict(cond_mode="cat_xyz", embed_func="mlp", only_alpha=False,
+                                sep_background=False), None),
+    ("cond_z/mlp", dict(cond_mode="cond_z", embed_func="mlp"), None),
+    ("cond_xyz/conv_lrelu", dict(cond_mode="cond_xyz", embed_func="conv_lrelu"), None),
+    ("learnable_param/32->96", dict(embed_func="learnable_param"), "z_interpolation_ws"),
+    (f"c_dim={LABELS}", {}, "label"),
+)
+
+
+def variants_phase(fr, cfg, card, chip, dev):
+    """Phase 11: the generator variants, the vanilla and depth2alpha families,
+    a toy scene, the discriminator's ``orig`` and ``skip`` architectures, and
+    a warm start from a converted TF-era StyleGAN2 pickle, all at full
+    FFHQ256 width.  Returns ``(record, K1's largest error against its plain
+    version)``; raises on a failed check."""
+    import copy
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    import convert_checkpoint_torch
+    import train_gmpi_torch
+    from gmpi_tpu_torch.core import camera as cam
+    from gmpi_tpu_torch.core import poses
+    from gmpi_tpu_torch.core.geometry import plane_interp_weights
+    from gmpi_tpu_torch.core.renderer import render_mpi
+    from gmpi_tpu_torch.eval.harness import FakeImageGenerator
+    from gmpi_tpu_torch.models import legacy_tf
+    from gmpi_tpu_torch.models.discriminator import Discriminator
+    from gmpi_tpu_torch.models.generator import Generator
+    from gmpi_tpu_torch.models.generator_vanilla import VanillaGenerator, VanillaGeneratorCfg
+    from gmpi_tpu_torch.ops import bias_act as bias_act_mod
+    from gmpi_tpu_torch.tools.tf_pickle import (tf_discriminator_vars, tf_generator_vars,
+                                                write_tf_pickle)
+    from gmpi_tpu_torch.train import flat_pose_from_c2w, init_train_state, make_train_step
+    from gmpi_tpu_torch.train.loop import LoopStats
+    from gmpi_tpu_torch.train.step import make_optimizers
+    from gmpi_tpu_torch.utils.roofline import attained, render_cost
+    from gmpi_tpu_torch.utils.toy_mpi import layered_scene
+
+    res, n_views = cfg.resolution, VARIANT_VIEWS
+    zero = dict.fromkeys(fr.LAUNCHES, 0)
+    launches = {"renders": dict(zero), "d_steps": dict(zero), "warm_steps": dict(zero)}
+    k1_err = 0.0
+    record = {"renders": {}}
+
+    def render_case(label, fake, sample):
+        """Two seeds: ``sample(seed)`` -> an MPI, 4 views through
+        ``fake.render`` (one K1 launch each, counted), K1 against its plain
+        version and the render against the gather renderer on those inputs."""
+        nonlocal k1_err
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()  # by the phases before, and the generator
+        sample_ms, render_ms, e_k1, e_gather = [], [], 0.0, 0.0
+        lo, hi = cfg.planes.min_d * 0.9, cfg.planes.max_d * 1.4
+        for seed in VARIANT_SEEDS:
+            mpi, ms = host_ms(lambda: sample(seed))
+            sample_ms.append(ms)
+            n_pl = mpi.shape[1]
+            if (mpi.shape != (1, n_pl, 4, res, res) or not torch.isfinite(mpi).all()
+                    or mpi.min() < 0 or mpi.max() > 1):
+                raise RuntimeError(f"{label}, seed {seed}: bad MPI {tuple(mpi.shape)}")
+            yv, pv = fake.sample_views(seed, n_views)
+            mpi_v = mpi.expand(n_views, -1, -1, -1, -1)
+            reset_counts(fr)
+            (color, depth), ms = host_ms(lambda: fake.render(mpi_v, yv, pv))
+            counts = dict(fr.LAUNCHES)
+            if counts != {**zero, "fused_fwd": 1}:
+                raise RuntimeError(f"{label}: a render launched {counts}, expected one K1")
+            for k in zero:
+                launches["renders"][k] += counts[k]
+            render_ms.append(ms)
+            # colours in [-1, 1] up to fp32 rounding (a saturated tanh gives
+            # RGB exactly 1); depths in the plane range where the last plane is
+            # opaque (a chunked stack without a background plane need not be)
+            opaque = bool((mpi[:, -1, 3] == 1).all())
+            ranges = [float(x) for x in (color.min(), color.max(), depth.min(), depth.max())]
+            if not (torch.isfinite(color).all() and torch.isfinite(depth).all()
+                    and ranges[0] >= -1.0 - 1e-6 and ranges[1] <= 1.0 + 1e-6
+                    and (not opaque or (ranges[2] >= lo and ranges[3] <= hi))):
+                raise RuntimeError(f"{label}, seed {seed}: color {ranges[:2]}, depth "
+                                   f"{ranges[2:]} (last plane opaque: {opaque}) out of range")
+            c2w, _, _ = poses.sample_sphere_poses(None, n_views, cfg.camera, given_yaws=yv,
+                                                  given_pitches=pv, device=dev)
+            rays = cam.generate_rays(fake.intr, c2w)
+            rx, ry, q, scal = fused_inputs(fr, fake.geom.dhw, *rays, res)
+            out = fr.warp_composite_fwd(mpi_v, rx, ry, q, scal)
+            ref = fr.warp_composite_fwd_ref(mpi_v, rx, ry, q, scal)
+            e_k1 = worse(e_k1, max(float((a - b).abs().max()) for a, b in zip(out, ref)))
+            with torch.no_grad():
+                gather = render_mpi(mpi_v, fake.geom.dhw, *rays)
+            e_gather = worse(e_gather, max(float((color - (gather.color * 2 - 1)).abs().max()),
+                                           float((depth - gather.depth).abs().max())))
+            del out, ref, gather
+        peak_gb = (torch.cuda.max_memory_allocated() - held) / 1e9
+        t_k1 = time_ms(lambda: fr.warp_composite_fwd(mpi_v, rx, ry, q, scal))
+        # the least bytes of one stack read once for its views (the JAX model's
+        # patch_overread of 1/views) and its 4 images written
+        share = attained(t_k1 / 1e3, render_cost(n_views, n_pl, res, res, res, res,
+                                                 patch_overread=1.0 / n_views), chip)
+        log(f"[{label}] {n_pl} planes: sample ms {['%.1f' % x for x in sample_ms]}, render ms "
+            f"{['%.2f' % x for x in render_ms]}, peak {peak_gb:.2f} GB above the {held / 1e9:.2f} "
+            f"held before; K1 vs plain {e_k1:.3e} "
+            f"(gate {TOL}), render vs gather {e_gather:.3e} (gate 5e-4); K1 {t_k1:.4f} ms, "
+            f"{share['sol_fraction']:.1%} of the render_cost {share['bound']} bound "
+            f"{share['speed_of_light_s'] * 1e3:.5f} ms ({card})")
+        if not (e_k1 <= TOL and e_gather <= 5e-4):  # also catches NaN
+            raise RuntimeError(f"{label}: K1 or the render disagrees")
+        k1_err = worse(k1_err, e_k1)
+        record["renders"][label] = {
+            "planes": n_pl, "sample_ms": sample_ms, "render_ms": render_ms, "peak_gb": peak_gb,
+            "held_gb": held / 1e9,
+            "k1_err": e_k1, "gather_err": e_gather, "k1_ms": t_k1,
+            "k1_bound_ms": share["speed_of_light_s"] * 1e3, "k1_share": share["sol_fraction"]}
+
+    # -- 11a. generator variants, 96 planes --------------------------------------
+    for i, (label, model_kw, extra) in enumerate(VARIANTS):
+        cfg_v = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, **model_kw))
+        gen_cfg = cfg_v.generator_cfg()
+        if extra == "label":
+            gen_cfg = dataclasses.replace(gen_cfg, c_dim=LABELS)
+        t0 = time.perf_counter()
+        g_v = Generator(gen_cfg, generator=torch.Generator().manual_seed(100 + i))
+        chunk = VARIANT_CHUNK if not model_kw.get("only_alpha", True) else -1
+        fake = FakeImageGenerator(cfg_v, g_v, chunk_n_planes=chunk, use_fused=True, device=dev)
+        log(f"[{label}] generator built in {time.perf_counter() - t0:.1f} s "
+            f"({sum(p.numel() for p in g_v.parameters())} params), plane chunk {chunk}")
+        if extra is None:
+            sample = fake.sample_mpi
+        else:
+            ws = c = None
+            if extra == "z_interpolation_ws":  # tokens of 32 training planes -> 96
+                ws = plane_interp_weights(cfg.planes.min_d, cfg.planes.max_d,
+                                          gen_cfg.synthesis.n_planes_train, fake.n_planes,
+                                          device=dev)
+            else:
+                c = torch.nn.functional.one_hot(torch.tensor([3]), LABELS).float().to(dev)
+
+            @torch.no_grad()
+            def sample(seed, ws=ws, c=c, g_v=g_v, fake=fake):
+                z = torch.randn((1, cfg.train.z_dim), generator=torch.Generator().manual_seed(seed))
+                return g_v(z.to(dev), c, fake.xyz_dict, fake.n_planes, noise_mode="const",
+                           z_interpolation_ws=ws)
+        render_case(label, fake, sample)
+        del g_v, fake, sample
+
+    # -- 11b. vanilla and depth2alpha at 32 fixed planes; a toy scene at 96 ---------
+    gen_cfg = cfg.generator_cfg()
+    syn = gen_cfg.synthesis
+    for head in ("vanilla", "depth2alpha"):
+        v_cfg = VanillaGeneratorCfg(
+            z_dim=gen_cfg.z_dim, w_dim=gen_cfg.w_dim, img_resolution=res,
+            n_planes=VANILLA_PLANES, head_type=head, channel_base=syn.channel_base,
+            channel_max=syn.channel_max, num_bf16_res=syn.num_bf16_res,
+            conv_clamp=syn.conv_clamp, background_alpha_full=True)
+        g_v = VanillaGenerator(v_cfg, generator=torch.Generator().manual_seed(200))
+        fake = FakeImageGenerator(cfg, g_v, n_planes=VANILLA_PLANES, use_fused=True, device=dev)
+        render_case(head, fake, fake.sample_mpi)
+        del g_v, fake
+    fake = FakeImageGenerator(cfg, Generator(gen_cfg), use_fused=True, device=dev)
+    scene = torch.from_numpy(layered_scene(cfg.eval_n_planes, res, seed=0))[None].to(dev)
+    render_case("toy_mpi.layered_scene", fake, lambda seed: scene)
+    del fake, scene
+    torch.cuda.empty_cache()
+
+    # -- 11c. discriminator architectures ------------------------------------------------
+    data = torch.Generator().manual_seed(21)
+    imgs = torch.rand((D_BATCH, 3, res, res), generator=data) * 2.0 - 1.0
+    pose = torch.randn((D_BATCH, cfg.train.d_cond_pose_dim), generator=data)
+    bs = cfg.hparams.batch_size
+    real = (torch.rand((bs, 3, res, res), generator=data) * 2.0 - 1.0).to(dev)
+    real_c2w, _, _ = poses.sample_sphere_poses(data, bs, cfg.camera, device=dev)
+    real_pose = flat_pose_from_c2w(real_c2w, cfg.train.d_cond_pose_dim)
+    record["discriminators"] = {}
+
+    def score_and_r1_grad(d, device, branches=None):
+        """``(scores, d(sum D)/d(img), the branch every lrelu took)``, each
+        lrelu taking the branches given (a list in call order) if any."""
+        taken, replay = [], iter(branches or ())
+
+        def lrelu(x, alpha):
+            pos = next(replay).to(x.device) if branches is not None else x > 0
+            taken.append(pos.cpu())
+            return torch.where(pos, x, x * alpha)
+
+        spec = bias_act_mod.activation_funcs["lrelu"]
+        bias_act_mod.activation_funcs["lrelu"] = spec._replace(fn=lrelu)
+        try:
+            x = imgs.to(device).requires_grad_()
+            s = d(x, pose.to(device))
+            (g,) = torch.autograd.grad(s.sum(), x)
+        finally:
+            bias_act_mod.activation_funcs["lrelu"] = spec
+        return s.detach().cpu(), g.cpu(), taken
+
+    for arch in ("orig", "skip"):
+        d_cfg = dataclasses.replace(cfg.discriminator_cfg(), architecture=arch)
+        # fp32 blocks for the card-vs-CPU comparison: bf16 rounds the two
+        # devices' different summation orders apart by a bf16 ulp
+        d_cpu = Discriminator(dataclasses.replace(d_cfg, num_bf16_res=0),
+                              generator=torch.Generator().manual_seed(31))
+        d_gpu = copy.deepcopy(d_cpu).to(dev)
+        (s_gpu, g_gpu, m_gpu), gpu_ms = host_ms(lambda: score_and_r1_grad(d_gpu, dev))
+        t0 = time.perf_counter()
+        s_cpu, g_cpu, m_cpu = score_and_r1_grad(d_cpu, torch.device("cpu"))
+        cpu_s = time.perf_counter() - t0
+        # the R1 gradient is piecewise linear in each lrelu: an activation within
+        # fp32 rounding of zero may take the other branch on the other device and
+        # move the input gradient under its receptive field by ~1e-2 of its max.
+        # So the gradient is held against the CPU copy taking the card's branches
+        _, g_cpu_same, _ = score_and_r1_grad(d_cpu, torch.device("cpu"), branches=m_gpu)
+        flips = sum(int((a != b).sum()) for a, b in zip(m_gpu, m_cpu))
+        n_act = sum(m.numel() for m in m_gpu)
+        e_s, e_g = rel_err(s_gpu, s_cpu), rel_err(g_gpu, g_cpu_same)
+        e_g_own = rel_err(g_gpu, g_cpu)
+        e_g_l2 = float((g_gpu - g_cpu).norm() / g_cpu.norm())
+        # one train step with a D of this architecture (bf16 top blocks as the
+        # preset's): make_train_step reads D from the state
+        state = init_train_state(cfg, torch.Generator().manual_seed(32), device=dev)
+        state.D = Discriminator(d_cfg, generator=torch.Generator().manual_seed(33)).to(dev)
+        state.opt_g, state.opt_d = make_optimizers(cfg, state.G, state.D)
+        step = make_train_step(cfg, device=dev)
+        rng = torch.Generator().manual_seed(34)
+        reset_counts(fr)
+        step_ms, all_vals = [], []
+        for _ in range(D_STEPS):  # the first meets this D's shapes in cuDNN first
+            (_, metrics), ms = host_ms(lambda: step(state, real, real_pose, rng))
+            step_ms.append(ms)
+            all_vals.append({k: float(v) for k, v in metrics.items()})
+        counts = dict(fr.LAUNCHES)
+        split = cfg.hparams.batch_split
+        want = {**zero, "fused_fwd": 3 * D_STEPS, "composite_bwd": split * D_STEPS,
+                "splat": split * D_STEPS}
+        vals = all_vals[-1]
+        log(f"[D {arch}] {sum(p.numel() for p in d_gpu.parameters())} params, batch {D_BATCH} "
+            f"at {res}^2: score {e_s:.3e} of max|CPU| (gate 1e-4), R1 gradient {e_g:.3e} of "
+            f"max|CPU grad| with the card's lrelu branches (gate {GRAD_REL}); with the CPU's own "
+            f"branches {e_g_own:.3e} of max, {e_g_l2:.3e} in L2 norm, {flips} of {n_act} "
+            f"activations on the other branch; card {gpu_ms:.1f} ms, CPU {cpu_s:.1f} s; train "
+            f"steps ms {['%.1f' % x for x in step_ms]}, launches {counts}, last metrics "
+            + ", ".join(f"{k} {v:.4f}" for k, v in vals.items()) + f" ({card})")
+        if not (e_s <= 1e-4 and e_g <= GRAD_REL):
+            raise RuntimeError(f"D {arch}: the card disagrees with the CPU")
+        if counts != want:
+            raise RuntimeError(f"D {arch}: the step launched {counts}, expected {want}")
+        for v in all_vals:
+            if not all(x == x and abs(x) != float("inf") for x in v.values()) or not v["r1"] > 0:
+                raise RuntimeError(f"D {arch}: bad metrics {v}")
+        for k in zero:
+            launches["d_steps"][k] += counts[k]
+        record["discriminators"][arch] = {
+            "score_err": e_s, "r1_grad_err": e_g, "r1_grad_err_own_branches": e_g_own,
+            "r1_grad_l2_err_own_branches": e_g_l2, "branch_flips": flips, "activations": n_act,
+            "fwd_r1_ms": gpu_ms, "step_ms": step_ms}
+        del state, step, d_cpu, d_gpu
+        torch.cuda.empty_cache()
+    del real, real_pose
+
+    # -- 11d. TF-era StyleGAN2 pickle -> .npz -> warm-started training ----------------
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        t0 = time.perf_counter()
+        paper256 = dict(resolution=res, channel_base=syn.channel_base,
+                        channel_max=syn.channel_max)
+        g_vars = tf_generator_vars(z_dim=gen_cfg.z_dim, w_dim=gen_cfg.w_dim,
+                                   mapping_layers=gen_cfg.mapping_num_layers, seed=41, **paper256)
+        pkl, npz = os.path.join(tmp, "stylegan2-paper256.pkl"), os.path.join(tmp, "g.npz")
+        write_tf_pickle(pkl, g_vars, tf_discriminator_vars(seed=42, **paper256), res)
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        convert_checkpoint_torch.main(["--src", pkl, "--out", npz, "--which", "G_ema"])
+        convert_s = time.perf_counter() - t0
+        table = legacy_tf.convert_tf_generator_params(g_vars, res)
+        zpath, pose_dir = write_ffhq_dataset(tmp, 20, res, seed=8)  # phase 8's dataset
+        seed = 5
+        args = ["--dataset", "FFHQ256", "--data_root", zpath, "--pose_root", pose_dir,
+                "--seed", str(seed), "--warm_start", npz, "--no_resume"]
+        warm = train_gmpi_torch.main(args + ["--output_dir", os.path.join(tmp, "w0"),
+                                             "--total_iters", "0"])
+        init = Generator(gen_cfg, generator=torch.Generator().manual_seed(seed)).state_dict()
+        own = warm.G.state_dict()
+        from_file = [k for k in own if k in table]
+        heads = [k for k in own if k not in table]
+        file_ok = all(torch.equal(own[k].cpu(), torch.from_numpy(np.array(table[k])))
+                      for k in from_file)
+        heads_ok = all(torch.equal(own[k].cpu(), init[k]) for k in heads)
+        head_kinds = sorted({k.split(".")[2] for k in heads})
+        log(f"TF-era pickle at paper256 shapes ({len(g_vars)} G variables, "
+            f"{os.path.getsize(pkl)} B) written in {write_s:.1f} s; convert_checkpoint_torch "
+            f"--which G_ema {convert_s:.2f} s -> {os.path.getsize(npz)} B of .npz, {len(table)} "
+            f"tensors; warm start before the first step: {len(from_file)} mapping/trunk/torgb/"
+            f"noise tensors bitwise the table's {file_ok}, {len(heads)} head tensors "
+            f"({head_kinds}) at their initial values {heads_ok}")
+        if not (file_ok and heads_ok and len(from_file) == len(table)
+                and head_kinds == ["pos_enc_embed", "toalpha"]):
+            raise RuntimeError("the warm start from the converted pickle is not exact")
+        del warm, init, own
+        torch.cuda.empty_cache()
+        stats = LoopStats()
+        reset_counts(fr)
+        state = train_gmpi_torch.main(args + ["--output_dir", os.path.join(tmp, "w2"),
+                                              "--total_iters", str(WARM_STEPS)], stats=stats)
+        counts = dict(fr.LAUNCHES)
+        split = cfg.hparams.batch_split
+        n_snaps = len(stats.snapshot_steps)
+        want = {**zero, "fused_fwd": 3 * WARM_STEPS + 24 * n_snaps,
+                "composite_bwd": split * WARM_STEPS, "splat": split * WARM_STEPS}
+        log(f"warm-started training: {len(stats.step_ms)} steps, step ms "
+            f"{['%.1f' % x for x in stats.step_ms]}, launches {counts}; "
+            + "; ".join(", ".join(f"{k} {v:.4f}" for k, v in m.items()) for m in stats.metrics)
+            + f" ({card})")
+        if state.step != WARM_STEPS or counts != want:
+            raise RuntimeError(f"warm-started run: step {state.step}, launches {counts}, "
+                               f"expected {want}")
+        for m in stats.metrics:
+            if not all(v == v and abs(v) != float("inf") for v in m.values()) or not m["r1"] > 0:
+                raise RuntimeError(f"warm-started run: bad metrics {m}")
+        launches["warm_steps"] = counts
+        record["checkpoint"] = {"pickle_bytes": os.path.getsize(pkl), "convert_s": convert_s,
+                                "npz_bytes": os.path.getsize(npz), "tensors": len(table),
+                                "step_ms": stats.step_ms}
+        del state
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    record["launches"] = launches
+    return record, k1_err
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1161,13 +1529,15 @@ def main() -> int:
     from gmpi_tpu_torch.ops import patch_gather as pg
     from gmpi_tpu_torch.ops import tiled_warp as tw
     from gmpi_tpu_torch.train import flat_pose_from_c2w, init_train_state, make_train_step
+    from gmpi_tpu_torch.utils import roofline
 
     # -- 1. setup --------------------------------------------------------------
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60)
     card = smi.stdout.strip().splitlines()[0]
     name = torch.cuda.get_device_name(0)
-    rates = card_rates(name)
+    chip = roofline.chip_for(name)
+    rates = card_rates(chip)
     log(f"card: {card}")
     import numpy
     import scipy
@@ -1762,8 +2132,14 @@ def main() -> int:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
+    # -- 11. variants and checkpoints at full FFHQ256 width ------------------------------
+    torch.cuda.empty_cache()
+    variants, k1_err = variants_phase(fr, cfg, card, chip, dev)
+    max_err["fused_fwd"] = worse(max_err["fused_fwd"], k1_err)
+
     main_paths = (serving_launches, train_launches, adjoint_launches, banded_launches,
-                  loop["launches"], evaluation["launches"], viz["launches"])
+                  loop["launches"], evaluation["launches"], viz["launches"],
+                  *variants["launches"].values())
 
     def entry(kname, line, ms, plain_ms, b, library_ms, replaces="gmpi_tpu/ops/pallas_warp.py",
               **extra):
@@ -1797,7 +2173,8 @@ def main() -> int:
         "banded_same_mpi_fused_ms": t_fused_same, "banded_same_mpi_gather_ms": t_gather_same,
         "banded_peak_gb": peak_banded, "banded_chunked_peak_gb": peak_chunked,
         "serving_gather_ms": serving_gather_ms, "loop": loop,
-        "eval": {**{k: v for k, v in evaluation.items() if k != "tasks"}, "viz": viz}}
+        "eval": {**{k: v for k, v in evaluation.items() if k != "tasks"}, "viz": viz},
+        "variants": variants}
     log(json.dumps(record))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -185,3 +185,23 @@ def multi_res_xyz(geom: PlaneGeometry, tex_size: int, normalized: bool = True,
         out[res] = normalize_xyz(geom, xyz, value_range) if normalized else xyz
         res *= 2
     return out
+
+
+def plane_interp_weights(min_d: float, max_d: float, n_src: int, n_tgt: int,
+                         method: str = "inverse", device="cuda") -> torch.Tensor:
+    """Linear weights ``[n_tgt, n_src + 2]`` that re-sample ``n_src`` trained
+    planes to ``n_tgt`` eval planes by depth, with sentinel columns for
+    targets out of range (the reference's ``MPIRenderer.get_xyz_interpolate_ws``,
+    ``mpi_renderer.py:209-250``); the ``learnable_param`` embedding's
+    ``z_interpolation_ws``."""
+    src = np.concatenate([[-999999.0], sample_distance(min_d, max_d, n_src, method),
+                          [999999.0]])
+    tgt = sample_distance(min_d, max_d, n_tgt, method)
+    ws = np.zeros((n_tgt, n_src + 2), dtype=np.float32)
+    for i, d in enumerate(tgt):
+        j = int(np.searchsorted(src, d, side="right") - 1)
+        j = min(max(j, 0), n_src)
+        span = src[j + 1] - src[j]
+        ws[i, j] = (src[j + 1] - d) / (span + 1e-8)
+        ws[i, j + 1] = (d - src[j]) / (span + 1e-8)
+    return torch.from_numpy(ws).to(resolve_device(device))

@@ -5,6 +5,11 @@ leaf at ``params["synthesis"]["b64"]["conv0"]["affine"]["bias"]`` is the torch
 key ``synthesis.b64.conv0.affine.bias`` and ``buffers["mapping"]["w_avg"]``
 is ``mapping.w_avg``; the discriminator's tree (``b256.conv0.weight``,
 ``mapping.bias``, ``b4.fc.weight``) maps the same way and has no buffers.
+Every variant's names follow the rule: the label ``mapping.embed.*``, the
+conv heads' ``pos_enc_embed{,_x,_y,_z}.{0,1,2}.weight`` (an ``nn.Sequential``
+here, a dict keyed ``"0"``-``"2"`` there), ``*_learnable_param`` with its
+``*_learnable_param_left_append`` buffer, ``torgba.*``, ``todepth.*`` and
+the discriminator's ``b{res}.fromrgb.*`` under ``skip``.
 Values arrive as numpy arrays (the caller converts the JAX trees with
 ``np.asarray``); the result loads with ``Generator.load_state_dict(sd,
 strict=True)`` or ``Discriminator.load_state_dict``.  ``resample_filter`` is a
@@ -152,13 +157,17 @@ def convert_generator_checkpoint(sd: Mapping[str, object], gen_cfg, *, warm_star
                                  generator: Optional[torch.Generator] = None
                                  ) -> Tuple[Tree, Tree]:
     """State dict -> ``(params, buffers)`` shaped exactly like a
-    ``Generator(gen_cfg)``, whose initial values (drawn from ``generator`` on
-    the CPU) fill what the file lacks under ``warm_start`` (vanilla StyleGAN2
-    -> MPI generator).  Load the result with ``G.load_state_dict({**params,
-    **buffers}, strict=True)``."""
+    ``Generator(gen_cfg)`` (a ``VanillaGenerator`` for a
+    ``VanillaGeneratorCfg``), whose initial values (drawn from ``generator``
+    on the CPU) fill what the file lacks under ``warm_start`` (vanilla
+    StyleGAN2 -> MPI generator: the mapping, the trunk and ``torgb`` come
+    from the file, the MPI heads keep their initial values).  Load the result
+    with ``G.load_state_dict({**params, **buffers}, strict=True)``."""
     from gmpi_tpu_torch.models.generator import Generator
+    from gmpi_tpu_torch.models.generator_vanilla import VanillaGenerator, VanillaGeneratorCfg
 
-    params0, buffers0 = module_trees(Generator(gen_cfg, generator=generator))
+    cls = VanillaGenerator if isinstance(gen_cfg, VanillaGeneratorCfg) else Generator
+    params0, buffers0 = module_trees(cls(gen_cfg, generator=generator))
     conv_p, conv_b = convert_state_dict(sd)
     params, _ = merge_converted(params0, conv_p, require_all=not warm_start)
     buffers, _ = merge_converted(buffers0, conv_b, require_all=not warm_start)

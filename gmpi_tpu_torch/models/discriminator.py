@@ -1,21 +1,23 @@
 """Pose-conditioned StyleGAN2 discriminator (port of
 ``gmpi_tpu/models/discriminator.py``).
 
-Resnet-architecture downsampling blocks, a minibatch-stddev epilogue, and
-projection conditioning on the flattened world-to-camera matrix: ``score =
-(out . cmap) / sqrt(cmap_dim)`` with ``cmap = normalize_2nd_moment(Linear(
-flat_pose))``.  Blocks at the top ``num_bf16_res`` resolutions run in
-bfloat16; the epilogue is always float32.  The same frozen dataclass configs
-as the JAX package; ``Discriminator(cfg)`` is the ``nn.Module`` built from
-them, with state-dict keys equal to the JAX param-tree paths (``b256.conv0.
-weight``, ``mapping.bias``, ``b4.fc.weight``).  Only the ``resnet``
-architecture is ported.
+Downsampling blocks in one of StyleGAN2's three architectures (``resnet``,
+the paper's; ``skip``, which also feeds each block the downsampled image
+through its own ``fromrgb``; ``orig``, neither), a minibatch-stddev
+epilogue, and projection conditioning on the flattened world-to-camera
+matrix: ``score = (out . cmap) / sqrt(cmap_dim)`` with ``cmap =
+normalize_2nd_moment(Linear(flat_pose))``.  Blocks at the top
+``num_bf16_res`` resolutions run in bfloat16; the epilogue is always
+float32.  The same frozen dataclass configs as the JAX package;
+``Discriminator(cfg)`` is the ``nn.Module`` built from them, with state-dict
+keys equal to the JAX param-tree paths (``b256.conv0.weight``,
+``mapping.bias``, ``b4.fc.weight``).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -23,6 +25,9 @@ from torch import nn
 
 from gmpi_tpu_torch.models.layers import (Conv2d, FullyConnected, minibatch_std,
                                           normalize_2nd_moment)
+from gmpi_tpu_torch.ops.upfirdn2d import downsample2d, setup_filter
+
+ARCHITECTURES = ("orig", "skip", "resnet")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -39,34 +44,46 @@ class DiscriminatorBlockCfg:
 
 
 class DiscriminatorBlock(nn.Module):
-    """One resolution: (fromrgb on the first block,) conv0, conv1 with 2x
-    downsampling, and the downsampled 1x1 skip, both halves scaled by
-    sqrt(0.5)."""
+    """One resolution: ``fromrgb`` (on the first block, and on every block
+    under ``skip``), conv0, conv1 with 2x downsampling; under ``resnet`` the
+    downsampled 1x1 skip, both halves scaled by sqrt(0.5); under ``skip``
+    the image goes on downsampled with the [1, 3, 3, 1] filter."""
 
     def __init__(self, cfg: DiscriminatorBlockCfg, generator: Optional[torch.Generator] = None):
         super().__init__()
-        if cfg.architecture != "resnet":
-            raise NotImplementedError(
-                f"discriminator architecture {cfg.architecture!r} is not ported yet")
+        if cfg.architecture not in ARCHITECTURES:
+            raise ValueError(f"architecture {cfg.architecture!r} is none of {ARCHITECTURES}")
         self.cfg = cfg
         kw = dict(activation=cfg.activation, conv_clamp=cfg.conv_clamp, generator=generator)
-        if cfg.in_channels == 0:
+        if cfg.in_channels == 0 or cfg.architecture == "skip":
             self.fromrgb = Conv2d(cfg.img_channels, cfg.tmp_channels, 1, **kw)
         self.conv0 = Conv2d(cfg.tmp_channels, cfg.tmp_channels, 3, **kw)
         self.conv1 = Conv2d(cfg.tmp_channels, cfg.out_channels, 3, down=2, **kw)
-        self.skip = Conv2d(cfg.tmp_channels, cfg.out_channels, 1, bias=False, down=2,
-                           generator=generator)
+        if cfg.architecture == "resnet":
+            self.skip = Conv2d(cfg.tmp_channels, cfg.out_channels, 1, bias=False, down=2,
+                               generator=generator)
+        self.register_buffer("resample_filter", torch.from_numpy(setup_filter([1, 3, 3, 1])),
+                             persistent=False)
 
-    def forward(self, x: Optional[torch.Tensor], img: torch.Tensor) -> torch.Tensor:
-        dtype = torch.bfloat16 if self.cfg.use_bf16 else torch.float32
-        if self.cfg.in_channels == 0:
-            x = self.fromrgb(img.to(dtype))
-        else:
+    def forward(self, x: Optional[torch.Tensor], img: Optional[torch.Tensor]
+                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """``(x, img)`` -> ``(x, img)``; ``img`` is None past the first block
+        unless the architecture is ``skip``."""
+        cfg = self.cfg
+        dtype = torch.bfloat16 if cfg.use_bf16 else torch.float32
+        if x is not None:
             x = x.to(dtype)
-        y = self.skip(x, gain=np.sqrt(0.5))
-        x = self.conv0(x)
-        x = self.conv1(x, gain=np.sqrt(0.5))
-        return y + x
+        if cfg.in_channels == 0 or cfg.architecture == "skip":
+            img = img.to(dtype)
+            y = self.fromrgb(img)
+            x = x + y if x is not None else y
+            img = downsample2d(img, self.resample_filter) if cfg.architecture == "skip" else None
+        if cfg.architecture == "resnet":
+            y = self.skip(x, gain=np.sqrt(0.5))
+            x = self.conv0(x)
+            x = self.conv1(x, gain=np.sqrt(0.5))
+            return y + x, img
+        return self.conv1(self.conv0(x)), img
 
 
 @dataclasses.dataclass(frozen=True)
@@ -193,7 +210,7 @@ class Discriminator(nn.Module):
                 ) -> torch.Tensor:
         x = None
         for res in self.cfg.block_resolutions:
-            x = getattr(self, f"b{res}")(x, img)
+            x, img = getattr(self, f"b{res}")(x, img)
         cmap = None
         if self.cfg.c_dim > 0:
             cmap = normalize_2nd_moment(self.mapping(flat_pose.to(torch.float32)))

@@ -7,12 +7,17 @@ the JAX package (``GeneratorCfg`` -> ``SynthesisNetworkCfg`` ->
 ``Generator(cfg)`` holds ``mapping`` and ``synthesis`` (blocks ``b4`` ...
 ``b{res}``), with state-dict keys equal to the JAX param-tree paths.
 
-This slice ports the paper preset's path: ``cond_mode`` ``normalize_add_z``
-(and ``add_z``), ``embed_func`` ``modulated_<act>``, the separately
-synthesized background built from the shared RGB, ``only_alpha``, const or
-random noise, truncation.  Blocks at the top ``num_bf16_res`` resolutions run
-in bfloat16; the MPI accumulator and output stay float32.  The other
-conditioning modes and embeddings raise ``NotImplementedError``.
+Every variant of the JAX package is built: the conditioning modes
+(``cond_mode``) ``add_z``, ``normalize_add_z`` (the paper's), ``add_xyz``,
+``normalize_add_xyz``, ``cat_xyz``, ``cond_z`` and ``cond_xyz``; the depth
+embeddings (``embed_func``) ``mlp``, ``conv_<act>``, ``modulated_<act>`` (the
+paper's ``modulated_lrelu``) and ``learnable_param`` (a learned token per
+training plane, re-sampled to another plane count by ``z_interpolation_ws``);
+the shared-RGB ``toalpha`` head (``only_alpha``) or the per-plane ``torgba``
+head; label conditioning (``c_dim > 0``); the separately synthesized
+background built from the shared RGB; const or random noise; truncation.
+Blocks at the top ``num_bf16_res`` resolutions run in bfloat16; the MPI
+accumulator and output stay float32.
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ from torch import nn
 
 from gmpi_tpu_torch.models.layers import (
     FLOATING_EPS,
+    Conv2d,
     FullyConnected,
     SynthesisLayer,
     ToRGB,
@@ -35,7 +41,8 @@ from gmpi_tpu_torch.models.layers import (
 )
 from gmpi_tpu_torch.ops.upfirdn2d import setup_filter, upsample2d
 
-PORTED_COND_MODES = ("add_z", "normalize_add_z")
+COND_MODES = ("add_z", "normalize_add_z", "add_xyz", "normalize_add_xyz", "cat_xyz", "cond_z",
+              "cond_xyz")
 
 
 def pos_enc_dim(multires: int) -> int:
@@ -53,30 +60,33 @@ def apply_pos_enc(x: torch.Tensor, multires: int) -> torch.Tensor:
 
 
 class MappingNetwork(nn.Module):
-    """z -> broadcast w's (``c`` is accepted for the JAX signature; label
-    conditioning is not ported)."""
+    """z, and with ``c_dim > 0`` the label ``c`` (its ``embed`` layer,
+    normalized, concatenated after z), -> broadcast w's."""
 
     def __init__(self, z_dim: int, c_dim: int, w_dim: int, num_ws: int, num_layers: int = 8,
                  lr_multiplier: float = 0.01, w_avg_beta: float = 0.995,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if c_dim > 0:
-            raise NotImplementedError("label conditioning (c_dim > 0) is not ported yet")
-        self.z_dim, self.w_dim = z_dim, w_dim
+        self.z_dim, self.c_dim, self.w_dim = z_dim, c_dim, w_dim
         self.num_ws, self.num_layers, self.w_avg_beta = num_ws, num_layers, w_avg_beta
-        feats = [z_dim] + [w_dim] * num_layers
+        if c_dim > 0:
+            self.embed = FullyConnected(c_dim, w_dim, generator=generator)
+        feats = [z_dim + (w_dim if c_dim > 0 else 0)] + [w_dim] * num_layers
         for i in range(num_layers):
             setattr(self, f"fc{i}", FullyConnected(feats[i], feats[i + 1], activation="lrelu",
                                                    lr_multiplier=lr_multiplier,
                                                    generator=generator))
         self.register_buffer("w_avg", torch.zeros(w_dim))
 
-    def forward(self, z: torch.Tensor, c: Optional[torch.Tensor] = None,
+    def forward(self, z: Optional[torch.Tensor], c: Optional[torch.Tensor] = None,
                 truncation_psi: float = 1.0, truncation_cutoff: Optional[int] = None
                 ) -> torch.Tensor:
-        if c is not None:
-            raise NotImplementedError("label conditioning is not ported yet")
-        x = normalize_2nd_moment(z.to(torch.float32))
+        x = None
+        if self.z_dim > 0:
+            x = normalize_2nd_moment(z.to(torch.float32))
+        if self.c_dim > 0:
+            y = normalize_2nd_moment(self.embed(c.to(torch.float32)))
+            x = torch.cat([x, y], dim=1) if x is not None else y
         for i in range(self.num_layers):
             x = getattr(self, f"fc{i}")(x)
         ws = x[:, None, :].expand(x.shape[0], self.num_ws, self.w_dim)
@@ -115,7 +125,7 @@ class SynthesisBlockCfg:
     only_alpha: bool = True
     gen_alpha_largest_res: int = 256
     img_channels: int = 4
-    n_planes_train: int = 32
+    n_planes_train: int = 32  # token count of embed_func="learnable_param"
 
     @property
     def gen_alpha_this_res(self) -> bool:
@@ -129,20 +139,21 @@ class SynthesisBlockCfg:
     def num_torgb(self) -> int:
         return 1
 
+    @property
+    def pos_enc_total_ch(self) -> int:
+        per_axis = pos_enc_dim(self.pos_enc_multires)
+        if self.cond_mode in ("cond_xyz", "cat_xyz"):
+            return per_axis * 3
+        return per_axis
 
-class SynthesisBlock(nn.Module):
-    """One resolution of the skip-architecture trunk plus its MPI head."""
+
+class SynthesisTrunk(nn.Module):
+    """The trunk of one resolution (learned const or 2x-up ``conv0``, then
+    ``conv1``) and its boundary-interpolated background feature; the heads
+    are the subclasses'."""
 
     def __init__(self, cfg: SynthesisBlockCfg, generator: Optional[torch.Generator] = None):
         super().__init__()
-        if cfg.cond_mode not in PORTED_COND_MODES:
-            raise NotImplementedError(f"cond_mode={cfg.cond_mode!r} is not ported yet")
-        if not cfg.embed_func.startswith("modulated"):
-            raise NotImplementedError(f"embed_func={cfg.embed_func!r} is not ported yet")
-        if not cfg.only_alpha:
-            raise NotImplementedError("only_alpha=False (torgba head) is not ported yet")
-        if cfg.sep_background and not cfg.build_bg_from_rgb:
-            raise NotImplementedError("sep_background needs build_bg_from_rgb")
         self.cfg = cfg
         g = generator
         c, res = cfg.out_channels, cfg.resolution
@@ -153,24 +164,25 @@ class SynthesisBlock(nn.Module):
                                         resample_filter=cfg.resample_filter,
                                         conv_clamp=cfg.conv_clamp, generator=g)
         self.conv1 = SynthesisLayer(c, c, cfg.w_dim, res, conv_clamp=cfg.conv_clamp, generator=g)
-        if cfg.gen_alpha_this_res:
-            act = cfg.embed_func.split("_")[1]
-            self.pos_enc_embed = ToRGBDeeperModulated(
-                pos_enc_dim(cfg.pos_enc_multires), c, cfg.w_dim, (c // 4, c // 2, c),
-                conv_clamp=cfg.conv_clamp, act_name=act, generator=g)
-        self.torgb = ToRGB(c, 3, cfg.w_dim, conv_clamp=cfg.conv_clamp, generator=g)
-        if cfg.gen_alpha_this_res:
-            self.toalpha = ToRGB(c, 1, cfg.w_dim, conv_clamp=cfg.conv_clamp, generator=g)
         self.register_buffer("resample_filter",
                              torch.from_numpy(setup_filter(list(cfg.resample_filter))),
                              persistent=False)
 
-    def _embed_z(self, z_vals: torch.Tensor, w: torch.Tensor, bs: int, n_planes: int
-                 ) -> torch.Tensor:
-        """Per-plane depth embedding -> ``[bs * L, C, 1, 1]``."""
-        enc = apply_pos_enc(z_vals.reshape(n_planes, 1), self.cfg.pos_enc_multires)
-        inp = enc[None].expand(bs, n_planes, enc.shape[-1]).reshape(bs * n_planes, -1, 1, 1)
-        return self.pos_enc_embed(inp, w, splitted=True, n_planes=n_planes)
+    def trunk(self, x: Optional[torch.Tensor], block_ws: torch.Tensor, noise_mode: str,
+              generator: Optional[torch.Generator], stop_trunk_grad: bool
+              ) -> Tuple[torch.Tensor, torch.Tensor, int]:
+        """``(x, conv1's w, index of the head's w in block_ws)``."""
+        cfg = self.cfg
+        bs, res = block_ws.shape[0], cfg.resolution
+        dtype = torch.bfloat16 if cfg.use_bf16 else torch.float32
+        if cfg.in_channels == 0:
+            x = self.const.to(dtype)[None].expand(bs, cfg.out_channels, res, res)
+            w_conv1, w_idx = block_ws[:, 0], 1
+        else:
+            x = self.conv0(x.to(dtype), block_ws[:, 0], noise_mode, generator)
+            w_conv1, w_idx = block_ws[:, 1], 2
+        x = self.conv1(x, w_conv1, noise_mode, generator)
+        return (x.detach() if stop_trunk_grad else x), w_conv1, w_idx
 
     def _background_feature(self, x: torch.Tensor) -> torch.Tensor:
         """Linearly interpolate between the boundary columns of the (detached)
@@ -191,10 +203,179 @@ class SynthesisBlock(nn.Module):
             return torch.cat([left.to(mid.dtype), mid, right.to(mid.dtype)], dim=3)
         return torch.cat([left, right], dim=3)
 
+
+class SynthesisBlock(SynthesisTrunk):
+    """One resolution of the skip-architecture trunk plus its MPI head."""
+
+    def __init__(self, cfg: SynthesisBlockCfg, generator: Optional[torch.Generator] = None):
+        super().__init__(cfg, generator)
+        if cfg.cond_mode not in COND_MODES:
+            raise ValueError(f"cond_mode {cfg.cond_mode!r} is none of {COND_MODES}")
+        if cfg.sep_background and not (cfg.build_bg_from_rgb and cfg.only_alpha):
+            raise ValueError("sep_background needs build_bg_from_rgb and only_alpha")
+        g = generator
+        c = cfg.out_channels
+        if cfg.gen_alpha_this_res and cfg.cond_mode != "cat_xyz":
+            for name in self.embed_names:
+                if cfg.embed_func == "learnable_param":
+                    # a learned token per training plane
+                    self.register_parameter(name + "_learnable_param", nn.Parameter(
+                        torch.rand((1, cfg.n_planes_train, c, 1, 1), generator=g)))
+                    self.register_buffer(name + "_learnable_param_left_append",
+                                         torch.zeros((1, 1, c, 1, 1)))
+                else:
+                    setattr(self, name, self._embed_head(g))
+        # cat_xyz widens the alpha / rgba head's input by the encoded xyz
+        head_in = c + (cfg.pos_enc_total_ch if cfg.cond_mode == "cat_xyz" else 0)
+        if cfg.only_alpha:
+            self.torgb = ToRGB(c, 3, cfg.w_dim, conv_clamp=cfg.conv_clamp, generator=g)
+            if cfg.gen_alpha_this_res:
+                self.toalpha = ToRGB(head_in, 1, cfg.w_dim, conv_clamp=cfg.conv_clamp, generator=g)
+        else:
+            self.torgba = ToRGB(head_in, cfg.img_channels, cfg.w_dim, conv_clamp=cfg.conv_clamp,
+                                generator=g)
+
+    @property
+    def embed_names(self) -> Tuple[str, ...]:
+        """The embedding heads: one per axis for ``add_xyz`` and
+        ``normalize_add_xyz``, else one."""
+        mode = self.cfg.cond_mode
+        if "xyz" in mode and mode.startswith(("add", "normalize")):
+            return ("pos_enc_embed_x", "pos_enc_embed_y", "pos_enc_embed_z")
+        return ("pos_enc_embed",)
+
+    def _embed_head(self, g: Optional[torch.Generator]) -> nn.Module:
+        """One head from pos-enc channels to feature channels."""
+        cfg = self.cfg
+        c, ch = cfg.out_channels, cfg.pos_enc_total_ch
+        if cfg.embed_func == "mlp":
+            return FullyConnected(ch, c, activation="linear", generator=g)
+        if cfg.embed_func.startswith("conv"):
+            act = cfg.embed_func.split("_")[1]
+            return nn.Sequential(*[
+                Conv2d(cin, cout, 1, bias=False, activation=act, conv_clamp=cfg.conv_clamp,
+                       generator=g)
+                for cin, cout in ((ch, c // 4), (c // 4, c // 2), (c // 2, c))])
+        if cfg.embed_func.startswith("modulated"):
+            act = cfg.embed_func.split("_")[1]
+            return ToRGBDeeperModulated(ch, c, cfg.w_dim, (c // 4, c // 2, c),
+                                        conv_clamp=cfg.conv_clamp, act_name=act, generator=g)
+        raise ValueError(cfg.embed_func)
+
+    @staticmethod
+    def _apply_head(head: nn.Module, x: torch.Tensor, w: torch.Tensor, n_planes: int
+                    ) -> torch.Tensor:
+        """Run one embedding head on NCHW ``x``."""
+        if isinstance(head, FullyConnected):
+            n, c, hh, ww = x.shape
+            out = head(x.permute(0, 2, 3, 1).reshape(-1, c))
+            return out.reshape(n, hh, ww, -1).permute(0, 3, 1, 2)
+        if isinstance(head, nn.Sequential):
+            return head(x)
+        return head(x, w, splitted=True, n_planes=n_planes)
+
+    def _embed_z(self, z_vals: torch.Tensor, w: torch.Tensor, bs: int, n_planes: int,
+                 name: str = "pos_enc_embed",
+                 z_interpolation_ws: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Per-plane depth embedding -> ``[bs * L, C, 1, 1]``."""
+        cfg = self.cfg
+        if cfg.embed_func == "learnable_param":
+            tokens = getattr(self, name + "_learnable_param")  # [1, L_train, C, 1, 1]
+            if z_interpolation_ws is not None:
+                # blend neighbouring tokens, with the boundary sentinels
+                left = getattr(self, name + "_learnable_param_left_append")
+                ext = torch.cat([left, tokens, tokens[:, -1:]], dim=1)  # [1, L_train + 2, ...]
+                n_tgt, n_src = z_interpolation_ws.shape
+                ws_r = z_interpolation_ws.to(ext).reshape(1, n_tgt, n_src, 1, 1, 1)
+                tokens = torch.sum(ext[:, None] * ws_r, dim=2)  # [1, n_tgt, C, 1, 1]
+            assert tokens.shape[1] == n_planes, (tuple(tokens.shape), n_planes)
+            return tokens.expand(bs, n_planes, *tokens.shape[2:]).reshape(bs * n_planes, -1, 1, 1)
+        head = getattr(self, name)
+        enc = apply_pos_enc(z_vals.reshape(n_planes, 1), cfg.pos_enc_multires)  # [L, pos_ch]
+        if isinstance(head, ToRGBDeeperModulated):
+            inp = enc[None].expand(bs, n_planes, enc.shape[-1]).reshape(bs * n_planes, -1, 1, 1)
+            return head(inp, w, splitted=True, n_planes=n_planes)
+        out = self._apply_head(head, enc.reshape(n_planes, -1, 1, 1), w, n_planes)
+        return out.repeat(bs, 1, 1, 1)
+
+    def _embed_axis(self, vals: torch.Tensor, w: torch.Tensor, bs: int, n_planes: int,
+                    name: str, horizontal: bool) -> torch.Tensor:
+        """Per-plane x (or y) line embedding -> ``[bs * L, C, 1, W]`` (or
+        ``[bs * L, C, H, 1]``)."""
+        res = self.cfg.resolution
+        enc = apply_pos_enc(vals.reshape(n_planes * res, 1), self.cfg.pos_enc_multires)
+        head = getattr(self, name)
+        if isinstance(head, ToRGBDeeperModulated):
+            # the reference's layout: [res, L, pos_ch] per sample, w repeated per line
+            enc_rl = enc.reshape(n_planes, res, -1).permute(1, 0, 2)
+            inp = enc_rl[None].expand(bs, res, n_planes, enc.shape[-1]).reshape(
+                bs * res * n_planes, -1, 1, 1)
+            w_rep = w[:, None, :].expand(bs, res, w.shape[-1]).reshape(bs * res, -1)
+            out = head(inp, w_rep, splitted=True, n_planes=n_planes)[..., 0, 0]
+            out = out.reshape(bs, res, n_planes, -1).permute(0, 2, 3, 1).reshape(
+                bs * n_planes, -1, res)
+        else:
+            out = self._apply_head(head, enc.reshape(n_planes * res, -1, 1, 1), w,
+                                   n_planes)[..., 0, 0]
+            out = out.reshape(n_planes, res, -1).permute(0, 2, 1).repeat(bs, 1, 1)
+        return out[:, :, None, :] if horizontal else out[:, :, :, None]
+
+    def _conditioned(self, x: torch.Tensor, xyz: torch.Tensor, w_conv1: torch.Tensor,
+                     n_planes: int, z_interpolation_ws: Optional[torch.Tensor]) -> torch.Tensor:
+        """The trunk feature conditioned on each plane -> ``[bs * L, C', res, res]``."""
+        cfg = self.cfg
+        mode = cfg.cond_mode
+        bs, res = x.shape[0], cfg.resolution
+        dtype = torch.bfloat16 if cfg.use_bf16 else torch.float32
+        xyz = xyz.to(torch.float32)
+
+        def per_plane(t):
+            return t[:, None].expand(bs, n_planes, *t.shape[1:]).reshape(
+                bs * n_planes, -1, res, res)
+
+        def normalized(t):
+            mean, std = instance_mean_std(t.to(torch.float32))
+            return ((t.to(torch.float32) - mean) / (std + FLOATING_EPS)).to(dtype)
+
+        if mode in ("add_z", "normalize_add_z"):
+            z_vals = xyz[:, 0, 0, 2] if xyz.ndim == 4 else xyz.reshape(n_planes)
+            embeds = self._embed_z(z_vals.to(dtype), w_conv1, bs, n_planes,
+                                   z_interpolation_ws=z_interpolation_ws)
+            cond_x = normalized(x) if mode == "normalize_add_z" else x
+            return per_plane(cond_x) + embeds.to(dtype)
+        if mode in ("add_xyz", "normalize_add_xyz"):
+            ex = self._embed_axis(xyz[:, 0, :, 0].to(dtype), w_conv1, bs, n_planes,
+                                  "pos_enc_embed_x", horizontal=True)
+            ey = self._embed_axis(xyz[:, :, 0, 1].to(dtype), w_conv1, bs, n_planes,
+                                  "pos_enc_embed_y", horizontal=False)
+            ez = self._embed_z(xyz[:, 0, 0, 2].to(dtype), w_conv1, bs, n_planes,
+                               "pos_enc_embed_z")
+            cond_x = normalized(x) if mode == "normalize_add_xyz" else x
+            return per_plane(cond_x) + ex.to(dtype) + ey.to(dtype) + ez.to(dtype)
+        enc = apply_pos_enc(xyz.reshape(n_planes, res, res, 3, 1), cfg.pos_enc_multires)
+        if mode == "cat_xyz":
+            enc = enc.reshape(n_planes, res, res, -1).permute(0, 3, 1, 2)  # [L, 3 * pos, res, res]
+            return torch.cat([per_plane(x), enc.repeat(bs, 1, 1, 1).to(dtype)], dim=1)
+        # cond_z / cond_xyz: AdaIN, the instance-normalized trunk feature takes
+        # the per-plane embedding map's spatial statistics.  The reference has
+        # only mlp and conv heads here.  The division is by instance_mean_std's
+        # std (eps inside the variance), with no outer FLOATING_EPS, unlike
+        # normalize_add_*.
+        head = self.pos_enc_embed
+        assert isinstance(head, (FullyConnected, nn.Sequential)), (
+            "cond_z/cond_xyz support mlp/conv embed functions only (reference parity)")
+        enc = enc[:, :, :, 2, :] if mode == "cond_z" else enc.reshape(n_planes, res, res, -1)
+        embeds = self._apply_head(head, enc.permute(0, 3, 1, 2).to(dtype), w_conv1, n_planes)
+        e_mean, e_std = instance_mean_std(embeds.to(torch.float32))  # [L, C, 1, 1]
+        mean, std = instance_mean_std(x.to(torch.float32))
+        cond_x = per_plane((x.to(torch.float32) - mean) / std)
+        return (cond_x * e_std.repeat(bs, 1, 1, 1) + e_mean.repeat(bs, 1, 1, 1)).to(dtype)
+
     def forward(self, x: Optional[torch.Tensor], img: Optional[torch.Tensor],
                 block_ws: torch.Tensor, xyz: Optional[torch.Tensor], n_planes: int,
                 noise_mode: str = "const", generator: Optional[torch.Generator] = None,
-                foreground_only: bool = False, stop_trunk_grad: bool = False
+                foreground_only: bool = False, stop_trunk_grad: bool = False,
+                z_interpolation_ws: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """``foreground_only`` disables the background path: every plane slot
         is foreground (shared RGB + depth-conditioned alpha).
@@ -202,21 +383,8 @@ class SynthesisBlock(nn.Module):
         trains."""
         cfg = self.cfg
         bs, res = block_ws.shape[0], cfg.resolution
-        dtype = torch.bfloat16 if cfg.use_bf16 else torch.float32
         sep_background = cfg.sep_background and not foreground_only
-
-        if cfg.in_channels == 0:
-            x = self.const.to(dtype)[None].expand(bs, cfg.out_channels, res, res)
-            w_conv1 = block_ws[:, 0]
-            x = self.conv1(x, w_conv1, noise_mode, generator)
-            w_idx = 1
-        else:
-            x = self.conv0(x.to(dtype), block_ws[:, 0], noise_mode, generator)
-            w_conv1 = block_ws[:, 1]
-            x = self.conv1(x, w_conv1, noise_mode, generator)
-            w_idx = 2
-        if stop_trunk_grad:
-            x = x.detach()
+        x, w_conv1, w_idx = self.trunk(x, block_ws, noise_mode, generator, stop_trunk_grad)
 
         if img is not None:
             img = upsample2d(img, self.resample_filter)
@@ -225,33 +393,26 @@ class SynthesisBlock(nn.Module):
         cond_x = None
         if cfg.gen_alpha_this_res:
             assert xyz is not None, "conditioning coordinates required at alpha resolutions"
-            xyz = xyz.to(torch.float32)
-            z_vals = xyz[:, 0, 0, 2] if xyz.ndim == 4 else xyz.reshape(n_planes)
-            embeds = self._embed_z(z_vals.to(dtype), w_conv1, bs, n_planes)
-            cond_x = x
-            if cfg.cond_mode == "normalize_add_z":
-                mean, std = instance_mean_std(cond_x.to(torch.float32))
-                cond_x = ((cond_x.to(torch.float32) - mean) / (std + FLOATING_EPS)).to(dtype)
-            cond_x = cond_x[:, None].expand(bs, n_planes, *cond_x.shape[1:]).reshape(
-                bs * n_planes, -1, res, res)
-            cond_x = cond_x + embeds.to(dtype)
+            cond_x = self._conditioned(x, xyz, w_conv1, n_planes, z_interpolation_ws)
 
-        background = None
-        if sep_background:
-            background = self.torgb(self._background_feature(x), w_rgba)
-        single_rgb = self.torgb(x, w_rgba)  # [bs, 3, res, res]
-        if sep_background:
-            fg = single_rgb[:, None].expand(bs, n_planes - 1, 3, res, res)
-            cur_rgb = torch.cat([fg.to(background.dtype), background[:, None]], dim=1)
+        if cfg.only_alpha:
+            single_rgb = self.torgb(x, w_rgba)  # [bs, 3, res, res]
+            if sep_background:
+                background = self.torgb(self._background_feature(x), w_rgba)
+                fg = single_rgb[:, None].expand(bs, n_planes - 1, 3, res, res)
+                cur_rgb = torch.cat([fg.to(background.dtype), background[:, None]], dim=1)
+            else:
+                cur_rgb = single_rgb[:, None].expand(bs, n_planes, 3, res, res)
+            cur_rgb = cur_rgb.reshape(bs * n_planes, 3, res, res)
+            if cfg.gen_alpha_this_res:
+                cur_alpha = self.toalpha(cond_x, w_rgba, splitted=True, n_planes=n_planes)
+            else:
+                cur_alpha = torch.zeros((bs * n_planes, 1, res, res), dtype=cur_rgb.dtype,
+                                        device=cur_rgb.device)
+            y = torch.cat([cur_rgb, cur_alpha.to(cur_rgb.dtype)], dim=1)
         else:
-            cur_rgb = single_rgb[:, None].expand(bs, n_planes, 3, res, res)
-        cur_rgb = cur_rgb.reshape(bs * n_planes, 3, res, res)
-        if cfg.gen_alpha_this_res:
-            cur_alpha = self.toalpha(cond_x, w_rgba, splitted=True, n_planes=n_planes)
-        else:
-            cur_alpha = torch.zeros((bs * n_planes, 1, res, res), dtype=cur_rgb.dtype,
-                                    device=cur_rgb.device)
-        y = torch.cat([cur_rgb, cur_alpha.to(cur_rgb.dtype)], dim=1)
+            # per-plane RGBA from the conditioned feature
+            y = self.torgba(cond_x, w_rgba, splitted=True, n_planes=n_planes)
         y = y.reshape(bs, n_planes * cfg.img_channels, res, res).to(torch.float32)
         img = img + y if img is not None else y
         return x, img
@@ -325,7 +486,8 @@ class SynthesisNetwork(nn.Module):
     def forward(self, ws: torch.Tensor, xyz_dict: Optional[Dict[int, torch.Tensor]],
                 n_planes: int, noise_mode: str = "const",
                 generator: Optional[torch.Generator] = None,
-                foreground_only: bool = False, stop_trunk_grad: bool = False) -> torch.Tensor:
+                foreground_only: bool = False, stop_trunk_grad: bool = False,
+                z_interpolation_ws: Optional[torch.Tensor] = None) -> torch.Tensor:
         ws = ws.to(torch.float32)
         x = img = None
         w_idx = 0
@@ -337,7 +499,7 @@ class SynthesisNetwork(nn.Module):
             xyz = xyz_dict.get(res) if xyz_dict is not None else None
             x, img = block(x, img, block_ws, xyz, n_planes, noise_mode=noise_mode,
                            generator=generator, foreground_only=foreground_only,
-                           stop_trunk_grad=stop_trunk_grad)
+                           stop_trunk_grad=stop_trunk_grad, z_interpolation_ws=z_interpolation_ws)
         return img
 
 
@@ -379,14 +541,17 @@ class Generator(nn.Module):
     def synthesize(self, ws: torch.Tensor, xyz_dict: Optional[Dict[int, torch.Tensor]],
                    n_planes: int, noise_mode: str = "const",
                    generator: Optional[torch.Generator] = None,
-                   foreground_only: bool = False, stop_trunk_grad: bool = False
-                   ) -> torch.Tensor:
+                   foreground_only: bool = False, stop_trunk_grad: bool = False,
+                   z_interpolation_ws: Optional[torch.Tensor] = None) -> torch.Tensor:
         """ws -> MPI ``[B, L, 4, R, R]``.  ``foreground_only`` generates every
-        slot as foreground (no background plane, no forced background alpha)."""
+        slot as foreground (no background plane, no forced background alpha).
+        ``z_interpolation_ws`` (``core.geometry.plane_interp_weights``)
+        re-samples ``learnable_param``'s training-plane tokens to ``n_planes``."""
         cfg = self.cfg
         img = self.synthesis(ws, xyz_dict, n_planes, noise_mode=noise_mode,
                              generator=generator, foreground_only=foreground_only,
-                             stop_trunk_grad=stop_trunk_grad)
+                             stop_trunk_grad=stop_trunk_grad,
+                             z_interpolation_ws=z_interpolation_ws)
         if cfg.final_img_act == "none":
             img = (torch.clamp(img, -1.0, 1.0) + 1.0) / 2.0
         elif cfg.final_img_act == "sigmoid":
@@ -405,13 +570,15 @@ class Generator(nn.Module):
                 xyz_dict: Optional[Dict[int, torch.Tensor]], n_planes: int,
                 truncation_psi: float = 1.0, truncation_cutoff: Optional[int] = None,
                 noise_mode: str = "const", generator: Optional[torch.Generator] = None,
-                stop_mapping_grad: bool = False, stop_trunk_grad: bool = False
-                ) -> torch.Tensor:
-        """Full forward: z -> MPI ``[B, L, 4, R, R]``.  ``stop_mapping_grad`` /
-        ``stop_trunk_grad`` freeze the mapping network / the synthesis trunk
-        (their parameters get no gradient)."""
+                stop_mapping_grad: bool = False, stop_trunk_grad: bool = False,
+                z_interpolation_ws: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Full forward: z (and the label ``c`` when ``c_dim > 0``) -> MPI
+        ``[B, L, 4, R, R]``.  ``stop_mapping_grad`` / ``stop_trunk_grad``
+        freeze the mapping network / the synthesis trunk (their parameters get
+        no gradient)."""
         ws = self.mapping(z, c, truncation_psi, truncation_cutoff)
         if stop_mapping_grad:
             ws = ws.detach()
         return self.synthesize(ws, xyz_dict, n_planes, noise_mode=noise_mode,
-                               generator=generator, stop_trunk_grad=stop_trunk_grad)
+                               generator=generator, stop_trunk_grad=stop_trunk_grad,
+                               z_interpolation_ws=z_interpolation_ws)

@@ -1,12 +1,33 @@
-"""Model introspection (port of ``param_summary`` from
-``gmpi_tpu/utils/inspect.py``; the reference's ``misc.print_module_summary``,
-``gmpi/models/torch_utils/misc.py:196-264``)."""
+"""Model and runtime introspection (port of ``gmpi_tpu/utils/inspect.py``;
+the reference's ``misc`` toolbox, ``gmpi/models/torch_utils/misc.py``):
+
+* :func:`assert_shape` -- ``misc.assert_shape`` (``misc.py:83-96``);
+* :func:`param_summary` / :func:`print_param_summary` -- the module table
+  (``misc.print_module_summary``, ``misc.py:196-264``);
+* :func:`profile_scope` -- a named ``torch.profiler`` span
+  (``misc.profiled_function``);
+* :func:`trace` -- a ``torch.profiler`` run that writes a Chrome trace.
+
+``check_replica_consistency`` (replicated parameters equal on every device)
+comes with multi-GPU training.
+"""
 
 from __future__ import annotations
 
-from typing import Mapping, Tuple, Union
+import contextlib
+import os
+from typing import Mapping, Optional, Sequence, Tuple, Union
 
 import torch
+from torch.profiler import ProfilerActivity, profile, record_function
+
+
+def assert_shape(x, shape: Sequence[Optional[int]]) -> None:
+    """Assert ``x``'s rank and every dimension of ``shape`` that is not None."""
+    assert x.ndim == len(shape), f"rank {x.ndim} != {len(shape)}"
+    for i, (got, want) in enumerate(zip(x.shape, shape)):
+        if want is not None:
+            assert got == want, f"dim {i}: {got} != {want} (shape {tuple(x.shape)})"
 
 
 def param_summary(tree: Union[torch.nn.Module, Mapping], prefix: str = "") -> Tuple[list, int]:
@@ -35,3 +56,39 @@ def param_summary(tree: Union[torch.nn.Module, Mapping], prefix: str = "") -> Tu
         rows.append((".".join(path), shape, n))
         total += n
     return rows, total
+
+
+def print_param_summary(tree: Union[torch.nn.Module, Mapping], prefix: str = "",
+                        max_rows: int = 0) -> int:
+    """Print :func:`param_summary`'s rows (the first ``max_rows`` when > 0)
+    and the total; returns the total."""
+    rows, total = param_summary(tree, prefix)
+    shown = rows if max_rows <= 0 else rows[:max_rows]
+    width = max((len(r[0]) for r in shown), default=10)
+    for name, shape, n in shown:
+        print(f"{name:<{width}}  {str(shape):<20} {n:>12,}")
+    if max_rows > 0 and len(rows) > max_rows:
+        print(f"... {len(rows) - max_rows} more entries")
+    print(f"{'TOTAL':<{width}}  {'':<20} {total:>12,}")
+    return total
+
+
+@contextlib.contextmanager
+def profile_scope(name: str):
+    """A span named ``name`` in ``torch.profiler`` traces; without a
+    profiler it does nothing."""
+    with record_function(name):
+        yield
+
+
+@contextlib.contextmanager
+def trace(log_dir: str):
+    """Profile the block (host and, with a card, device activity) and write
+    its Chrome trace to ``log_dir/trace.json``; yields the profiler."""
+    os.makedirs(log_dir, exist_ok=True)
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        yield prof
+    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))

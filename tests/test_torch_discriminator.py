@@ -86,6 +86,37 @@ def test_scores_match_jax(both):
     _close(out.numpy(), ref)
 
 
+@pytest.mark.parametrize("architecture", ["orig", "skip", "resnet"])
+def test_architecture_scores_and_r1_gradient_match_jax(architecture):
+    """Each StyleGAN2 architecture (``skip``: ``fromrgb`` on every block and
+    the image downsampled beside the features; ``orig``: neither): the same
+    state-dict keys as the JAX tree, scores within 1e-4 x max|ref|, and the
+    R1 gradient d(sum D)/d(img) within 1e-3 of its largest entry."""
+    kw = dict(KW, architecture=architecture)
+    cfg_j = JaxDiscriminatorCfg(**kw)
+    params = jax_disc_params(cfg_j, seed=3)
+    sd = params_from_jax(params)
+    d_t = Discriminator(DiscriminatorCfg(**kw))
+    assert sorted(sd) == sorted(d_t.state_dict())
+    d_t.load_state_dict(sd, strict=True)
+    assert hasattr(d_t.b8, "fromrgb") == (architecture == "skip")
+    assert hasattr(d_t.b8, "skip") == (architecture == "resnet")
+    rng = np.random.default_rng(4)
+    imgs = rng.uniform(-1, 1, (4, 3, 32, 32)).astype(np.float32)
+    pose = rng.standard_normal((4, 16)).astype(np.float32)
+
+    def score_sum(im):
+        return jnp.sum(cfg_j.apply(params, im, jnp.asarray(pose)))
+
+    ref = cfg_j.apply(params, jnp.asarray(imgs), jnp.asarray(pose))
+    ref_grad = np.asarray(jax.grad(score_sum)(jnp.asarray(imgs)))
+    x = torch.from_numpy(imgs).requires_grad_()
+    out = d_t(x, torch.from_numpy(pose))
+    (grad,) = torch.autograd.grad(out.sum(), x)
+    _close(out.detach().numpy(), ref)
+    assert np.abs(grad.numpy() - ref_grad).max() <= 1e-3 * np.abs(ref_grad).max()
+
+
 @pytest.mark.parametrize("group,channels", [(2, 1), (None, 2), (4, 1)])
 def test_minibatch_std_matches_jax(group, channels):
     x = np.random.default_rng(2).standard_normal((4, 6, 4, 4)).astype(np.float32)
@@ -109,5 +140,6 @@ def test_unconditional_and_bf16_variants_run():
         a, b = d32(imgs), d16(imgs)
     assert a.shape == (2, 1) and b.dtype == torch.float32
     assert float((a - b).abs().max()) < 0.1 * max(1.0, float(a.abs().max()))
-    with pytest.raises(NotImplementedError):
-        Discriminator(DiscriminatorCfg(**dict(kw, architecture="skip")))
+    # every architecture of StyleGAN2 is ported; another name raises
+    with pytest.raises(ValueError, match="bogus"):
+        Discriminator(DiscriminatorCfg(**dict(kw, architecture="bogus")))

@@ -100,11 +100,30 @@ def test_state_dict_keys_match_jax_tree(jax_trees):
 
 
 def test_unported_cond_modes_raise():
-    cfg_t = small_cfg(get_config)
-    for model in (dataclasses.replace(cfg_t.model, cond_mode="cat_xyz"),
-                  dataclasses.replace(cfg_t.model, embed_func="mlp")):
-        with pytest.raises(NotImplementedError):
-            Generator(dataclasses.replace(cfg_t, model=model).generator_cfg())
+    """Every variant is ported; names that exist in neither package raise in
+    both.  An unknown ``cond_mode``: the JAX package raises
+    ``NotImplementedError`` when the block runs, the port ``ValueError`` when
+    it is built.  An unknown ``embed_func``: ``ValueError`` in both, when
+    built."""
+    cfg_j, cfg_t = small_cfg(jax_get_config), small_cfg(get_config)
+    geom_j = cfg_j.plane_geometry()
+    xyz_j = cfg_j.multi_res_xyz(geom_j)
+    z = jnp.zeros((1, 32), jnp.float32)
+
+    def model(cfg, **kw):
+        return dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, **kw))
+
+    gen_j = model(cfg_j, cond_mode="add_w").generator_cfg()
+    params, buffers = gen_j.init(jax.random.key(0))
+    with pytest.raises(NotImplementedError):
+        jax.eval_shape(lambda p, b: gen_j.apply(p, b, z, None, xyz_j, N_PLANES,
+                                                noise_mode="const"), params, buffers)
+    with pytest.raises(ValueError, match="add_w"):
+        Generator(model(cfg_t, cond_mode="add_w").generator_cfg())
+    with pytest.raises(ValueError, match="mlp_lrelu"):
+        model(cfg_j, embed_func="mlp_lrelu").generator_cfg().init(jax.random.key(0))
+    with pytest.raises(ValueError, match="mlp_lrelu"):
+        Generator(model(cfg_t, embed_func="mlp_lrelu").generator_cfg())
 
 
 @pytest.mark.parametrize("up,down,activation", [(1, 1, "lrelu"), (2, 1, "linear"),

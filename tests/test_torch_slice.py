@@ -131,7 +131,8 @@ def test_harness_raises_on_cuda_without_a_card(both_generators):
 def test_port_imports_neither_jax_nor_the_jax_package():
     """Importing every module of the port (found by walking the package),
     ``chip_smoke.py`` and the CLIs ``train_gmpi_torch.py``,
-    ``eval_gmpi_torch.py`` and ``render_gmpi_torch.py`` adds no ``jax``,
+    ``eval_gmpi_torch.py``, ``render_gmpi_torch.py`` and
+    ``convert_checkpoint_torch.py`` adds no ``jax``,
     ``jaxlib`` or ``gmpi_tpu`` module to ``sys.modules`` (checked in a fresh
     interpreter)."""
     code = textwrap.dedent("""
@@ -141,10 +142,12 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         names = [m.name for m in pkgutil.walk_packages(gmpi_tpu_torch.__path__,
                                                        "gmpi_tpu_torch.")]
         for name in names + ["chip_smoke", "train_gmpi_torch", "eval_gmpi_torch",
-                             "render_gmpi_torch"]:
+                             "render_gmpi_torch", "convert_checkpoint_torch"]:
             importlib.import_module(name)
         for walked in ("tools.time_backward", "train.loop", "eval.inception", "eval.adapters",
-                       "viz.mesh", "viz.render_video"):
+                       "viz.mesh", "viz.render_video", "models.generator_vanilla",
+                       "models.legacy_tf", "tools.tf_pickle", "utils.registry",
+                       "utils.roofline", "utils.toy_mpi"):
             assert "gmpi_tpu_torch." + walked in names, names
         bad = sorted(m for m in set(sys.modules) - before
                      if m.split(".")[0] in ("jax", "jaxlib", "gmpi_tpu"))
