@@ -145,7 +145,34 @@ Phases, each of which raises on failure (nonzero exit, no result line):
    ``train_gmpi_torch.main`` on phase 8's dataset whose mapping, trunk,
    ``torgb`` and noise must equal the table's arrays bitwise and whose MPI
    heads keep their initial values, then 2 warm-started steps (launches as
-   phase 4's).  Prints the convert seconds, the ``.npz`` bytes and step ms.
+   phase 4's).  Prints the convert seconds, the ``.npz`` bytes and step ms;
+12. bf16 textures and ranks at full FFHQ256 width — (a) K1's bf16-texture
+   form against its bf16 plain version on the three stacks at the serving
+   shapes (inference form) and the training shapes (training form with the
+   residual and ``n_live``, and the D phase's inference form), and at phase
+   2e's edges (the unaligned slab takes the kernel's texel-by-texel copy):
+   1e-4 absolute; the bf16 render against the fp32 render of the same
+   stacks within 2e-2 (the JAX package's gate); K1 fp32, bf16, bf16, fp32 in
+   turns at the serving path's MPI, each with its bound (bf16: 2 bytes a
+   texel); ``BF16_STEPS`` train steps with ``fused_compute_dtype="bf16"``
+   (launches as phase 4's) beside phase 4's fp32 step and peak GB, and the
+   bf16 route's ``rgba`` gradient against the fp32 route's (2e-2 of
+   max|grad|).  (b) Ranks spawned as ``python3 chip_smoke.py --rank <job>
+   <rank> <world> <dir>``, every one on ``cuda:0``: 2 ranks over gloo render
+   plane-sharded (the fused slab kernel per rank), pipelined and
+   tile-sharded (fused, and banded with K7 per shard) at 4 views x 96
+   planes against the single process's render (5e-4) with the plane-sharded
+   ``rgba`` gradient (1e-3 of max), then take ``RANK_STEPS``
+   ``renderer_plane_shards=2`` train steps (step ms, peak GB, bytes handed to
+   collectives a step, ``check_replica_consistency(atol=0)`` over the whole
+   state after each); 4 ranks render plane x tile 2 x 2 (fused and banded)
+   with the same gates; 2 ranks run ``train_gmpi_torch.main --multihost
+   --dist_backend gloo --device cuda:0`` data-parallel on a dataset like
+   phase 8's (global batch 8, 4 a rank, 2 steps: disjoint shards, rank 0
+   alone saves, equal replicas); one rank in an NCCL group renders through
+   the same sharded calls with groups of one, so that NCCL gathers and
+   reduces device tensors.  Any rank that fails fails the phase.  Two ranks
+   on one card measure correctness and per-rank cost, not scaling.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -157,6 +184,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 
 import torch
 
@@ -1510,6 +1538,580 @@ def variants_phase(fr, cfg, card, chip, dev):
     return record, k1_err
 
 
+BF16_RENDER_GATE = 2e-2  # bf16 textures against fp32 (tests/test_pallas_warp.py:243-262)
+BF16_STEPS = 3  # train steps with fused_compute_dtype="bf16": 2 whole, 1 timed by phase
+RANK_STEPS = 2  # train steps of each multi-rank run
+RANK_TIMEOUT = 420  # seconds a spawn of ranks may take
+RANK_DEVICE = "cuda:0"  # every rank of phase 12b on the one card
+
+
+def check_bf16_training_form(fr, label, tex16, rx, ry, q, scal):
+    """K1's bf16 form in its training form (grad-safe early-out, residual,
+    ``n_live``) against its bf16 plain version: outputs 1e-4 absolute, the
+    residual on slots both reached, ``n_live`` within a plane on at most 1e-4
+    of the pixels.  Returns the largest absolute error."""
+    kw = dict(early_out="grad", with_disp=False, with_warped=True)
+    out = fr.warp_composite_fwd(tex16, rx, ry, q, scal, **kw)
+    ref = fr.warp_composite_fwd_ref(tex16, rx, ry, q, scal, **kw)
+    torch.cuda.synchronize()
+    n_l = scal.shape[1]
+    planes = torch.arange(n_l, device=rx.device).reshape(1, n_l, 1, 1, 1)
+    both = planes < torch.minimum(out[-1], ref[-1])[:, None, None]
+    errs = [float((a - b).abs().max()) for a, b in zip(out[:3], ref[:3])]
+    errs.append(float(torch.where(both, out[3] - ref[3], 0.0).abs().max()))
+    moved = float((out[-1] != ref[-1]).float().mean())
+    step = int((out[-1] - ref[-1]).abs().max())
+    log(f"fused_fwd bf16 training form vs plain [{label}]: max abs err {max(errs):.3e} "
+        f"(color, depth, trans, residual {['%.2e' % e for e in errs]}); n_live moved on "
+        f"{moved:.2e} of pixels, by at most {step}")
+    if not (all(e <= TOL for e in errs) and step <= 1 and moved <= 1e-4):
+        raise RuntimeError(f"fused_fwd bf16 training form [{label}] disagrees with its plain "
+                           f"version: {errs}, n_live moved {moved} by {step}")
+    return max(errs)
+
+
+def check_bf16_edges(fr, cam, poses, cfg, dev):
+    """K1's bf16 form against its bf16 plain version at phase 2e's edge shapes
+    (the unaligned slab takes the kernel's texel-by-texel copy), every
+    ``early_out`` mode, with the residual; 1e-4 absolute on real rays."""
+    n_v, n_l = 3, 9
+    geom = dataclasses.replace(
+        cfg, planes=dataclasses.replace(cfg.planes, n_planes=n_l)).plane_geometry(device=dev)
+    c2w, _, _ = poses.sample_sphere_poses(
+        None, n_v, cfg.camera, given_yaws=torch.tensor([[0.5], [-0.3], [0.0]]),
+        given_pitches=torch.tensor([[0.2], [-0.25], [0.1]]), device=dev)
+    gen = torch.Generator(device=dev).manual_seed(15)
+    err = 0.0
+    for label, (h, w), (th, tw), tweak in EDGE_CASES:
+        ray_dir, eye, z_dir = cam.generate_rays(cam.intrinsics_from_fov(cfg.fov_deg, h, w), c2w)
+        scal = fr.plane_affine(geom.dhw, eye, th, tw).contiguous()
+        rx, ry, q = (x.contiguous() for x in fr.ray_fields(ray_dir, z_dir))
+        if tweak == "outside":
+            scal[..., 1] += 1e4
+        if tweak == "nan":
+            rx[0, 5, 7] = ry[0, 5, 7] = float("nan")
+        real = torch.isfinite(rx) & torch.isfinite(ry)
+        uniform = torch.rand((n_v, n_l + 4, 4, th, tw), device=dev, generator=gen)
+        sparse = uniform.clone()
+        sparse[:, :, 3] *= 0.05
+        opaque_mid = sparse.clone()
+        opaque_mid[:, 5:8, 3] = 1.0
+        case_err = 0.0
+        for stack in (uniform, sparse, opaque_mid):
+            parent = stack.to(torch.bfloat16)
+            tex = unaligned_copy(parent)[:, 2:2 + n_l] if tweak == "slab" else \
+                parent[:, 2:2 + n_l].contiguous()
+            for early_out in (False, True, "grad"):
+                kw = dict(early_out=early_out, with_disp=True, with_warped=early_out is not True)
+                out = fr.warp_composite_fwd(tex, rx, ry, q, scal, **kw)
+                ref = fr.warp_composite_fwd_ref(tex, rx, ry, q, scal, **kw)
+                torch.cuda.synchronize()
+                for a, b in zip(out[:4], ref[:4]):
+                    case_err = worse(case_err, float(torch.where(real[:, None], a - b,
+                                                                 0.0).abs().max()))
+                if early_out == "grad" and int(torch.where(real, out[-1] - ref[-1],
+                                                           0).abs().max()) > 1:
+                    raise RuntimeError(f"fused_fwd bf16 [{label}]: n_live moved by more "
+                                       f"than one plane")
+        log(f"fused_fwd bf16 vs plain at the edge [{label}: image {h}x{w}, texture {th}x{tw}]: "
+            f"max abs err {case_err:.3e} over 3 stacks x 3 early_out modes")
+        if not case_err <= TOL:
+            raise RuntimeError(f"fused_fwd bf16 [{label}] disagrees with its plain version")
+        err = worse(err, case_err)
+    return err
+
+
+def bf16_phase(fr, cfg, card, chip, dev, fp32_step):
+    """Phase 12a: K1's bf16-texture form on the card: against its bf16 plain
+    version at the serving and training shapes on the three stacks and at the
+    edges; the bf16 render against the fp32 render; K1 bf16 and fp32 timed in
+    turns with their bounds; ``BF16_STEPS`` train steps with
+    ``fused_compute_dtype="bf16"`` beside phase 4's fp32 step (``fp32_step``),
+    their launches and the ``rgba`` gradient against the fp32 route's.
+    Returns the phase's record; raises on a failed check."""
+    from gmpi_tpu_torch.core import camera as cam
+    from gmpi_tpu_torch.core import poses
+    from gmpi_tpu_torch.core.renderer import render_mpi_fused
+    from gmpi_tpu_torch.eval.harness import FakeImageGenerator
+    from gmpi_tpu_torch.models.generator import Generator
+    from gmpi_tpu_torch.train import flat_pose_from_c2w, init_train_state, make_train_step
+    from gmpi_tpu_torch.utils.roofline import attained, render_cost
+
+    bf = torch.bfloat16
+    rates = card_rates(chip)
+    n_planes, res, n_train = cfg.eval_n_planes, cfg.resolution, cfg.planes.n_planes
+    c, k = cfg.camera, cfg.camera.n_truncated_stds
+    intr = cam.intrinsics_from_fov(cfg.fov_deg, res, res)
+    geom = dataclasses.replace(cfg, planes=dataclasses.replace(
+        cfg.planes, n_planes=n_planes)).plane_geometry(device=dev)
+    geom_train = cfg.plane_geometry(device=dev)
+
+    def rays_at(yaws, pitches):
+        c2w, _, _ = poses.sample_sphere_poses(None, len(yaws), c, given_yaws=yaws,
+                                              given_pitches=pitches, device=dev)
+        return cam.generate_rays(intr, c2w)
+
+    record = {"max_abs_err": 0.0}
+    # serving shapes: 4 views x 96 planes, inference form; the bf16 render against fp32
+    yaws = torch.tensor([[k * c.yaw_std], [-k * c.yaw_std], [k * c.yaw_std], [0.0]])
+    pitches = torch.tensor([[k * c.pitch_std], [-k * c.pitch_std], [-k * c.pitch_std], [0.0]])
+    rays = fused_inputs(fr, geom.dhw, *rays_at(yaws, pitches), res)
+    vs_fp32 = 0.0
+    for case, tex in three_stacks(4, n_planes, res, dev, seed=20):
+        tex16 = tex.to(bf)
+        for with_disp in (False, True):
+            record["max_abs_err"] = worse(record["max_abs_err"], check_inference_form(
+                fr, f"bf16 {case}, V=4, L={n_planes}", tex16, *rays, with_disp))
+        out16 = fr.warp_composite_fwd(tex16, *rays)
+        out32 = fr.warp_composite_fwd(tex, *rays)
+        vs_fp32 = worse(vs_fp32, max(float((a - b).abs().max()) for a, b in zip(out16, out32)))
+        del tex, tex16, out16, out32
+    log(f"fused_fwd bf16 render vs the fp32 render of the same stacks: max abs diff "
+        f"{vs_fp32:.3e} (gate {BF16_RENDER_GATE})")
+    if not vs_fp32 <= BF16_RENDER_GATE:
+        raise RuntimeError("the bf16 render strays from the fp32 render")
+    record["bf16_vs_fp32_max_abs_diff"] = vs_fp32
+    # training shapes: 8 views x 32 planes, training form and the D phase's inference form
+    sy, sp = k * c.yaw_std, k * c.pitch_std
+    yaws = torch.tensor([[sy], [-sy], [sy], [-sy], [0.0], [sy], [0.0], [-sy]])
+    pitches = torch.tensor([[sp], [-sp], [-sp], [sp], [0.0], [0.0], [sp], [0.0]])
+    rays_t = fused_inputs(fr, geom_train.dhw, *rays_at(yaws, pitches), res)
+    for case, tex in three_stacks(8, n_train, res, dev, seed=21):
+        tex16 = tex.to(bf)
+        e = check_bf16_training_form(fr, f"{case}, V=8, L={n_train}", tex16, *rays_t)
+        e = worse(e, check_inference_form(fr, f"bf16 {case}, V=8, L={n_train}", tex16, *rays_t,
+                                          False))
+        record["max_abs_err"] = worse(record["max_abs_err"], e)
+        del tex, tex16
+    record["max_abs_err"] = worse(record["max_abs_err"], check_bf16_edges(fr, cam, poses, cfg,
+                                                                           dev))
+    torch.cuda.empty_cache()
+
+    # K1 bf16 and fp32 in turns at the serving path's inputs (phase 3's first MPI)
+    gen = FakeImageGenerator(cfg, Generator(cfg.generator_cfg(),
+                                            generator=torch.Generator().manual_seed(0)),
+                             use_fused=True, device=dev)
+    mpi = gen.sample_mpi(0)
+    yv, pv = gen.sample_views(0, 4)
+    mpi_v = mpi.expand(4, -1, -1, -1, -1)
+    rays = fused_inputs(fr, geom.dhw, *rays_at(yv, pv), res)
+    mpi16 = fr.cast_texture(mpi_v, bf)
+    record["max_abs_err"] = worse(record["max_abs_err"], check_inference_form(
+        fr, "bf16 serving main path's MPI, V=4", mpi16, *rays, True))
+    with torch.no_grad():
+        turns = [time_ms(lambda t=t: fr.warp_composite_fwd(t, *rays))
+                 for t in (mpi_v, mpi16, mpi16, mpi_v)]
+        plain16 = time_ms(lambda: fr.warp_composite_fwd_ref(mpi16, *rays), iters=5, warmup=1)
+    texels, pairs = needed_work(fr, mpi_v, *rays[:2], rays[3])
+    texels16, pairs16 = needed_work(fr, mpi16, *rays[:2], rays[3])
+    n_pix = rays[0].numel()
+    other = 3 * n_pix * 4 + rays[3].numel() * 4 + 6 * n_pix * 4  # rays, scal, outputs
+    b32 = bound(texels * 16 + other, FLOP_PER_PAIR["fused_fwd"] * pairs, rates)
+    b16 = bound(texels16 * 8 + other, FLOP_PER_PAIR["fused_fwd"] * pairs16, rates)
+    # phase 11's model bound, one stack read once for its 4 views: 2 bytes a texel read
+    model = {name: attained(min(turns[1:3] if tbe == 2 else (turns[0], turns[3])) / 1e3,
+                            render_cost(4, n_planes, res, res, res, res,
+                                        patch_overread=0.25, tex_bytes_per_el=tbe), chip)
+             for name, tbe in (("bf16", 2), ("fp32", 4))}
+    log(f"fused_fwd in turns at the serving inputs (fp32, bf16, bf16, fp32): "
+        f"{['%.4f' % t for t in turns]} ms; bf16 needs {texels16 * 8 + other} B "
+        f"({pairs16} live pairs), bound {b16[0]:.5f} ms by {b16[1]}; fp32 needs "
+        f"{texels * 16 + other} B, bound {b32[0]:.5f} ms; bf16 plain {plain16:.3f} ms; "
+        f"render_cost bound bf16 {model['bf16']['speed_of_light_s'] * 1e3:.5f} ms by "
+        f"{model['bf16']['bound']} ({model['bf16']['sol_fraction']:.1%}), fp32 "
+        f"{model['fp32']['speed_of_light_s'] * 1e3:.5f} ms ({model['fp32']['sol_fraction']:.1%}) "
+        f"({card})")
+    record.update(ms=min(turns[1:3]), fp32_ms=min(turns[0], turns[3]), turns_ms=turns,
+                  plain_ms=plain16, bound_ms=b16[0], bound_by=b16[1], fp32_bound_ms=b32[0],
+                  render_cost_share={k: v["sol_fraction"] for k, v in model.items()})
+    del gen, mpi, mpi_v, mpi16
+    torch.cuda.empty_cache()
+
+    # train steps with bf16 textures beside phase 4's fp32 step
+    cfg16 = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train,
+                                                               fused_compute_dtype="bf16"))
+    state = init_train_state(cfg16, torch.Generator().manual_seed(0), device=dev)
+    step = make_train_step(cfg16, device=dev)
+    bs, split = cfg.hparams.batch_size, cfg.hparams.batch_split
+    data = torch.Generator().manual_seed(1)
+    real = (torch.rand((bs, 3, res, res), generator=data) * 2.0 - 1.0).to(dev)
+    real_c2w, _, _ = poses.sample_sphere_poses(data, bs, c, device=dev)
+    real_pose = flat_pose_from_c2w(real_c2w, cfg.train.d_cond_pose_dim)
+    rng = torch.Generator().manual_seed(2)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(fr)
+    step_ms, metrics = [], []
+    for _ in range(BF16_STEPS - 1):
+        (_, m), ms = host_ms(lambda: step(state, real, real_pose, rng))
+        step_ms.append(ms)
+        metrics.append(m)
+    (dm, _), d_ms = host_ms(lambda: step.d_phase(state, real, real_pose, rng))
+    (gm, _), g_ms = host_ms(lambda: step.g_phase(state, bs, rng))
+    state.step += 1
+    metrics.append({**dm, **gm})
+    launches = dict(fr.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    expected = {**dict.fromkeys(fr.LAUNCHES, 0), "fused_fwd": 3 * BF16_STEPS,
+                "composite_bwd": split * BF16_STEPS, "splat": split * BF16_STEPS}
+    if launches != expected:
+        raise RuntimeError(f"bf16 train steps launched {launches}, expected {expected}")
+    for i, m in enumerate(metrics):
+        vals = {key: float(val) for key, val in m.items()}
+        if not all(x == x and abs(x) != float("inf") for x in vals.values()):
+            raise RuntimeError(f"bf16 step {i}: non-finite metric {vals}")
+    log(f"bf16 train steps ({BF16_STEPS}, fused_compute_dtype='bf16'): launches {launches}; "
+        f"step ms {['%.1f' % x for x in step_ms]}, by phase D {d_ms:.1f} G {g_ms:.1f}; peak "
+        f"{peak:.2f} GB; phase 4's fp32 step: median {fp32_step['ms']:.1f} ms, D "
+        f"{fp32_step['d_ms']:.1f} G {fp32_step['g_ms']:.1f}, peak {fp32_step['peak_gb']:.2f} "
+        f"GB ({card})")
+    # the rgba gradient of the bf16 route against the fp32 route's
+    z = torch.randn((bs, cfg.train.z_dim), generator=rng).to(dev)
+    with torch.no_grad():
+        mpi = step.synth(state.G, z, rng)
+    yv, pv = step.sample_views(rng, bs)
+    ray_dir, eye, z_dir = rays_at(yv, pv)
+    cot = torch.randn((bs, 3, res, res), device=dev,
+                      generator=torch.Generator(device=dev).manual_seed(3))
+    grads = []
+    for cd in (None, bf):
+        x = mpi.clone().requires_grad_()
+        out = render_mpi_fused(x, geom_train.dhw, ray_dir, eye, z_dir, with_disp=False,
+                               compute_dtype=cd)
+        grads.append(torch.autograd.grad((out.color * cot).sum(), x)[0])
+    err_g = rel_err(grads[1], grads[0])
+    log(f"bf16 route's rgba gradient (fp32 backward on the bf16 forward's residual) vs the fp32 "
+        f"route's: {err_g:.3e} of max|grad| (gate {BF16_RENDER_GATE}); dtype {grads[1].dtype}")
+    if not (err_g <= BF16_RENDER_GATE and grads[1].dtype == torch.float32):
+        raise RuntimeError("the bf16 route's gradient strays from the fp32 route's")
+    record.update(train_launches=launches, step_ms=step_ms, d_ms=d_ms, g_ms=g_ms, peak_gb=peak,
+                  fp32_step=fp32_step, grad_vs_fp32=err_g)
+    del state, step, mpi, grads, x, out
+    torch.cuda.empty_cache()
+    return record
+
+
+# -- phase 12b: ranks on the one card ---------------------------------------------------
+
+
+def _spawn_ranks(job, world, work, env=None):
+    """Run ``job`` in ``world`` processes of this script (``--rank``); every
+    rank's result.  A rank that fails, hangs past ``RANK_TIMEOUT`` or writes
+    no result fails the phase; every process is stopped before returning."""
+    import os
+
+    env = dict(os.environ, **(env or {}))
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(sys.argv[0]), "--rank", job,
+                               str(r), str(world), work], env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True) for r in range(world)]
+    outs = []
+    try:
+        deadline = time.time() + RANK_TIMEOUT
+        for p in procs:
+            outs.append(p.communicate(timeout=max(1.0, deadline - time.time()))[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    results = []
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        for line in out.splitlines():
+            log(f"  [{job} rank {r}/{world}] {line}")
+        path = os.path.join(work, f"{job}_{r}.json")
+        if p.returncode != 0 or not os.path.exists(path):
+            raise RuntimeError(f"{job}: rank {r} of {world} exited {p.returncode}")
+        with open(path) as f:
+            results.append(json.load(f))
+    return results
+
+
+def ranks_phase(fr, card, dev):
+    """Phase 12b: ranks sharing the one card over ``gloo`` (every rank on
+    ``cuda:0``; two ranks on one card measure correctness and per-rank cost,
+    not scaling), and one rank in an NCCL group.  Returns the phase's record
+    with the launches every rank made; raises if any rank failed."""
+    import os
+    import shutil
+    import socket
+    import tempfile
+
+    from gmpi_tpu_torch.config import get_config
+
+    cfg = get_config("FFHQ256")
+    work = tempfile.mkdtemp(prefix="chip_smoke_ranks_")
+    try:
+        t0 = time.perf_counter()
+        two = _spawn_ranks("sharded", 2, work)
+        four = _spawn_ranks("render4", 4, work)
+        zpath, pose_dir = write_ffhq_dataset(work, 20, cfg.resolution, seed=9)
+        s = socket.socket()
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+        s.close()
+        cli = _spawn_ranks("cli", 2, work, env={"MASTER_ADDR": "localhost",
+                                                "MASTER_PORT": str(port),
+                                                "CHIP_SMOKE_DATA": f"{zpath}:{pose_dir}"})
+        nccl = _spawn_ranks("nccl", 1, work)
+        seconds = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    # the CLI run: disjoint shards, rank 0 alone saved, the same parameters
+    idx = [r["shard"][3] for r in cli]
+    # 19 images in 2 shards of 10: disjoint but for the one padding sample
+    if (len(set(idx[0]) | set(idx[1])) != 19 or len(idx[0]) + len(idx[1]) != 20
+            or [r["shard"][:3] for r in cli] != [[i, 2, cfg.hparams.batch_size // 2]
+                                                 for i in (0, 1)]):
+        raise RuntimeError(f"CLI ranks' shards are not disjoint shares: {[r['shard'] for r in cli]}")
+    if cli[0]["saves"] != 1 or cli[1]["saves"] != 0 or cli[0]["digest"] != cli[1]["digest"]:
+        raise RuntimeError(f"CLI ranks: saves {[r['saves'] for r in cli]}, digests "
+                           f"{[r['digest'] for r in cli]}")
+    log(f"ranks on the one card: 2 + 4 + 2 + 1 processes in {seconds:.1f} s ({card}; ranks "
+        f"share the card: correctness and per-rank cost, not scaling)")
+    launches = dict.fromkeys(fr.LAUNCHES, 0)
+    for r in two + four + cli + nccl:
+        for key, n in r["launches"].items():
+            launches[key] += n
+    return {"sharded2": two, "render4": four, "cli2": cli, "nccl1": nccl,
+            "launches": launches, "seconds": seconds}
+
+
+def _rank_renders(mesh_p, mesh_t, mesh_pt, dev, gates, record, fr):
+    """The sharded renders of one rank at the serving shapes (4 views x 96
+    planes of 256^2, FFHQ256 geometry, the same seeded stack on every rank)
+    against ``render_mpi_fused`` in this process: 5e-4; the plane-sharded
+    ``rgba`` gradient against the single process's: 1e-3 of max|grad|.
+    Counts each render's launches."""
+    from gmpi_tpu_torch.config import get_config
+    from gmpi_tpu_torch.core import camera as cam
+    from gmpi_tpu_torch.core import bands as bands_mod
+    from gmpi_tpu_torch.core import poses
+    from gmpi_tpu_torch.core.renderer import make_fused_slab_renderer, render_mpi_fused
+    from gmpi_tpu_torch.parallel import render as pr
+
+    cfg = get_config("FFHQ256")
+    n_planes, res = cfg.eval_n_planes, cfg.resolution
+    geom = dataclasses.replace(cfg, planes=dataclasses.replace(
+        cfg.planes, n_planes=n_planes)).plane_geometry(device=dev)
+    k = cfg.camera.n_truncated_stds
+    yaws = torch.tensor([[k * 0.289], [-k * 0.289], [0.1], [0.0]])
+    pitches = torch.tensor([[k * 0.127], [-0.1], [-k * 0.127], [0.0]])
+    c2w, _, _ = poses.sample_sphere_poses(None, 4, cfg.camera, given_yaws=yaws,
+                                          given_pitches=pitches, device=dev)
+    rays = cam.generate_rays(cam.intrinsics_from_fov(cfg.fov_deg, res, res), c2w)
+    g = torch.Generator(device=dev).manual_seed(30)
+    rgba = torch.rand((4, n_planes, 4, res, res), device=dev, generator=g)
+    rgba[:, :, 3] *= 0.1
+    cot = torch.randn((4, 3, res, res), device=dev, generator=g)
+    with torch.no_grad():
+        ref = render_mpi_fused(rgba, geom.dhw, *rays, with_disp=False)
+    bands = tuple(bands_mod.bands_for_config(cfg, img_size=res, n_planes=n_planes)[:2])
+    slab = make_fused_slab_renderer()
+
+    def fused(r, d, rd, e, z):
+        return render_mpi_fused(r, d, rd, e, z, with_disp=False)
+
+    cases = {}
+    if mesh_p is not None:
+        cases["plane_fused"] = lambda x: pr.render_mpi_plane_sharded(
+            mesh_p, x, geom.dhw, *rays, slab_fn=slab)
+        cases["pipelined_fused"] = lambda x: pr.render_mpi_plane_sharded_pipelined(
+            mesh_p, x, geom.dhw, *rays, n_sub=2, slab_fn=slab)
+    if mesh_t is not None:
+        cases["tile_fused"] = lambda x: pr.render_mpi_tile_sharded(
+            mesh_t, x, geom.dhw, *rays, render_fn=fused)
+        cases["tile_banded"] = lambda x: pr.render_mpi_tile_sharded(
+            mesh_t, x, geom.dhw, *rays, tiled_bands=bands, patch_backend="cuda")
+    if mesh_pt is not None:
+        cases["plane_tile_fused"] = lambda x: pr.render_mpi_plane_tile_sharded(
+            mesh_pt, x, geom.dhw, *rays, slab_fn=slab)
+        cases["plane_tile_banded"] = lambda x: pr.render_mpi_plane_tile_sharded(
+            mesh_pt, x, geom.dhw, *rays, tiled_bands=bands, patch_backend="cuda")
+    for name, fn in cases.items():
+        reset_counts(fr)
+        with torch.no_grad():
+            out, ms = host_ms(lambda: fn(rgba))
+        err = max(float((out.color - ref.color).abs().max()),
+                  float((out.depth - ref.depth).abs().max()))
+        record["renders"][name] = {"err": err, "ms": ms, "launches": dict(fr.LAUNCHES)}
+        for key, n in fr.LAUNCHES.items():
+            record["launches"][key] += n
+        if not err <= gates[0]:
+            raise RuntimeError(f"{name}: {err} from the single-process render")
+    # the rgba gradient of the plane-sharded (or plane x tile) fused render
+    name, fn = next((n, f) for n, f in cases.items() if n.startswith("plane"))
+    grads = []
+    reset_counts(fr)
+    for render in (fn, lambda x: render_mpi_fused(x, geom.dhw, *rays, with_disp=False)):
+        x = rgba.clone().requires_grad_()
+        grads.append(torch.autograd.grad((render(x).color * cot).sum(), x)[0])
+    for key, n in fr.LAUNCHES.items():
+        record["launches"][key] += n
+    err_g = rel_err(grads[0], grads[1])
+    record["grad"] = {"case": name, "rel_err": err_g}
+    if not err_g <= gates[1]:
+        raise RuntimeError(f"{name}: rgba gradient {err_g} of max from the single process's")
+
+
+def _rank_job(job, rank, world, work):
+    """One rank of phase 12b (``python3 chip_smoke.py --rank <job> <rank>
+    <world> <dir>``): joins the group, runs ``job``, writes its JSON result."""
+    import os
+
+    import torch.distributed as dist
+
+    from gmpi_tpu_torch.ops import fused_render as fr
+    from gmpi_tpu_torch.parallel import mesh as mesh_mod
+    from gmpi_tpu_torch.parallel.mesh import Mesh
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device(RANK_DEVICE)
+    torch.cuda.set_device(dev)
+    record = {"rank": rank, "world": world, "renders": {},
+              "launches": dict.fromkeys(fr.LAUNCHES, 0)}
+    gates = (5e-4, GRAD_REL)
+    if job == "cli":
+        record.update(_rank_cli(rank, world, work, fr))
+    else:
+        backend = "nccl" if job == "nccl" else "gloo"
+        dist.init_process_group(backend, init_method=f"file://{work}/{job}.rendezvous",
+                                rank=rank, world_size=world)
+        try:
+            if job == "sharded":
+                _rank_renders(Mesh([2], ("plane",), dev), Mesh([2], ("tile",), dev), None, dev,
+                              gates, record, fr)
+                record.update(_rank_train(dev, fr, record))
+            elif job == "render4":
+                _rank_renders(None, None, Mesh([2, 2], ("plane", "tile"), dev), dev, gates,
+                              record, fr)
+            else:  # one rank in an NCCL group: every collective on device tensors
+                before = mesh_mod.COLLECTIVE_BYTES["bytes"]
+                # a mesh's axis of one has no group; these are the world of one, so
+                # that every gather and reduce of the sharded calls goes through NCCL
+                one = types.SimpleNamespace(group=lambda axis: dist.group.WORLD)
+                _rank_renders(one, one, None, dev, gates, record, fr)
+                record["backend"] = dist.get_backend()
+                record["collective_bytes"] = mesh_mod.COLLECTIVE_BYTES["bytes"] - before
+                if record["backend"] != "nccl" or record["collective_bytes"] == 0:
+                    raise RuntimeError(f"no NCCL collective was made: {record}")
+        finally:
+            dist.destroy_process_group()
+    with open(os.path.join(work, f"{job}_{rank}.json"), "w") as f:
+        json.dump(record, f)
+    print(json.dumps({k: v for k, v in record.items() if k != "launches"}), flush=True)
+    return 0
+
+
+def _rank_train(dev, fr, record):
+    """``RANK_STEPS`` train steps of the full FFHQ256 preset with
+    ``renderer_plane_shards=2`` on this rank: step ms, peak GB, bytes handed
+    to collectives a step, and ``check_replica_consistency(atol=0)`` over G,
+    D, both EMAs and both Adam states after each step."""
+    from gmpi_tpu_torch.config import get_config
+    from gmpi_tpu_torch.core import poses
+    from gmpi_tpu_torch.parallel import mesh as mesh_mod
+    from gmpi_tpu_torch.parallel.mesh import replicate
+    from gmpi_tpu_torch.train import flat_pose_from_c2w, init_train_state, make_train_step
+    from gmpi_tpu_torch.train.loop import make_train_mesh
+    from gmpi_tpu_torch.train.step import state_tensors
+    from gmpi_tpu_torch.utils.inspect import check_replica_consistency
+
+    cfg = get_config("FFHQ256")
+    cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, renderer_plane_shards=2))
+    mesh = make_train_mesh(cfg, dev)
+    state = init_train_state(cfg, torch.Generator().manual_seed(0), device=dev)
+    for part in (state.G, state.D, state.ema, state.ema2):
+        replicate(mesh, part)
+    step = make_train_step(cfg, device=dev, mesh=mesh)
+    bs, res = cfg.hparams.batch_size, cfg.resolution
+    data = torch.Generator().manual_seed(1)
+    real = (torch.rand((bs, 3, res, res), generator=data) * 2.0 - 1.0).to(dev)
+    real_c2w, _, _ = poses.sample_sphere_poses(data, bs, cfg.camera, device=dev)
+    real_pose = flat_pose_from_c2w(real_c2w, cfg.train.d_cond_pose_dim)
+    rng = torch.Generator().manual_seed(2)
+    torch.cuda.reset_peak_memory_stats(dev)
+    out = {"step_ms": [], "bytes_a_step": [], "metrics": [], "replica_checks": 0}
+    reset_counts(fr)
+    for _ in range(RANK_STEPS):
+        before = mesh_mod.COLLECTIVE_BYTES["bytes"]
+        (_, metrics), ms = host_ms(lambda: step(state, real, real_pose, rng))
+        out["bytes_a_step"].append(mesh_mod.COLLECTIVE_BYTES["bytes"] - before)
+        out["step_ms"].append(ms)
+        out["metrics"].append({k: float(v) for k, v in metrics.items()})
+        check_replica_consistency(state_tensors(state), atol=0.0)
+        out["replica_checks"] += 1
+    out["train_launches"] = dict(fr.LAUNCHES)
+    for key, n in fr.LAUNCHES.items():
+        record["launches"][key] += n
+    out["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    for m in out["metrics"]:
+        if not all(x == x and abs(x) != float("inf") for x in m.values()):
+            raise RuntimeError(f"non-finite metric {m}")
+    split = cfg.hparams.batch_split
+    want = {"fused_fwd": 3 * RANK_STEPS, "composite_bwd": split * RANK_STEPS,
+            "splat": split * RANK_STEPS}
+    if {k: out["train_launches"][k] for k in want} != want:
+        raise RuntimeError(f"plane-sharded steps launched {out['train_launches']}, want {want}")
+    return {"train": out}
+
+
+def _rank_cli(rank, world, work, fr):
+    """This rank of ``train_gmpi_torch.main --multihost --dist_backend gloo
+    --device cuda:0``: data-parallel FFHQ256 (global batch 8, 4 a rank), 2
+    steps on the phase's dataset; its loader shard, its checkpoint saves,
+    its metrics and step ms, and the replicas checked after training."""
+    import hashlib
+    import os
+
+    import torch.distributed as dist
+
+    import train_gmpi_torch
+    from gmpi_tpu_torch.data import loader as loader_mod
+    from gmpi_tpu_torch.train import loop as loop_mod
+    from gmpi_tpu_torch.train.loop import LoopStats
+    from gmpi_tpu_torch.train.step import state_tensors
+    from gmpi_tpu_torch.utils.inspect import check_replica_consistency
+
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank))
+    zpath, pose_dir = os.environ["CHIP_SMOKE_DATA"].split(":")
+    saves, shards = [], []
+    real_save, real_init = loop_mod.save_checkpoint, loader_mod.ShardedLoader.__init__
+
+    def counted_save(*a, **kw):
+        saves.append(a[0])
+        return real_save(*a, **kw)
+
+    def recorded_init(self, *a, **kw):
+        real_init(self, *a, **kw)
+        shards.append([self.shard_id, self.num_shards, self.batch_size,
+                       [int(i) for i in self._epoch_indices(0)]])
+
+    loop_mod.save_checkpoint = counted_save
+    loader_mod.ShardedLoader.__init__ = recorded_init
+    reset_counts(fr)
+    stats = LoopStats()
+    state = train_gmpi_torch.main(
+        ["--dataset", "FFHQ256", "--data_root", zpath, "--pose_root", pose_dir,
+         "--output_dir", os.path.join(work, "cli_run"), "--multihost", "--dist_backend", "gloo",
+         "--device", RANK_DEVICE, "--total_iters", str(RANK_STEPS), "--seed", "5",
+         "--sample_interval", "1000", "--model_save_interval", "1000"], stats=stats)
+    launches = dict(fr.LAUNCHES)
+    dist.init_process_group("gloo", init_method=f"file://{work}/cli_check.rendezvous",
+                            rank=rank, world_size=world)
+    try:
+        check_replica_consistency(state_tensors(state), atol=0.0)
+    finally:
+        dist.destroy_process_group()
+    h = hashlib.sha256()
+    for k, v in sorted(state.G.state_dict().items()):
+        h.update(k.encode())
+        h.update(v.detach().cpu().numpy().tobytes())
+    if len(shards) != 1 or state.step != RANK_STEPS:
+        raise RuntimeError(f"CLI rank {rank}: {len(shards)} loaders, step {state.step}")
+    return {"shard": shards[0], "saves": len(saves), "digest": h.hexdigest(),
+            "step_ms": stats.step_ms, "metrics": stats.metrics, "launches": launches}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs a CUDA card",
@@ -2137,9 +2739,17 @@ def main() -> int:
     variants, k1_err = variants_phase(fr, cfg, card, chip, dev)
     max_err["fused_fwd"] = worse(max_err["fused_fwd"], k1_err)
 
+    # -- 12. bf16 textures in K1, and ranks on the one card --------------------------------
+    torch.cuda.empty_cache()
+    bf16 = bf16_phase(fr, cfg, card, chip, dev, {"ms": statistics.median(timed), "d_ms": d_ms,
+                                                  "g_ms": g_ms, "peak_gb": peak_gb})
+    max_err["fused_fwd"] = worse(max_err["fused_fwd"], bf16["max_abs_err"])
+    torch.cuda.empty_cache()
+    ranks = ranks_phase(fr, card, dev)
+
     main_paths = (serving_launches, train_launches, adjoint_launches, banded_launches,
                   loop["launches"], evaluation["launches"], viz["launches"],
-                  *variants["launches"].values())
+                  *variants["launches"].values(), bf16["train_launches"], ranks["launches"])
 
     def entry(kname, line, ms, plain_ms, b, library_ms, replaces="gmpi_tpu/ops/pallas_warp.py",
               **extra):
@@ -2156,7 +2766,11 @@ def main() -> int:
               train_launches=train_launches["fused_fwd"], train_form_ms=t_fwd_train,
               queued_ms=fwd_queued_ms,
               train_form_plain_ms=t_fwd_train_plain,
-              train_form_bound_ms=bounds["fused_fwd_train"][0], **no_grad_forms),
+              train_form_bound_ms=bounds["fused_fwd_train"][0], **no_grad_forms,
+              bf16_ms=bf16["ms"], bf16_plain_ms=bf16["plain_ms"], bf16_bound_ms=bf16["bound_ms"],
+              bf16_bound_by=bf16["bound_by"], bf16_turns_ms=bf16["turns_ms"],
+              bf16_max_abs_err=bf16["max_abs_err"],
+              bf16_launches=bf16["train_launches"]["fused_fwd"]),
         entry("composite_bwd", 2407, t_bwd, t_bwd_plain, bounds["composite_bwd"], None,
               also_replaces="gmpi_tpu/ops/pallas_warp.py:2295", queued_ms=t_bwd_queued),
         entry("splat", 1355, t_splat, t_splat_plain, bounds["splat"], t_splat_lib,
@@ -2174,7 +2788,7 @@ def main() -> int:
         "banded_peak_gb": peak_banded, "banded_chunked_peak_gb": peak_chunked,
         "serving_gather_ms": serving_gather_ms, "loop": loop,
         "eval": {**{k: v for k, v in evaluation.items() if k != "tasks"}, "viz": viz},
-        "variants": variants}
+        "variants": variants, "bf16": bf16, "ranks": ranks}
     log(json.dumps(record))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
@@ -2183,4 +2797,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--rank"]:  # one rank of phase 12b, spawned by ranks_phase
+        sys.exit(_rank_job(sys.argv[2], int(sys.argv[3]), int(sys.argv[4]), sys.argv[5]))
     sys.exit(main())

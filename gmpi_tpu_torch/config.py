@@ -7,12 +7,11 @@ reads ``total_iters``) read them.  ``generator_cfg()`` and
 ``discriminator_cfg()`` pass on every field the JAX package's pass on, and
 every generator variant of ``ModelPreset`` builds (``cond_mode``,
 ``embed_func``, ``pos_enc_multires``, ``only_alpha``, the background
-fields).  Every field acts (``renderer_plane_chunk`` and
-``debug_ray_check`` on the step's non-fused routes) except two kinds that
-raise ``NotImplementedError``: ``fused_compute_dtype`` in
-``make_train_step`` (bf16 textures in the fused kernels, ``ROADMAP`` Queue
-A4) and ``renderer_plane_shards`` / ``renderer_tile_shards`` > 1 in
-``train.loop.train`` (the sharded renderers, Queue A9).
+fields).  Every field acts: ``renderer_plane_chunk`` and
+``debug_ray_check`` on the step's non-fused routes, ``fused_compute_dtype``
+(``"bf16"``: bf16 textures in the fused forward) on its fused routes, and
+``renderer_plane_shards`` / ``renderer_tile_shards`` in the training mesh of
+``train.loop`` (the sharded renderers over ``torch.distributed`` ranks).
 """
 
 from __future__ import annotations

@@ -87,6 +87,15 @@ def finite_difference_normals(grid_3d: torch.Tensor) -> torch.Tensor:
     return normal / (torch.sqrt(torch.sum(normal**2, dim=3, keepdim=True)) + EPS)
 
 
+def light_pose_config(cfg: LightingConfig) -> poses_mod.SphereCameraConfig:
+    """The distribution the light's position is drawn from."""
+    return poses_mod.SphereCameraConfig(
+        sphere_center_z=cfg.sphere_center_z, sphere_r=cfg.sphere_r,
+        yaw_mean=cfg.l_h_mean, yaw_std=cfg.l_h_std,
+        pitch_mean=cfg.l_v_mean, pitch_std=cfg.l_v_std,
+        n_truncated_stds=2.0, sample_method="truncated_gaussian")
+
+
 def light_mpi(cfg: LightingConfig, mpi: torch.Tensor, dhw: torch.Tensor,
               xyz_last_plane: torch.Tensor, step: int,
               generator: Optional[torch.Generator] = None, light_yaws=None, light_pitches=None
@@ -99,12 +108,8 @@ def light_mpi(cfg: LightingConfig, mpi: torch.Tensor, dhw: torch.Tensor,
     rgb, alpha = mpi[:, :, :3], mpi[:, :, 3:]
     grid_3d = texel_point_cloud(alpha, dhw, xyz_last_plane, cfg.blur_ksize)
 
-    pose_cfg = poses_mod.SphereCameraConfig(
-        sphere_center_z=cfg.sphere_center_z, sphere_r=cfg.sphere_r,
-        yaw_mean=cfg.l_h_mean, yaw_std=cfg.l_h_std,
-        pitch_mean=cfg.l_v_mean, pitch_std=cfg.l_v_std,
-        n_truncated_stds=2.0, sample_method="truncated_gaussian")
-    c2w, _, _ = poses_mod.sample_sphere_poses(generator, bs, pose_cfg, given_yaws=light_yaws,
+    c2w, _, _ = poses_mod.sample_sphere_poses(generator, bs, light_pose_config(cfg),
+                                              given_yaws=light_yaws,
                                               given_pitches=light_pitches, device=mpi.device)
     sphere_center = torch.tensor([0.0, 0.0, cfg.sphere_center_z], device=mpi.device)
     light_dir = sphere_center[None] - c2w[:, :3, 3]

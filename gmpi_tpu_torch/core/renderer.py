@@ -18,7 +18,8 @@ Three paths with the reference renderer's semantics:
   :func:`render_mpi_fused_remat` renders slab by slab under
   ``torch.utils.checkpoint`` so that only one slab's residual is alive.
 
-All are float32; the UV grid and per-pixel depth carry no gradient (the
+All are float32, except that the fused path's forward may read bf16 textures
+(``compute_dtype=torch.bfloat16``); the UV grid and per-pixel depth carry no gradient (the
 reference computes them under ``no_grad``), so gradients reach plane RGBA
 only, on every path, unless :func:`render_mpi` is asked for
 ``stop_pose_grad=False``.
@@ -265,10 +266,20 @@ def render_mpi_chunked(rgba: torch.Tensor, dhw: torch.Tensor, ray_dir: torch.Ten
     return RenderOutput(color=carry[0], depth=carry[1], disp=carry[2] if with_disp else None)
 
 
-def _fused_inputs(rgba, dhw, ray_dir, eye_pos, z_dir):
-    """float32 texture stack and the kernels' contiguous ray and plane tables."""
-    if rgba.dtype != torch.float32:
-        rgba = rgba.float()
+def _compute_dtype(compute_dtype) -> Optional[torch.dtype]:
+    """The fused forward's texture dtype: None (float32) or torch.bfloat16."""
+    if compute_dtype in (None, torch.float32):
+        return None
+    if compute_dtype != torch.bfloat16:
+        raise ValueError(f"compute_dtype: expected None, torch.float32 or torch.bfloat16, "
+                         f"got {compute_dtype!r}")
+    return compute_dtype
+
+
+def _fused_inputs(rgba, dhw, ray_dir, eye_pos, z_dir, tex_dtype=torch.float32):
+    """The texture stack in ``tex_dtype`` and the kernels' contiguous ray and
+    plane tables."""
+    rgba = fused_render.cast_texture(rgba, tex_dtype)
     tex_h, tex_w = rgba.shape[-2], rgba.shape[-1]
     with torch.no_grad():
         scal = fused_render.plane_affine(dhw.float(), eye_pos.float(), tex_h, tex_w).contiguous()
@@ -278,16 +289,21 @@ def _fused_inputs(rgba, dhw, ray_dir, eye_pos, z_dir):
 
 
 def _fused_partials(rgba, dhw, ray_dir, eye_pos, z_dir, early_out: bool, with_disp: bool,
-                    grad_sparsity: bool, adjoint_bands=None) -> Tuple[torch.Tensor, ...]:
+                    grad_sparsity: bool, adjoint_bands=None, compute_dtype=None
+                    ) -> Tuple[torch.Tensor, ...]:
     """``(color, depth[, disp], trans)`` premultiplied partials: through
     ``FusedRender`` when a gradient is wanted (its backward's last stage the
     splat, or the texture-space adjoint given ``adjoint_bands``), else the
-    inference form of the forward kernel (no residual)."""
+    inference form of the forward kernel (no residual).  ``compute_dtype=
+    torch.bfloat16``: the forward reads a bf16 copy of the stack (one cast a
+    call); the gradient stays fp32."""
+    compute_dtype = _compute_dtype(compute_dtype)
     wants_grad = torch.is_grad_enabled() and rgba.requires_grad
-    rgba, rx, ry, q, scal = _fused_inputs(rgba, dhw, ray_dir, eye_pos, z_dir)
+    tex_dtype = torch.float32 if wants_grad or compute_dtype is None else compute_dtype
+    rgba, rx, ry, q, scal = _fused_inputs(rgba, dhw, ray_dir, eye_pos, z_dir, tex_dtype)
     if wants_grad:
         return fused_render.FusedRender.apply(rgba, rx, ry, q, scal, with_disp, grad_sparsity,
-                                              adjoint_bands)
+                                              adjoint_bands, compute_dtype)
     return fused_render.warp_composite_fwd(rgba, rx, ry, q, scal, early_out=early_out,
                                            with_disp=with_disp)
 
@@ -331,13 +347,19 @@ def _adjoint_bands_of(plans):
 
 def render_mpi_fused(rgba: torch.Tensor, dhw: torch.Tensor, ray_dir: torch.Tensor,
                      eye_pos: torch.Tensor, z_dir: torch.Tensor, plans=None,
-                     early_out: bool = True, with_disp: bool = True) -> RenderOutput:
+                     early_out: bool = True, with_disp: bool = True,
+                     compute_dtype: Optional[torch.dtype] = None) -> RenderOutput:
     """Render through the fused warp+composite kernels, differentiable in
     ``rgba``.
 
-    Same semantics as :func:`render_mpi` with align_corners=True, float32
-    throughout (a bf16 ``rgba`` is cast on the way in and its gradient back on
-    the way out); the gradient reaches ``rgba`` only.  ``rgba [V, L, 4, Th,
+    Same semantics as :func:`render_mpi` with align_corners=True.  Float32
+    unless ``compute_dtype=torch.bfloat16``: then the forward kernel reads a
+    bf16 copy of the textures (``rgba.to(torch.bfloat16)``, one cast a call)
+    with fp32 weights, sums and outputs, as the JAX package's ``compute_dtype``
+    does (~2e-3 of the fp32 render); the backward stays fp32 and the gradient
+    reaches ``rgba`` in its own dtype.  A bf16 ``rgba`` with the default is
+    cast to fp32 on the way in and its gradient back on the way out.  The
+    gradient reaches ``rgba`` only.  ``rgba [V, L, 4, Th,
     Tw]`` may be an ``expand`` of one MPI over views; without a gradient it
     may also hold ``S`` MPIs for ``V = S * k`` views, MPI ``n`` rendered into
     views ``n * k ... (n + 1) * k - 1`` and read once for all of them (with a
@@ -356,39 +378,45 @@ def render_mpi_fused(rgba: torch.Tensor, dhw: torch.Tensor, ray_dir: torch.Tenso
     ``with_disp=False`` leaves ``disp`` None.
     """
     outs = _fused_partials(rgba, dhw, ray_dir, eye_pos, z_dir, early_out, with_disp,
-                           grad_sparsity=True, adjoint_bands=_adjoint_bands_of(plans))
+                           grad_sparsity=True, adjoint_bands=_adjoint_bands_of(plans),
+                           compute_dtype=compute_dtype)
     return RenderOutput(color=outs[0], depth=outs[1], disp=outs[2] if with_disp else None)
 
 
-def make_fused_slab_renderer(with_disp: bool = False):
+def make_fused_slab_renderer(with_disp: bool = False,
+                             compute_dtype: Optional[torch.dtype] = None):
     """The fused renderer for one plane slab: ``fn(rgba_slab, dhw_slab,
     ray_dir, eye_pos, z_dir) -> (color_pre, depth_pre[, disp_pre], trans)``,
     the partials of :func:`render_slab_partial` for :func:`combine_segments`,
     differentiable in ``rgba_slab`` (``trans`` included).  Under autograd a
     slab processes every plane: what stands in front of it is not known to
-    it, so no occlusion rule applies, with or without autograd.  The JAX
-    factory's band and splat plans have no counterpart here."""
+    it, so no occlusion rule applies, with or without autograd.
+    ``compute_dtype`` as in :func:`render_mpi_fused`.  The JAX factory's band
+    and splat plans have no counterpart here."""
+    compute_dtype = _compute_dtype(compute_dtype)
 
     def fn(rgba, dhw, ray_dir, eye_pos, z_dir):
         return _fused_partials(rgba, dhw, ray_dir, eye_pos, z_dir, False, with_disp,
-                               grad_sparsity=False)
+                               grad_sparsity=False, compute_dtype=compute_dtype)
 
     return fn
 
 
 def render_mpi_fused_remat(rgba: torch.Tensor, dhw: torch.Tensor, ray_dir: torch.Tensor,
                            eye_pos: torch.Tensor, z_dir: torch.Tensor, plans=None,
-                           plane_chunk: int = 8, with_disp: bool = True) -> RenderOutput:
+                           plane_chunk: int = 8, with_disp: bool = True,
+                           compute_dtype: Optional[torch.dtype] = None) -> RenderOutput:
     """Memory-rematerialized fused render: slabs of ``plane_chunk`` planes
     render through the slab renderer under ``torch.utils.checkpoint`` and
     their partials combine front to back, so the backward holds one slab's
     residual and cotangents at a time; each slab's forward runs twice.
-    Semantics of :func:`render_mpi_fused`; ``plans`` accepted and unused
-    (``plane_chunk`` takes the place of the plan's chunks)."""
+    Semantics of :func:`render_mpi_fused` (``compute_dtype`` included);
+    ``plans`` accepted and unused (``plane_chunk`` takes the place of the
+    plan's chunks)."""
     del plans
     if plane_chunk < 1:
         raise ValueError(f"plane_chunk: expected >= 1, got {plane_chunk}")
-    slab = make_fused_slab_renderer(with_disp=with_disp)
+    slab = make_fused_slab_renderer(with_disp=with_disp, compute_dtype=compute_dtype)
     carry = None
     for lo in range(0, rgba.shape[1], plane_chunk):
         hi = lo + plane_chunk

@@ -58,7 +58,21 @@
 // The grid runs view by view: putting the views of one stack next to each
 // other in launch order was measured and changed nothing (the views of a
 // stack run close enough in time for the 50 MB L2 to serve the later ones).
+//
+// bf16 textures (the TPU kernel's compute_dtype=bfloat16, pallas_warp.py:683-741).
+// The kernel is a template on the texel type; the bf16 form is the same design
+// with half the bytes: a staged box holds bf16 (a 16-byte cp.async moves 8
+// texels, so a box's x origin is a multiple of 8; without 16-byte alignment each
+// texel is copied by a plain load), texels are widened with __bfloat162float at
+// the tap, and the arithmetic is the TPU kernel's under its bf16x3 contraction:
+// the x-hats are computed in fp32 and rounded to bf16 (the coordinates never
+// are), hx0 = bf16(1 - wx) and hx1 = bf16(1 - (1 - wx)) as 1 - |fx - i| gives
+// them, so each x product of two bf16 values is exact in fp32; the y-hats stay
+// fp32, hy0 = 1 - wy and hy1 = 1 - hy0, and the y contraction is rounded product
+// by product (no FMA), as the plain version computes it.  Outputs, residual and
+// composite are fp32 as in the fp32 form.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -67,18 +81,18 @@ namespace {
 constexpr int kTileW = 32;   // pixels of a block's tile along a row (= one warp)
 constexpr int kTileH = 8;
 constexpr int kThreads = kTileW * kTileH;
-constexpr int kBoxW = 48;    // staged texels per box row (a multiple of 4)
+constexpr int kBoxW = 48;    // staged texels per box row (a multiple of 8)
 constexpr int kBoxH = 16;
 constexpr int kGroup = 2;    // planes staged together
 constexpr int kStages = 2;
-constexpr int kChan = kBoxW * kBoxH;                 // floats of one channel tile
-constexpr int kStageFloats = kGroup * 4 * kChan;     // 6,144 floats = 24 KB a stage
+constexpr int kChan = kBoxW * kBoxH;                 // texels of one channel tile
+constexpr int kStageElems = kGroup * 4 * kChan;      // 6,144 texels: 24 KB (fp32) a stage
 constexpr float kEarlyOutT = 1e-6f;
 constexpr float kGradTau = 1e-7f;
 constexpr int kEarlyOutGrad = 2;
 enum BoxMode { kEmpty = 0, kStaged = 1, kDirect = 2 };
 
-__device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem) : "memory");
 }
@@ -88,18 +102,68 @@ __device__ __forceinline__ void cp_async4(float* smem, const float* gmem) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(gmem) : "memory");
 }
 
+// One texel into shared memory where 16-byte copies do not apply: a 4-byte
+// cp.async for fp32; a plain load and store for bf16 (2 bytes, below
+// cp.async's least size).
+__device__ __forceinline__ void copy_texel(float* smem, const float* gmem) { cp_async4(smem, gmem); }
+__device__ __forceinline__ void copy_texel(__nv_bfloat16* smem, const __nv_bfloat16* gmem) {
+  *smem = __ldg(gmem);
+}
+
+// Texel types: a texel widened to fp32, read through the read-only cache or
+// from shared memory.
+__device__ __forceinline__ float widen(float t) { return t; }
+__device__ __forceinline__ float widen(__nv_bfloat16 t) { return __bfloat162float(t); }
+__device__ __forceinline__ float ldg_texel(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float ldg_texel(const __nv_bfloat16* p) {
+  return __bfloat162float(__ldg(p));
+}
+
+// The bilinear weights of one tap box and their combine, by texel type.  fp32:
+// (1 - wx, wx), (1 - wy, wy), contracted freely.  bf16: the TPU kernel's bf16
+// hats (see the header).
+template <typename T>
+struct Lerp {
+  float hx0, hx1, hy0, hy1;
+  __device__ __forceinline__ Lerp(float wx, float wy)
+      : hx0(1.f - wx), hx1(wx), hy0(1.f - wy), hy1(wy) {}
+  __device__ __forceinline__ float operator()(float t00, float t01, float t10, float t11) const {
+    const float top = t00 * hx0 + t01 * hx1;
+    const float bot = t10 * hx0 + t11 * hx1;
+    return top * hy0 + bot * hy1;
+  }
+};
+
+template <>
+struct Lerp<__nv_bfloat16> {
+  float hx0, hx1, hy0, hy1;
+  __device__ __forceinline__ Lerp(float wx, float wy) {
+    const float r = 1.f - wx;
+    hx0 = __bfloat162float(__float2bfloat16_rn(r));
+    hx1 = __bfloat162float(__float2bfloat16_rn(1.f - r));
+    hy0 = 1.f - wy;
+    hy1 = 1.f - hy0;
+  }
+  __device__ __forceinline__ float operator()(float t00, float t01, float t10, float t11) const {
+    // x products are exact (bf16 x bf16); every rounding as the plain version's
+    const float top = __fadd_rn(__fmul_rn(t00, hx0), __fmul_rn(t01, hx1));
+    const float bot = __fadd_rn(__fmul_rn(t10, hx0), __fmul_rn(t11, hx1));
+    return __fadd_rn(__fmul_rn(top, hy0), __fmul_rn(bot, hy1));
+  }
+};
+
 // The four channels of the bilinear sample at (fx, fy) of a plane in device
 // memory whose real texels are [0, Tw) x [0, Th): zeros outside.  Comparisons
 // in float: no int overflow for far-off coordinates, and a NaN coordinate
 // fails them all (zeros).
-__device__ __forceinline__ void sample_direct(const float* __restrict__ tl, long long plane,
+template <typename T>
+__device__ __forceinline__ void sample_direct(const T* __restrict__ tl, long long plane,
                                               int Th, int Tw, float fx, float fy, float smp[4]) {
   const float x0f = floorf(fx);
   const float y0f = floorf(fy);
-  const float wx = fx - x0f;
-  const float wy = fy - y0f;
   smp[0] = smp[1] = smp[2] = smp[3] = 0.f;
   if (x0f >= -1.f && x0f <= (float)(Tw - 1) && y0f >= -1.f && y0f <= (float)(Th - 1)) {
+    const Lerp<T> lerp(fx - x0f, fy - y0f);
     const int x0 = (int)x0f;
     const int y0 = (int)y0f;
     const bool vx0 = x0 >= 0, vx1 = x0 + 1 <= Tw - 1;
@@ -107,14 +171,12 @@ __device__ __forceinline__ void sample_direct(const float* __restrict__ tl, long
     const long long r0 = (long long)y0 * Tw, r1 = r0 + Tw;
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
-      const float* tc = tl + c * plane;
-      const float t00 = (vy0 && vx0) ? __ldg(tc + r0 + x0) : 0.f;
-      const float t01 = (vy0 && vx1) ? __ldg(tc + r0 + x0 + 1) : 0.f;
-      const float t10 = (vy1 && vx0) ? __ldg(tc + r1 + x0) : 0.f;
-      const float t11 = (vy1 && vx1) ? __ldg(tc + r1 + x0 + 1) : 0.f;
-      const float top = t00 * (1.f - wx) + t01 * wx;
-      const float bot = t10 * (1.f - wx) + t11 * wx;
-      smp[c] = top * (1.f - wy) + bot * wy;
+      const T* tc = tl + c * plane;
+      const float t00 = (vy0 && vx0) ? ldg_texel(tc + r0 + x0) : 0.f;
+      const float t01 = (vy0 && vx1) ? ldg_texel(tc + r0 + x0 + 1) : 0.f;
+      const float t10 = (vy1 && vx0) ? ldg_texel(tc + r1 + x0) : 0.f;
+      const float t11 = (vy1 && vx1) ? ldg_texel(tc + r1 + x0 + 1) : 0.f;
+      smp[c] = lerp(t00, t01, t10, t11);
     }
   }
 }
@@ -161,9 +223,10 @@ __device__ __forceinline__ void composite(Pixel& px, const float smp[4], float d
   }
 }
 
+template <typename T>
 struct Args {
-  const float* tex;
-  long long stack_stride;  // floats between the stacks of two groups of views
+  const T* tex;
+  long long stack_stride;  // texels between the stacks of two groups of views
   const float* rx;
   const float* ry;
   const float* q;
@@ -178,8 +241,9 @@ struct Args {
   float eps;
 };
 
-template <bool kWithDisp>
-__device__ __forceinline__ void store_pixel(const Args& a, const Pixel& px, int v, long long pix) {
+template <typename T, bool kWithDisp>
+__device__ __forceinline__ void store_pixel(const Args<T>& a, const Pixel& px, int v,
+                                            long long pix) {
   const long long hw = (long long)a.H * a.W;
   const long long p = (long long)v * hw + pix;
   a.color[((long long)v * 3 + 0) * hw + pix] = px.c0;
@@ -195,27 +259,25 @@ __device__ __forceinline__ void store_pixel(const Args& a, const Pixel& px, int 
 // box holds every tap of every pixel of the block, real texels copied and the
 // texture's one-texel surround zero-filled, so the four taps are read without
 // bounds tests.  The pixel-level test is sample_direct's.
-__device__ __forceinline__ void sample_staged(const float* __restrict__ tile, int by0, int bx0,
+template <typename T>
+__device__ __forceinline__ void sample_staged(const T* __restrict__ tile, int by0, int bx0,
                                               int Th, int Tw, float fx, float fy, float smp[4]) {
   const float x0f = floorf(fx);
   const float y0f = floorf(fy);
-  const float wx = fx - x0f;
-  const float wy = fy - y0f;
   smp[0] = smp[1] = smp[2] = smp[3] = 0.f;
   if (x0f >= -1.f && x0f <= (float)(Tw - 1) && y0f >= -1.f && y0f <= (float)(Th - 1)) {
-    const float* t = tile + ((int)y0f - by0) * kBoxW + ((int)x0f - bx0);
+    const Lerp<T> lerp(fx - x0f, fy - y0f);
+    const T* t = tile + ((int)y0f - by0) * kBoxW + ((int)x0f - bx0);
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
-      const float* tc = t + c * kChan;
-      const float top = tc[0] * (1.f - wx) + tc[1] * wx;
-      const float bot = tc[kBoxW] * (1.f - wx) + tc[kBoxW + 1] * wx;
-      smp[c] = top * (1.f - wy) + bot * wy;
+      const T* tc = t + c * kChan;
+      smp[c] = lerp(widen(tc[0]), widen(tc[1]), widen(tc[kBoxW]), widen(tc[kBoxW + 1]));
     }
   }
 }
 
-template <bool kWithDisp>
-__global__ void __launch_bounds__(kThreads) fused_fwd_kernel(const Args a) {
+template <typename T, bool kWithDisp>
+__global__ void __launch_bounds__(kThreads) fused_fwd_kernel(const Args<T> a) {
   // [L, 6] plane table (slot 5: 1 / dscale) | [L] boxes (x0, y0, w | h << 16,
   // mode) | kStages x kGroup x 4 channel tiles
   extern __shared__ __align__(16) float s_mem[];
@@ -223,7 +285,8 @@ __global__ void __launch_bounds__(kThreads) fused_fwd_kernel(const Args a) {
   const int L = a.L;
   float* s_scal = s_mem;
   int4* s_box = reinterpret_cast<int4*>(s_mem + ((6 * L + 3) & ~3));
-  float* s_tiles = reinterpret_cast<float*>(s_box + L);
+  T* s_tiles = reinterpret_cast<T*>(s_box + L);
+  constexpr int kVec = 16 / sizeof(T);  // texels of one 16-byte copy
 
   const int v = blockIdx.z, ty = blockIdx.y, tx = blockIdx.x;
   const int tid = threadIdx.x;
@@ -243,7 +306,7 @@ __global__ void __launch_bounds__(kThreads) fused_fwd_kernel(const Args a) {
   const float qv = inside ? a.q[p] : 1.f;
   const float qinv = 1.0f / qv;
   const long long plane = (long long)a.Th * a.Tw;
-  const float* tv = a.tex + (long long)(v / a.views_per_stack) * a.stack_stride;
+  const T* tv = a.tex + (long long)(v / a.views_per_stack) * a.stack_stride;
   float* wv = a.warped ? a.warped + (long long)v * L * 4 * hw + pix : nullptr;
 
   // the tile's extreme ray coordinates; fminf / fmaxf drop a NaN
@@ -291,10 +354,10 @@ __global__ void __launch_bounds__(kThreads) fused_fwd_kernel(const Args a) {
         if (xa < xb && ya < yb) {  // else no pixel's taps reach [-1, Tw] x [-1, Th]
           int x0 = (int)xa, w = (int)xb - x0 + 1;
           const int y0 = (int)ya, h = (int)yb - y0 + 1;
-          if (a.vec) {  // 16-byte copies: whole groups of 4 texels, from -4 on
-            const int lead = (x0 + 4) & 3;
+          if (a.vec) {  // 16-byte copies: whole groups of kVec texels, from -kVec on
+            const int lead = (x0 + kVec) & (kVec - 1);
             x0 -= lead;
-            w = (w + lead + 3) & ~3;
+            w = (w + lead + kVec - 1) & ~(kVec - 1);
           }
           box = (w <= kBoxW && h <= kBoxH) ? make_int4(x0, y0, w | (h << 16), kStaged)
                                            : make_int4(0, 0, 0, kDirect);
@@ -306,14 +369,14 @@ __global__ void __launch_bounds__(kThreads) fused_fwd_kernel(const Args a) {
   __syncthreads();
 
   // Copies of group g into its stage.  A thread keeps one slot (row, column
-  // or group of 4 columns) of every channel tile, so the index arithmetic is
-  // per plane, not per copy.
+  // or group of kVec columns) of every channel tile, so the index arithmetic
+  // is per plane, not per copy.
   const int n_groups = (L + kGroup - 1) / kGroup;
-  const int per_row = a.vec ? kBoxW / 4 : kBoxW;
+  const int per_row = a.vec ? kBoxW / kVec : kBoxW;
   auto start_copies = [&](int g) {
-    float* dst = s_tiles + (g % kStages) * kStageFloats;
+    T* dst = s_tiles + (g % kStages) * kStageElems;
     for (int slot = tid; slot < kBoxH * per_row; slot += kThreads) {
-      const int r = slot / per_row, col = (slot % per_row) * (a.vec ? 4 : 1);
+      const int r = slot / per_row, col = (slot % per_row) * (a.vec ? kVec : 1);
 #pragma unroll
       for (int pl = 0; pl < kGroup; ++pl) {
         const int l = g * kGroup + pl;
@@ -321,19 +384,19 @@ __global__ void __launch_bounds__(kThreads) fused_fwd_kernel(const Args a) {
         const int4 box = s_box[l];
         if (box.w != kStaged || r >= (box.z >> 16) || col >= (box.z & 0xffff)) continue;
         const int y = box.y + r, x = box.x + col;
-        float* d = dst + pl * 4 * kChan + r * kBoxW + col;
+        T* d = dst + pl * 4 * kChan + r * kBoxW + col;
         if (y >= 0 && y < a.Th && x >= 0 && x < a.Tw) {
-          const float* src = tv + (long long)l * 4 * plane + (y * a.Tw + x);
+          const T* src = tv + (long long)l * 4 * plane + (y * a.Tw + x);
 #pragma unroll
           for (int c = 0; c < 4; ++c) {
             if (a.vec) cp_async16(d + c * kChan, src + c * plane);
-            else cp_async4(d + c * kChan, src + c * plane);
+            else copy_texel(d + c * kChan, src + c * plane);
           }
         } else {  // the surround reads as zeros
 #pragma unroll
           for (int c = 0; c < 4; ++c) {
             if (a.vec) *reinterpret_cast<float4*>(d + c * kChan) = make_float4(0.f, 0.f, 0.f, 0.f);
-            else d[c * kChan] = 0.f;
+            else d[c * kChan] = T(0.f);
           }
         }
       }
@@ -352,7 +415,7 @@ __global__ void __launch_bounds__(kThreads) fused_fwd_kernel(const Args a) {
     asm volatile("cp.async.wait_group 1;\n" ::: "memory");  // group g has landed
     __syncthreads();
     if (!px.done) {
-      const float* tiles = s_tiles + (g % kStages) * kStageFloats;
+      const T* tiles = s_tiles + (g % kStages) * kStageElems;
       const int l0 = g * kGroup;
       // the group's samples first: they do not depend on the composite, so
       // their loads are all in flight together
@@ -394,43 +457,60 @@ __global__ void __launch_bounds__(kThreads) fused_fwd_kernel(const Args a) {
     if (__syncthreads_and(px.done)) break;
   }
   asm volatile("cp.async.wait_all;\n" ::: "memory");
-  if (inside) store_pixel<kWithDisp>(a, px, v, pix);
+  if (inside) store_pixel<T, kWithDisp>(a, px, v, pix);
 }
 
-}  // namespace
-
-// Plain C entry point (bound with ctypes).  All pointers are device pointers
-// of float32 tensors the caller allocated; tex holds V / views_per_stack
-// stacks [L, 4, Th, Tw], stack s at tex + s * stack_stride, read by the views
-// s * views_per_stack ... (s + 1) * views_per_stack - 1 (V must be a multiple
-// of views_per_stack); rx, ry, q are [V, H, W]; scal is [V, L, 6] = (Ax, Bx,
-// Ay, By, dscale, 0); disp may be null when with_disp is 0.  early_out: 0 off,
-// 1 on transmittance, 2 the grad-safe rule.  warped [V, L, 4, H, W] (residual)
-// and n_live [V, H, W] int32 may each be null.  Launches on `stream` and
-// returns the first error of cudaFuncSetAttribute (the kernel's dynamic shared
-// memory exceeds 48 KB) or cudaGetLastError() (0 on success); does not
-// synchronize.
-extern "C" int gmpi_fused_fwd(const float* tex, long long stack_stride, const float* rx,
-                              const float* ry, const float* q, const float* scal, float* color,
-                              float* depth, float* disp, float* trans, float* warped,
-                              int* n_live, int V, int L, int Th, int Tw, int H, int W,
-                              int views_per_stack, int early_out, int with_disp, float eps,
-                              void* stream) {
-  if (views_per_stack < 1 || V % views_per_stack != 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int vec = Tw % 4 == 0 && (reinterpret_cast<size_t>(tex) & 15u) == 0
-                  && stack_stride % 4 == 0;
-  const Args a{tex, stack_stride, rx, ry, q, scal, color, depth, disp, trans, warped, n_live,
-               L, Th, Tw, H, W, views_per_stack, early_out, vec, eps};
+template <typename T>
+int launch(const T* tex, long long stack_stride, const float* rx, const float* ry,
+           const float* q, const float* scal, float* color, float* depth, float* disp,
+           float* trans, float* warped, int* n_live, int V, int L, int Th, int Tw, int H, int W,
+           int views_per_stack, int early_out, int with_disp, float eps, cudaStream_t s) {
+  constexpr int kVec = 16 / sizeof(T);
+  const int vec = Tw % kVec == 0 && (reinterpret_cast<size_t>(tex) & 15u) == 0
+                  && stack_stride % kVec == 0;
+  const Args<T> a{tex, stack_stride, rx, ry, q, scal, color, depth, disp, trans, warped, n_live,
+                  L, Th, Tw, H, W, views_per_stack, early_out, vec, eps};
   const dim3 grid((W + kTileW - 1) / kTileW, (H + kTileH - 1) / kTileH, V);
   const size_t smem = sizeof(float) * (size_t)((6 * L + 3) & ~3) + sizeof(int4) * (size_t)L
-                      + sizeof(float) * kStages * kStageFloats;
-  auto kernel = with_disp ? fused_fwd_kernel<true> : fused_fwd_kernel<false>;
+                      + sizeof(T) * kStages * kStageElems;
+  auto kernel = with_disp ? fused_fwd_kernel<T, true> : fused_fwd_kernel<T, false>;
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   kernel<<<grid, kThreads, smem, s>>>(a);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// Plain C entry point (bound with ctypes).  All pointers are device pointers
+// of tensors the caller allocated: float32, except tex, which is bfloat16 when
+// tex_bf16 is 1 and float32 when it is 0.  tex holds V / views_per_stack
+// stacks [L, 4, Th, Tw], stack s at tex + s * stack_stride (in texels), read by
+// the views s * views_per_stack ... (s + 1) * views_per_stack - 1 (V must be a
+// multiple of views_per_stack); rx, ry, q are [V, H, W]; scal is [V, L, 6] =
+// (Ax, Bx, Ay, By, dscale, 0); disp may be null when with_disp is 0.
+// early_out: 0 off, 1 on transmittance, 2 the grad-safe rule.  warped [V, L, 4,
+// H, W] (residual) and n_live [V, H, W] int32 may each be null.  Launches on
+// `stream` and returns the first error of cudaFuncSetAttribute (the kernel's
+// dynamic shared memory exceeds 48 KB) or cudaGetLastError() (0 on success);
+// does not synchronize.
+extern "C" int gmpi_fused_fwd(const void* tex, long long stack_stride, const float* rx,
+                              const float* ry, const float* q, const float* scal, float* color,
+                              float* depth, float* disp, float* trans, float* warped,
+                              int* n_live, int V, int L, int Th, int Tw, int H, int W,
+                              int views_per_stack, int early_out, int with_disp, int tex_bf16,
+                              float eps, void* stream) {
+  if (views_per_stack < 1 || V % views_per_stack != 0 || (tex_bf16 != 0 && tex_bf16 != 1)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (tex_bf16) {
+    return launch(static_cast<const __nv_bfloat16*>(tex), stack_stride, rx, ry, q, scal, color,
+                  depth, disp, trans, warped, n_live, V, L, Th, Tw, H, W, views_per_stack,
+                  early_out, with_disp, eps, s);
+  }
+  return launch(static_cast<const float*>(tex), stack_stride, rx, ry, q, scal, color, depth,
+                disp, trans, warped, n_live, V, L, Th, Tw, H, W, views_per_stack, early_out,
+                with_disp, eps, s);
 }

@@ -115,11 +115,12 @@ class DiscriminatorEpilogue(nn.Module):
         self.out = FullyConnected(c, 1 if cfg.cmap_dim == 0 else cfg.cmap_dim,
                                   generator=generator)
 
-    def forward(self, x: torch.Tensor, cmap: Optional[torch.Tensor]) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, cmap: Optional[torch.Tensor],
+                mbstd_group=None) -> torch.Tensor:
         cfg = self.cfg
         x = x.to(torch.float32)
         if cfg.use_mbstd and cfg.mbstd_num_channels > 0:
-            x = minibatch_std(x, cfg.mbstd_group_size, cfg.mbstd_num_channels)
+            x = minibatch_std(x, cfg.mbstd_group_size, cfg.mbstd_num_channels, mbstd_group)
         else:
             n, _, h, w = x.shape
             x = torch.cat([x, x.new_zeros((n, cfg.mbstd_num_channels, h, w))], dim=1)
@@ -206,12 +207,15 @@ class Discriminator(nn.Module):
                     p.copy_((torch.rand(p.shape, generator=generator) * 2.0 - 1.0) * bound)
         self.b4 = DiscriminatorEpilogue(cfg.epilogue_cfg, generator=generator)
 
-    def forward(self, img: torch.Tensor, flat_pose: Optional[torch.Tensor] = None
-                ) -> torch.Tensor:
+    def forward(self, img: torch.Tensor, flat_pose: Optional[torch.Tensor] = None,
+                mbstd_group=None) -> torch.Tensor:
+        """Scores ``[N, 1]`` of ``img [N, 3, R, R]`` in [-1, 1].  ``mbstd_group``:
+        the process group of data-parallel ranks whose batches together form
+        the batch the minibatch std groups (``layers.minibatch_std``)."""
         x = None
         for res in self.cfg.block_resolutions:
             x, img = getattr(self, f"b{res}")(x, img)
         cmap = None
         if self.cfg.c_dim > 0:
             cmap = normalize_2nd_moment(self.mapping(flat_pose.to(torch.float32)))
-        return self.b4(x, cmap)
+        return self.b4(x, cmap, mbstd_group)

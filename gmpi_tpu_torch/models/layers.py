@@ -12,7 +12,8 @@ not part of the state dict.
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+import dataclasses
+from typing import Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -24,6 +25,20 @@ from gmpi_tpu_torch.ops.modulated_conv import modulated_conv2d
 from gmpi_tpu_torch.ops.upfirdn2d import setup_filter
 
 FLOATING_EPS = 1e-8
+
+
+@dataclasses.dataclass(frozen=True)
+class BatchShare:
+    """A random generator for a process that holds share ``share`` of
+    ``n_shares`` equal shares of a batch: passed to the generator's forward in
+    place of ``generator``, it has ``SynthesisLayer`` draw the random noise of
+    the whole batch and keep this share's, so that data-parallel ranks, each
+    running its share from a generator in the same state, draw exactly the
+    noise that one process running the whole batch draws."""
+
+    generator: Optional[torch.Generator]
+    share: int
+    n_shares: int
 
 
 def normalize_2nd_moment(x: torch.Tensor, dim: int = 1, eps: float = 1e-8) -> torch.Tensor:
@@ -41,11 +56,22 @@ def instance_mean_std(feat: torch.Tensor, eps: float = FLOATING_EPS
     return mean, torch.sqrt(var).reshape(n, c, 1, 1)
 
 
-def minibatch_std(x: torch.Tensor, group_size: Optional[int], num_channels: int = 1
-                  ) -> torch.Tensor:
+def minibatch_std(x: torch.Tensor, group_size: Optional[int], num_channels: int = 1,
+                  process_group=None) -> torch.Tensor:
     """Append cross-sample stddev channels (``MinibatchStdLayer``): the std
     over each group of ``group_size`` samples, averaged over channels and
-    pixels.  ``group_size`` must divide the batch."""
+    pixels.  ``group_size`` must divide the batch.  With ``process_group``
+    (data-parallel ranks, each holding its share of the batch in rank order)
+    the groups are those of the whole batch: the features are gathered
+    differentiably over the ranks and each keeps its own samples' channels."""
+    if process_group is not None:
+        from gmpi_tpu_torch.parallel import mesh as mesh_mod
+
+        n = x.shape[0]
+        full = minibatch_std(mesh_mod.gather_batch(x, process_group), group_size,
+                             num_channels)
+        r = mesh_mod.group_rank(process_group)
+        return torch.cat([x, full[r * n:(r + 1) * n, x.shape[1]:]], dim=1)
     n, c, h, w = x.shape
     g = min(group_size, n) if group_size is not None else n
     f = num_channels
@@ -136,12 +162,17 @@ class SynthesisLayer(nn.Module):
         _filter_buffer(self, resample_filter)
 
     def forward(self, x: torch.Tensor, w: torch.Tensor, noise_mode: str = "const",
-                generator: Optional[torch.Generator] = None, gain: float = 1.0) -> torch.Tensor:
+                generator: Union[torch.Generator, BatchShare, None] = None,
+                gain: float = 1.0) -> torch.Tensor:
         assert noise_mode in ("random", "const", "none")
         styles = self.affine(w)
         noise = None
         if self.use_noise and noise_mode == "random":
-            noise = _randn((x.shape[0], 1, self.resolution, self.resolution), generator)
+            n, share, n_shares = x.shape[0], 0, 1
+            if isinstance(generator, BatchShare):
+                share, n_shares, generator = generator.share, generator.n_shares, generator.generator
+            noise = _randn((n * n_shares, 1, self.resolution, self.resolution),
+                           generator)[share * n:(share + 1) * n]
             noise = noise.to(x.device) * self.noise_strength
         elif self.use_noise and noise_mode == "const":
             noise = self.noise_const * self.noise_strength

@@ -9,7 +9,8 @@ PyTorch version that repeats the kernel's arithmetic:
   every plane into the view and over-composite front to back; in its training
   form it also returns the VJP residual and, with ``early_out="grad"``, the
   per-pixel count of live planes.  Views may share texture stacks in groups
-  (view ``v`` reads stack ``v // k``);
+  (view ``v`` reads stack ``v // k``).  Its textures are f32 or, in the
+  bf16-texture form (the TPU kernel's ``compute_dtype``), bf16;
 * :func:`composite_bwd` -> ``csrc/composite_bwd.cu`` (``_composite_bwd_fat_kernel``
   and ``_composite_bwd_kernel``): cotangents of the composited outputs back
   onto the warped samples;
@@ -97,8 +98,16 @@ def ray_fields(ray_dir: torch.Tensor, z_dir: torch.Tensor
 
 def sample_bilinear(tex_l: torch.Tensor, fx: torch.Tensor, fy: torch.Tensor) -> torch.Tensor:
     """Bilinear sample of ``tex_l [S, 4, Th, Tw]`` at texel coordinates
-    ``fx, fy [V, H, W]``, zeros outside: ``[V, 4, H, W]``.  ``V`` is a multiple
-    of ``S``: view ``v`` samples texture ``v // (V // S)``."""
+    ``fx, fy [V, H, W]``, zeros outside: ``[V, 4, H, W]`` in ``fx``'s dtype.  ``V`` is a
+    multiple of ``S``: view ``v`` samples texture ``v // (V // S)``.
+
+    A float32 texture takes the weights ``(1 - wx, wx)``, ``(1 - wy, wy)``.  A
+    bfloat16 texture takes those of the JAX kernel's bf16 form
+    (``pallas_warp.py:683-741`` under its ``bf16x3`` contraction): the x-hats
+    computed in fp32 and rounded to bf16, ``bf16(1 - wx)`` and ``bf16(1 - (1 -
+    wx))`` as ``1 - |fx - i|`` gives them, so each x product is exact; the
+    y-hats ``1 - wy`` and ``1 - (1 - wy)`` in fp32; every product and sum
+    rounded to fp32 in that order."""
     v, h, w = fx.shape
     th, tw = tex_l.shape[-2:]
     flat = tex_l.reshape(tex_l.shape[0], 4, th * tw)
@@ -106,18 +115,32 @@ def sample_bilinear(tex_l: torch.Tensor, fx: torch.Tensor, fy: torch.Tensor) -> 
         flat = flat.repeat_interleave(_views_per_stack(flat.shape[0], v), dim=0)
     flat = flat.expand(v, 4, th * tw)
     x0, y0 = torch.floor(fx), torch.floor(fy)
-    wx, wy = fx - x0, fy - y0
+    wx, wy = (fx - x0)[:, None], (fy - y0)[:, None]
 
     def tap(yy, xx):
         valid = (xx >= 0) & (xx <= tw - 1) & (yy >= 0) & (yy <= th - 1)
         idx = (yy.clamp(0, th - 1) * tw + xx.clamp(0, tw - 1)).nan_to_num(0.0).long()
         vals = torch.gather(flat, 2, idx.reshape(v, 1, h * w).expand(v, 4, h * w))
-        return torch.where(valid[:, None], vals.reshape(v, 4, h, w), 0.0)
+        return torch.where(valid[:, None], vals.reshape(v, 4, h, w).to(fx.dtype), 0.0)
 
-    wx, wy = wx[:, None], wy[:, None]
-    top = tap(y0, x0) * (1.0 - wx) + tap(y0, x0 + 1) * wx
-    bot = tap(y0 + 1, x0) * (1.0 - wx) + tap(y0 + 1, x0 + 1) * wx
-    return top * (1.0 - wy) + bot * wy
+    if tex_l.dtype == torch.bfloat16:
+        r = 1.0 - wx
+        hx0, hx1 = (r.to(torch.bfloat16).to(r.dtype),
+                    (1.0 - r).to(torch.bfloat16).to(r.dtype))
+        hy0 = 1.0 - wy
+        hy1 = 1.0 - hy0
+    else:
+        hx0, hx1, hy0, hy1 = 1.0 - wx, wx, 1.0 - wy, wy
+    top = tap(y0, x0) * hx0 + tap(y0, x0 + 1) * hx1
+    bot = tap(y0 + 1, x0) * hx0 + tap(y0 + 1, x0 + 1) * hx1
+    return top * hy0 + bot * hy1
+
+
+def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """``a * b + c`` rounded once to float32, as the kernels' ``fmaf`` (and
+    the JAX kernel's fused multiply-add) computes it: the product of two
+    float32 values is exact in float64."""
+    return (a.double() * b.double() + c.double()).to(a.dtype)
 
 
 def _views_per_stack(n_stacks: int, n_views: int) -> int:
@@ -138,10 +161,10 @@ def warp_composite_fwd_ref(tex: torch.Tensor, rx: torch.Tensor, ry: torch.Tensor
                            early_out: Union[bool, str] = True, with_disp: bool = True,
                            eps: float = EPS, with_warped: bool = False
                            ) -> Tuple[torch.Tensor, ...]:
-    """Plain PyTorch version of the forward kernel, the same arithmetic in the
-    inputs' dtype: per plane an index+gather bilinear sample, then a
-    sequential over-composite; a pixel stops updating under the ``early_out``
-    rule.  Residual slots of planes a pixel did not reach hold NaN (the kernel
+    """Plain PyTorch version of the forward kernel, the same arithmetic: per
+    plane an index+gather bilinear sample (a bf16 ``tex`` with the bf16 form's
+    weights, :func:`sample_bilinear`), then a sequential over-composite in the
+    rays' dtype; a pixel stops updating under the ``early_out`` rule.  Residual slots of planes a pixel did not reach hold NaN (the kernel
     leaves them unwritten), so a consumer that reads one shows.  Arguments and
     results as :func:`warp_composite_fwd`."""
     v = rx.shape[0]
@@ -158,7 +181,7 @@ def warp_composite_fwd_ref(tex: torch.Tensor, rx: torch.Tensor, ry: torch.Tensor
     qinv = 1.0 / q
     for l in range(n_l):
         s = scal[:, l, :, None, None]  # [V, 6, 1, 1]
-        smp = sample_bilinear(tex[:, l], s[:, 0] * rx + s[:, 1], s[:, 2] * ry + s[:, 3])
+        smp = sample_bilinear(tex[:, l], _fma(s[:, 0], rx, s[:, 1]), _fma(s[:, 2], ry, s[:, 3]))
         a = smp[:, 3]
         w = a * t
         new = (color + w[:, None] * smp[:, :3], acc_d + w * (s[:, 4] * q),
@@ -202,7 +225,8 @@ def _ptr(x: Optional[torch.Tensor]) -> Optional[int]:
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = {  # of the C entry point gmpi_<name> of csrc/<name>.cu; the last is the stream
-    "fused_fwd": [_P, ctypes.c_longlong] + [_P] * 10 + [_I] * 9 + [_F, _P],
+    # ..., early_out, with_disp, tex_bf16 (1: tex is bfloat16), eps, stream
+    "fused_fwd": [_P, ctypes.c_longlong] + [_P] * 10 + [_I] * 10 + [_F, _P],
     "composite_bwd": [_P] * 9 + [_I] * 4 + [_F, _I, _F, _P],
     "splat": [_P] * 6 + [_I] * 7 + [_P],
     "adjoint": [_P] * 5 + [_I] * 6 + [_P],
@@ -220,7 +244,9 @@ def warp_composite_fwd(tex: torch.Tensor, rx: torch.Tensor, ry: torch.Tensor,
                        ) -> Tuple[torch.Tensor, ...]:
     """Warp + over-composite all planes of each view, front to back.
 
-    tex ``[S, L, 4, Th, Tw]`` f32 RGBA planes (plane 0 nearest): ``S`` texture
+    tex ``[S, L, 4, Th, Tw]`` f32 or bf16 RGBA planes (plane 0 nearest; bf16:
+    the kernel's bf16-texture form, fp32 weights and sums as
+    :func:`sample_bilinear` says, half the texture bytes): ``S`` texture
     stacks for ``V = S * k`` views, view ``v`` reading stack ``v // k`` (``k =
     1``: a stack per view; ``S = 1``: one stack for every view; in between:
     each stack rendered into ``k`` consecutive views, read from device memory
@@ -250,8 +276,8 @@ def warp_composite_fwd(tex: torch.Tensor, rx: torch.Tensor, ry: torch.Tensor,
         raise ValueError(f"tex: expected [S, L, 4, Th, Tw], got {tuple(tex.shape)}")
     v, h, w = rx.shape
     n_stacks, n_l, th, tw = tex.shape[0], tex.shape[1], tex.shape[3], tex.shape[4]
-    if tex.dtype != torch.float32:
-        raise TypeError(f"tex: expected float32, got {tex.dtype}")
+    if tex.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"tex: expected float32 or bfloat16, got {tex.dtype}")
     if n_stacks > 1 and tex.stride(0) == 0:
         n_stacks = 1  # one stack expanded over the views
     k = _views_per_stack(n_stacks, v)
@@ -280,7 +306,8 @@ def warp_composite_fwd(tex: torch.Tensor, rx: torch.Tensor, ry: torch.Tensor,
             tex.data_ptr(), stack_stride, rx.data_ptr(), ry.data_ptr(), q.data_ptr(),
             scal.data_ptr(), color.data_ptr(), depth.data_ptr(), _ptr(disp), trans.data_ptr(),
             _ptr(warped), _ptr(n_live), v, n_l, th, tw, h, w, k,
-            2 if grad_rule else int(bool(early_out)), int(bool(with_disp)), eps)
+            2 if grad_rule else int(bool(early_out)), int(bool(with_disp)),
+            int(tex.dtype == torch.bfloat16), eps)
     outs = (color, depth) + ((disp,) if with_disp else ()) + (trans,)
     return outs + ((warped,) if with_warped else ()) + ((n_live,) if grad_rule else ())
 
@@ -612,6 +639,17 @@ def warp_adjoint(d_samp: torch.Tensor, rx: torch.Tensor, ry: torch.Tensor, scal:
     return d_tex
 
 
+def cast_texture(tex: torch.Tensor, dtype: Optional[torch.dtype]) -> torch.Tensor:
+    """``tex`` in ``dtype`` (None: as it is) for :func:`warp_composite_fwd`:
+    one stack expanded over the views (stride 0) is cast once and expanded
+    again, not materialized per view."""
+    if dtype is None or tex.dtype == dtype:
+        return tex
+    if tex.shape[0] > 1 and tex.stride(0) == 0:
+        return tex[:1].to(dtype).expand(tex.shape)
+    return tex.to(dtype)
+
+
 class FusedRender(torch.autograd.Function):
     """The fused renderer as one differentiable function of the plane RGBA:
     forward = :func:`warp_composite_fwd` in its training form, backward =
@@ -620,8 +658,12 @@ class FusedRender(torch.autograd.Function):
     the composite backward has already zeroed what no pixel reached).
 
     ``FusedRender.apply(tex, rx, ry, q, scal, with_disp, grad_sparsity[,
-    adjoint_bands])`` -> ``(color, depth, [disp,] trans)``, premultiplied
-    partials as the forward returns them.  The gradient reaches ``tex`` only
+    adjoint_bands[, compute_dtype]])`` -> ``(color, depth, [disp,] trans)``,
+    premultiplied partials as the forward returns them.  ``compute_dtype=
+    torch.bfloat16`` renders the forward from a bf16 copy of ``tex`` (the
+    kernel's bf16-texture form); the backward stays fp32 (composite backward
+    and splat on the fp32 residual), as in the JAX package, and the gradient
+    reaches ``tex`` in its own dtype.  The gradient reaches ``tex`` only
     (rays and plane geometry are constants of the render, as in the gather
     renderer); each output's
     cotangent is optional.  First order only.  ``grad_sparsity`` renders with
@@ -632,12 +674,13 @@ class FusedRender(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, tex, rx, ry, q, scal, with_disp: bool, grad_sparsity: bool,
-                adjoint_bands: Optional[AdjointBands] = None):
+                adjoint_bands: Optional[AdjointBands] = None,
+                compute_dtype: Optional[torch.dtype] = None):
         if tex.shape[0] != rx.shape[0]:
             raise ValueError(f"FusedRender: {tex.shape[0]} texture stacks for {rx.shape[0]} "
                              f"views; stacks shared by groups of views render without a "
                              f"gradient only (expand the stacks over their views instead)")
-        outs = warp_composite_fwd(tex, rx, ry, q, scal,
+        outs = warp_composite_fwd(cast_texture(tex, compute_dtype), rx, ry, q, scal,
                                   early_out="grad" if grad_sparsity else False,
                                   with_disp=with_disp, with_warped=True)
         n_base = 4 if with_disp else 3
@@ -653,7 +696,7 @@ class FusedRender(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, *cot):
         warped, n_live, rx, ry, q, scal = ctx.saved_tensors
-        none = (None,) * 7
+        none = (None,) * 8
         if all(g is None for g in cot):
             return (None,) + none
         g_color = cot[0]

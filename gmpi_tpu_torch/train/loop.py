@@ -1,7 +1,9 @@
 """Training loop (port of ``gmpi_tpu/train/loop.py``; the reference's
 ``gmpi/train.py`` + ``launch.py`` as a library function).
 
-One process drives one card.  Mirrored from the reference's loop:
+One process drives one card; several processes train together over
+``torch.distributed`` (:func:`make_train_mesh`).  Mirrored from the
+reference's loop:
 
 * config snapshot on start (``train.py:52-55``);
 * warm start from converted StyleGAN2/GMPI weights (``train.py:197-230``);
@@ -21,9 +23,17 @@ generator starts again from ``seed + 1``, as the JAX key does: its state is
 not checkpointed, so a resumed run draws other z and poses than an unbroken
 one would, and the data iterator starts again at epoch 0.
 
-The sharded renderers (``renderer_plane_shards`` / ``renderer_tile_shards``
-> 1) are not ported (``ROADMAP`` Queue A9): there is no data mesh either, one
-card runs the whole batch.
+Several cards: the world of processes is a mesh ``data x plane x tile``
+with ``renderer_plane_shards`` x ``renderer_tile_shards`` ranks rendering
+each image together (every full-resolution render through the sharded
+renderers, the batch replicated over them) and the rest of the world on the
+``data`` axis, each data rank stepping on its share of the global batch
+(``hparams.batch_size``, split evenly: the loop raises where it does not
+split) from its own shard of the data (``ShardedLoader(shard_id=data index,
+num_shards=data ranks)``, built by the caller).  Every rank starts from rank
+0's weights; gradients are averaged before each update, so the replicas stay
+equal.  Rank 0 alone writes the config snapshot, metrics (JSONL, stdout,
+TensorBoard), snapshots, checkpoints and the in-training FID.
 """
 
 from __future__ import annotations
@@ -39,11 +49,38 @@ import numpy as np
 import torch
 
 from gmpi_tpu_torch.config import ExperimentConfig
+from gmpi_tpu_torch.parallel.mesh import Mesh, replicate
 from gmpi_tpu_torch.train.checkpoint import (STATE_FILE, checkpoint_file, load_checkpoint,
                                              save_checkpoint, save_config_snapshot)
 from gmpi_tpu_torch.train.step import (TrainState, init_train_state, make_train_step,
                                        set_learning_rates)
 from gmpi_tpu_torch.utils.device import resolve_device
+
+
+def make_train_mesh(cfg: ExperimentConfig, device=None) -> Mesh:
+    """The training mesh over the world of ``torch.distributed`` (a world of
+    one without a process group): ``renderer_plane_shards`` x
+    ``renderer_tile_shards`` ranks render together, the rest of the world is
+    the ``data`` axis.  Raises where the world does not divide into that, or
+    where shards are asked for without the ranks to hold them."""
+    import torch.distributed as dist
+
+    rp = max(cfg.train.renderer_plane_shards, 1)
+    rt = max(cfg.train.renderer_tile_shards, 1)
+    world = dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
+    if world % (rp * rt):
+        raise ValueError(f"{rp} plane x {rt} tile shards do not divide a world of {world} ranks")
+    return Mesh([world // (rp * rt), rp, rt], ("data", "plane", "tile"), device)
+
+
+class _NullLogger:
+    """The metric log of a rank other than 0: nothing is written."""
+
+    def log(self, step: int, metrics: dict) -> None:
+        pass
+
+    def close(self):
+        pass
 
 
 class MetricLogger:
@@ -225,6 +262,7 @@ def train(
     rebuild_batches: Optional[Callable] = None,
     device="cuda",
     stats: Optional[LoopStats] = None,
+    mesh: Optional[Mesh] = None,
 ) -> TrainState:
     """Run the GAN loop over ``batches`` (yielding ``(imgs, flat_pose, ...)``
     numpy arrays) on ``device`` up to step ``total_iters`` (the config's when
@@ -234,19 +272,21 @@ def train(
     newest checkpoint under ``out_dir/checkpoints`` wins over both.  At each
     curriculum boundary the step is rebuilt, the Adam groups take the
     stage's learning rates and ``rebuild_batches(entry)`` replaces the data
-    iterator."""
+    iterator.  ``mesh`` (:func:`make_train_mesh` of the config when None)
+    lays the world out; over a ``data`` axis ``batches`` yields this rank's
+    share of each global batch."""
     from gmpi_tpu_torch.curriculum import apply_to_config
     from gmpi_tpu_torch.utils.inspect import param_summary
 
     dev = resolve_device(device)
     t = cfg.train
-    if max(t.renderer_plane_shards, 1) > 1 or max(t.renderer_tile_shards, 1) > 1:
-        raise NotImplementedError(
-            "renderer_plane_shards / renderer_tile_shards (the sharded renderers) are not "
-            "ported yet: ROADMAP Queue A9")
+    mesh = make_train_mesh(cfg, dev) if mesh is None else mesh
+    main = mesh.rank == 0
+    n_data = mesh.size("data")
     total_iters = t.total_iters if total_iters is None else total_iters
     os.makedirs(out_dir, exist_ok=True)
-    save_config_snapshot(out_dir, cfg)
+    if main:
+        save_config_snapshot(out_dir, cfg)
     ckpt_dir = os.path.join(out_dir, "checkpoints")
     os.makedirs(ckpt_dir, exist_ok=True)
     _check_pose_corner_rays(cfg, dev)
@@ -254,7 +294,9 @@ def train(
     state = init_train_state(cfg, torch.Generator().manual_seed(seed), device=dev)
     _, n_g = param_summary(state.G)
     _, n_d = param_summary(state.D)
-    print(f"[model] generator params: {n_g:,}  discriminator params: {n_d:,}", flush=True)
+    if main:
+        print(f"[model] generator params: {n_g:,}  discriminator params: {n_d:,}  mesh: "
+              f"{mesh.shape}", flush=True)
     # warm start (``train.py:197-230``): partial name-matched absorption, done by the converter
     if init_params_g is not None:
         _load_part(state.G, init_params_g, dict(state.G.named_parameters()), "init_params_g")
@@ -272,9 +314,14 @@ def train(
         if stats is not None:
             stats.load_s = time.perf_counter() - t0
             stats.load_bytes = os.path.getsize(checkpoint_file(ckpt_dir))
-        print(f"resumed from step {state.step}", flush=True)
+        if main:
+            print(f"resumed from step {state.step}", flush=True)
+    for tensors in (state.G, state.D, state.ema, state.ema2):  # every rank starts from rank 0's
+        replicate(mesh, tensors)
 
     def save():
+        if not main:
+            return
         t0 = time.perf_counter()
         path = save_checkpoint(ckpt_dir, state)
         if stats is not None:
@@ -283,13 +330,13 @@ def train(
 
     step0 = state.step
     stage_cfg = apply_to_config(cfg, curriculum.at_step(step0)) if curriculum else cfg
-    step_fn = make_train_step(stage_cfg, device=dev)
+    step_fn = make_train_step(stage_cfg, device=dev, mesh=mesh)
     set_learning_rates(stage_cfg, state.opt_g, state.opt_d)  # also over a resumed optimizer's
     next_boundary = curriculum.next_upsample_step(step0) if curriculum else float("inf")
     if stats is not None:
         stats.start_step = step0
 
-    logger = MetricLogger(out_dir)
+    logger = MetricLogger(out_dir) if main else _NullLogger()
     rng = torch.Generator().manual_seed(seed + 1)
     t_start = time.perf_counter()
     batch_iter = iter(batches)
@@ -299,10 +346,11 @@ def train(
             if curriculum is not None and step >= next_boundary:
                 entry = curriculum.at_step(step)
                 stage_cfg = apply_to_config(cfg, entry)
-                step_fn = make_train_step(stage_cfg, device=dev)
+                step_fn = make_train_step(stage_cfg, device=dev, mesh=mesh)
                 set_learning_rates(stage_cfg, state.opt_g, state.opt_d)
                 next_boundary = curriculum.next_upsample_step(step)
-                print(f"[curriculum] stage change at step {step}: {entry}", flush=True)
+                if main:
+                    print(f"[curriculum] stage change at step {step}: {entry}", flush=True)
                 if rebuild_batches is not None:
                     # replace the iterator itself — a `for` loop would keep
                     # draining the captured stage-1 iterator
@@ -315,6 +363,10 @@ def train(
             t1 = time.perf_counter()
             imgs = torch.from_numpy(np.ascontiguousarray(batch[0], np.float32)).to(dev)
             flat_pose = torch.from_numpy(np.ascontiguousarray(batch[1], np.float32)).to(dev)
+            global_bs = stage_cfg.hparams.batch_size
+            if global_bs % n_data or imgs.shape[0] != global_bs // n_data:
+                raise ValueError(f"a batch of {imgs.shape[0]} on each of {n_data} data ranks "
+                                 f"is not the global batch {global_bs} split evenly")
             state, metrics = step_fn(state, imgs, flat_pose, rng)
             if dev.type == "cuda":
                 # wait for the step, as the JAX loop does when it reads state.step
@@ -328,14 +380,14 @@ def train(
             if step % 10 == 0:
                 steps_per_s = (step + 1 - step0) / (time.perf_counter() - t_start)
                 logger.log(step, {**metrics, "steps_per_s": steps_per_s})
-            if step > 0 and step % sample_interval == 0:
+            if main and step > 0 and step % sample_interval == 0:
                 (snapshot_fn or save_snapshot_grid)(os.path.join(out_dir, "snaps"), stage_cfg,
                                                     state, step)
                 if stats is not None:
                     stats.snapshot_steps.append(step)
             if step > 0 and step % model_save_interval == 0:
                 save()
-            if (fid_feature_fn is not None and fid_real_images is not None and step > 0
+            if (main and fid_feature_fn is not None and fid_real_images is not None and step > 0
                     and step % eval_freq == 0):
                 fid = compute_training_fid(stage_cfg, state, fid_feature_fn, fid_real_images)
                 logger.log(step, {"fid": fid})

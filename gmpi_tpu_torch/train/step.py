@@ -23,7 +23,27 @@ kernels: through ``render_mpi`` with the static tile bands of
 ``bands_for_config`` (at 128 pixels and above; 4-field bands make the tiled
 adjoint the warp's backward), in plane slabs through ``render_mpi_chunked``
 when ``renderer_plane_chunk`` is set; ``debug_ray_check`` NaN-poisons a
-render whose rays leave the last plane.
+render whose rays leave the last plane.  ``fused_compute_dtype="bf16"`` has
+the fused forward read bf16 textures in every fused render of the step (the
+backward stays fp32).
+
+Several cards (``mesh``, a :class:`~gmpi_tpu_torch.parallel.mesh.Mesh` over
+``torch.distributed``; one process a card):
+
+* a ``plane`` and/or ``tile`` axis routes every full-resolution render
+  through ``parallel/render.py`` (the fused slab kernel per plane shard when
+  the step is fused, ``render_mpi_fused`` per tile shard), with G, D and the
+  batch replicated: every rank renders its share of every image;
+* a ``data`` axis splits the batch: each rank steps on its share of the
+  global batch, draws the random numbers of the whole batch from its
+  generator and keeps its share's (z, poses, synthesis noise, light), and
+  the discriminator's minibatch std groups the whole batch across the ranks;
+  the step equals one process stepping on the whole batch.
+
+After each phase's backward every gradient is averaged over the world with
+one flat all-reduce, so every rank applies the same update (and the replicas
+stay bitwise equal: ``utils.inspect.check_replica_consistency``); metrics
+are averaged likewise.
 
 The parts of a step are named ``train_step.*`` spans of ``torch.profiler``
 (``tools/profile_step.py`` reads them); without a profiler they do nothing.
@@ -44,12 +64,16 @@ from gmpi_tpu_torch.config import ExperimentConfig
 from gmpi_tpu_torch.core import camera as cam
 from gmpi_tpu_torch.core import geometry as geom_mod
 from gmpi_tpu_torch.core import poses as poses_mod
-from gmpi_tpu_torch.core.lighting import LightingConfig, light_mpi
+from gmpi_tpu_torch.core.lighting import LightingConfig, light_mpi, light_pose_config
 from gmpi_tpu_torch.core.bands import bands_for_config
-from gmpi_tpu_torch.core.renderer import (poison_if_rays_escape, render_mpi, render_mpi_chunked,
-                                          render_mpi_fused, render_mpi_fused_remat)
+from gmpi_tpu_torch.core.renderer import (make_fused_slab_renderer, poison_if_rays_escape,
+                                          render_mpi, render_mpi_chunked, render_mpi_fused,
+                                          render_mpi_fused_remat)
 from gmpi_tpu_torch.models.discriminator import Discriminator
 from gmpi_tpu_torch.models.generator import Generator
+from gmpi_tpu_torch.models.layers import BatchShare
+from gmpi_tpu_torch.parallel import mesh as mesh_mod
+from gmpi_tpu_torch.parallel import render as parallel_render
 from gmpi_tpu_torch.train.losses import d_gan_loss, g_gan_loss, r1_penalty
 from gmpi_tpu_torch.utils.device import resolve_device
 from gmpi_tpu_torch.utils.img import edge_aware_smooth_loss
@@ -125,6 +149,28 @@ def _ema_update(ema: Dict[str, torch.Tensor], G: Generator, decay: float) -> Non
         ema[k].lerp_(p.detach(), 1.0 - decay)
 
 
+def state_tensors(state: TrainState) -> Dict[str, torch.Tensor]:
+    """Every tensor a step reads and updates, by name: G's and D's parameters
+    and buffers, both EMAs and both optimizers' state."""
+    out = {}
+    for tag, module in (("G", state.G), ("D", state.D)):
+        out.update({f"{tag}.{k}": v for k, v in module.state_dict().items()})
+    for tag, ema in (("ema", state.ema), ("ema2", state.ema2)):
+        out.update({f"{tag}.{k}": v for k, v in ema.items()})
+    for tag, opt in (("opt_g", state.opt_g), ("opt_d", state.opt_d)):
+        for i, st in opt.state_dict()["state"].items():
+            out.update({f"{tag}.{i}.{k}": v for k, v in st.items() if torch.is_tensor(v)})
+    return out
+
+
+def _texture_dtype(name: Optional[str]) -> Optional[torch.dtype]:
+    if name is None:
+        return None
+    if name != "bf16":
+        raise ValueError(f"fused_compute_dtype: expected None or 'bf16', got {name!r}")
+    return torch.bfloat16
+
+
 def _grads(module: torch.nn.Module) -> Dict[str, torch.Tensor]:
     return {k: p.grad.detach().clone() for k, p in module.named_parameters()
             if p.grad is not None}
@@ -139,22 +185,32 @@ class TrainStep:
     ``g_iters`` G phases on ``state`` in place and returns ``(state,
     metrics)``, or ``(state, metrics, {"d": grads, "g": grads})`` with
     ``return_grads``.  :meth:`d_loss_terms` and :meth:`g_loss` are the two
-    loss closures, public so that a test can feed them chosen inputs.
+    loss closures, public so that a test can feed them chosen inputs.  With a
+    ``mesh`` (see the module doc) each rank calls the step with its own
+    share of the batch (all of it without a ``data`` axis) and the same
+    generator state.
     """
 
     def __init__(self, cfg: ExperimentConfig, device="cuda", mesh=None,
                  return_grads: bool = False):
         t = cfg.train
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh= (the plane/tile-sharded renderers) is not ported yet: ROADMAP Queue A9")
-        if t.fused_compute_dtype is not None:
-            raise NotImplementedError(
-                "fused_compute_dtype (bf16 textures in the fused kernels) is not ported yet: "
-                "ROADMAP Queue A4")
-        if cfg.hparams.batch_size % cfg.hparams.batch_split:
-            raise ValueError(f"batch_size {cfg.hparams.batch_size} is not a multiple of "
-                             f"batch_split {cfg.hparams.batch_split}")
+        self.mesh = mesh
+        self.n_data = 1 if mesh is None else mesh.size("data")
+        self.shard_planes = 1 if mesh is None else mesh.size("plane")
+        self.shard_tiles = 1 if mesh is None else mesh.size("tile")
+        self.sharded = self.shard_planes > 1 or self.shard_tiles > 1
+        self.world = None if mesh is None else mesh.world
+        self.data_group = None if mesh is None else mesh.group("data")
+        local_batch = cfg.hparams.batch_size // self.n_data
+        if cfg.hparams.batch_size % self.n_data or local_batch % cfg.hparams.batch_split:
+            raise ValueError(f"batch_size {cfg.hparams.batch_size} does not split into "
+                             f"{self.n_data} data shares of a multiple of batch_split "
+                             f"{cfg.hparams.batch_split}")
+        if cfg.planes.n_planes % self.shard_planes or cfg.hparams.img_size % self.shard_tiles:
+            raise ValueError(f"{cfg.planes.n_planes} planes x {cfg.hparams.img_size} rows do "
+                             f"not split over {self.shard_planes} plane x {self.shard_tiles} "
+                             f"tile ranks")
+        self.compute_dtype = _texture_dtype(t.fused_compute_dtype)
         self.cfg = cfg
         self.device = resolve_device(device)
         self.return_grads = return_grads
@@ -178,12 +234,22 @@ class TrainStep:
         # static bands of the tile-banded warp for the non-fused routes (None
         # under 128 pixels: the per-pixel gather)
         self.tiled_bands = None if use_fused else bands_for_config(cfg)
+        self.slab_fn = (make_fused_slab_renderer(with_disp=False,
+                                                 compute_dtype=self.compute_dtype)
+                        if use_fused and self.sharded else None)
 
     # -- pieces -----------------------------------------------------------------
+
+    def _data_share(self, n: int) -> slice:
+        """This rank's rows of a batch of ``n`` data shares of ``n`` rows."""
+        k = self.mesh.index("data")
+        return slice(k * n, (k + 1) * n)
 
     def synth(self, G: Generator, z: torch.Tensor, generator: Optional[torch.Generator],
               noise_mode: str = "random") -> torch.Tensor:
         t = self.cfg.train
+        if self.n_data > 1:  # the whole batch's noise, this rank's share
+            generator = BatchShare(generator, self.mesh.index("data"), self.n_data)
         return G(z, None, self.xyz_dict, self.cfg.planes.n_planes,
                  truncation_psi=t.truncation_psi, noise_mode=noise_mode, generator=generator,
                  stop_mapping_grad=not t.train_mapping, stop_trunk_grad=not t.train_trunk)
@@ -193,8 +259,40 @@ class TrainStep:
         t = self.cfg.train
         if not t.aug_with_lighting or step <= t.lighting_start_iter:
             return mpi
+        light = {}
+        if self.n_data > 1:  # the whole batch's lights, this rank's share
+            n = mpi.shape[0]
+            yaws, pitches = poses_mod.sample_yaw_pitch(
+                generator, n * self.n_data, light_pose_config(self.light_cfg),
+                device=mpi.device)
+            light = dict(light_yaws=yaws[self._data_share(n)],
+                         light_pitches=pitches[self._data_share(n)])
         return light_mpi(self.light_cfg, mpi, self.geom.dhw, self.xyz_last_plane,
-                         step - t.lighting_start_iter, generator)
+                         step - t.lighting_start_iter, generator, **light)
+
+    def score(self, D: Discriminator, imgs: torch.Tensor,
+              flat_pose: Optional[torch.Tensor]) -> torch.Tensor:
+        """D's scores; over a data axis the minibatch std groups the whole
+        batch across the ranks."""
+        return D(imgs, flat_pose, mbstd_group=self.data_group)
+
+    def _render_sharded(self, mpi, dhw, ray_dir, eye, z_dir):
+        """A full-resolution render through ``parallel/render.py``."""
+        kw = dict(align_corners=self.cfg.planes.align_corners,
+                  tiled_bands=tuple(self.tiled_bands[:2]) if self.tiled_bands else None)
+        if self.shard_planes > 1 and self.shard_tiles > 1:
+            return parallel_render.render_mpi_plane_tile_sharded(
+                self.mesh, mpi, dhw, ray_dir, eye, z_dir, slab_fn=self.slab_fn, **kw)
+        if self.shard_planes > 1:
+            return parallel_render.render_mpi_plane_sharded(
+                self.mesh, mpi, dhw, ray_dir, eye, z_dir, slab_fn=self.slab_fn, **kw)
+        render_fn = None
+        if self.use_fused:
+            def render_fn(r, d, rd, e, z):
+                return render_mpi_fused(r, d, rd, e, z, with_disp=False,
+                                        compute_dtype=self.compute_dtype)
+        return parallel_render.render_mpi_tile_sharded(
+            self.mesh, mpi, dhw, ray_dir, eye, z_dir, render_fn=render_fn, **kw)
 
     def render_views(self, mpi: torch.Tensor, yaws: torch.Tensor, pitches: torch.Tensor,
                      low_res: int = 0
@@ -211,7 +309,7 @@ class TrainStep:
         n_views = yaws.shape[0]
         if n_views % mpi.shape[0]:
             raise ValueError(f"{n_views} cameras are not a multiple of {mpi.shape[0]} MPIs")
-        grouped_fused = self.use_fused and not low_res and not t.fused_remat
+        grouped_fused = self.use_fused and not low_res and not t.fused_remat and not self.sharded
         if n_views != mpi.shape[0] and not grouped_fused:
             mpi = mpi.repeat_interleave(n_views // mpi.shape[0], dim=0)
         c2w, _, _ = poses_mod.sample_sphere_poses(
@@ -222,9 +320,11 @@ class TrainStep:
         rays = cam.generate_rays(intr, c2w)  # (ray_dir, eye, z_dir)
         if low_res:
             out = render_mpi(mpi, dhw, *rays, cfg.planes.align_corners)
+        elif self.sharded:
+            out = self._render_sharded(mpi, dhw, *rays)
         elif self.use_fused:
             render = render_mpi_fused_remat if t.fused_remat else render_mpi_fused
-            out = render(mpi, dhw, *rays, with_disp=False)
+            out = render(mpi, dhw, *rays, with_disp=False, compute_dtype=self.compute_dtype)
         elif t.renderer_plane_chunk:
             out = render_mpi_chunked(mpi, dhw, *rays, plane_chunk=t.renderer_plane_chunk,
                                      align_corners=cfg.planes.align_corners,
@@ -244,10 +344,19 @@ class TrainStep:
         return color * 2.0 - 1.0, flat_pose, out.depth
 
     def sample_views(self, generator: Optional[torch.Generator], n: int):
-        return poses_mod.sample_yaw_pitch(generator, n, self.cfg.camera, device=self.device)
+        """``n`` camera yaws and pitches (over a data axis: this rank's ``n``
+        of the whole batch's)."""
+        yaws, pitches = poses_mod.sample_yaw_pitch(generator, n * self.n_data, self.cfg.camera,
+                                                   device=self.device)
+        if self.n_data > 1:
+            return yaws[self._data_share(n)], pitches[self._data_share(n)]
+        return yaws, pitches
 
     def _sample_z(self, generator: Optional[torch.Generator], n: int) -> torch.Tensor:
-        return torch.randn((n, self.cfg.train.z_dim), generator=generator).to(self.device)
+        z = torch.randn((n * self.n_data, self.cfg.train.z_dim), generator=generator)
+        if self.n_data > 1:
+            z = z[self._data_share(n)]
+        return z.to(self.device)
 
     # -- the two losses -----------------------------------------------------------
 
@@ -258,15 +367,15 @@ class TrainStep:
         """``(loss_real, loss_fake, r1)`` of D on a real and a fake batch, with
         the graph to D's parameters."""
         t = self.cfg.train
-        loss_real, loss_fake = d_gan_loss(state.D(real_imgs, real_pose),
-                                          state.D(fake_imgs, fake_pose))
+        loss_real, loss_fake = d_gan_loss(self.score(state.D, real_imgs, real_pose),
+                                          self.score(state.D, fake_imgs, fake_pose))
 
         def d_for_r1(imgs):
             if t.r1_remat:
                 # rematerialize D's activations inside the double backward:
                 # less live memory for one more D forward
-                return checkpoint(state.D, imgs, real_pose, use_reentrant=False)
-            return state.D(imgs, real_pose)
+                return checkpoint(self.score, state.D, imgs, real_pose, use_reentrant=False)
+            return self.score(state.D, imgs, real_pose)
 
         return loss_real, loss_fake, r1_penalty(d_for_r1, real_imgs, t.r1_lambda)
 
@@ -285,7 +394,7 @@ class TrainStep:
                 mpi = self.synth(state.G, z[sl], generator, noise_mode)
                 mpi = self.maybe_light(mpi, state.step, generator)
                 imgs, flat_pose, depth = self.render_views(mpi, yaws[sl], pitches[sl])
-                loss = g_gan_loss(state.D(imgs, flat_pose))
+                loss = g_gan_loss(self.score(state.D, imgs, flat_pose))
                 if t.use_edge_aware_loss:
                     loss = loss + t.edge_aware_loss_w * edge_aware_smooth_loss(
                         imgs, depth, t.edge_aware_loss_e_min, t.edge_aware_loss_g_min)
@@ -330,6 +439,7 @@ class TrainStep:
             d_loss = loss_real + loss_fake + r1
         with record_function("train_step.d_backward"):
             d_loss.backward()
+            mesh_mod.average_gradients(list(state.D.parameters()), self.world)
         metrics = {"d_loss": d_loss.detach(), "d_loss_real": loss_real.detach(),
                    "d_loss_fake": loss_fake.detach(), "r1": r1.detach()}
         grads = _grads(state.D) if self.return_grads else None
@@ -353,7 +463,7 @@ class TrainStep:
         # z-major: [z0v0, z0v1, ...]
         imgs, flat_pose, _ = self.render_views(mpi, yaws, pitches,
                                                low_res=t.worst_view_render_res)
-        scores = state.D(imgs, flat_pose).reshape(bs, v)
+        scores = self.score(state.D, imgs, flat_pose).reshape(bs, v)
         sel = torch.argmin(scores, dim=1) + torch.arange(bs, device=scores.device) * v
         return yaws[sel], pitches[sel]
 
@@ -376,6 +486,7 @@ class TrainStep:
                 g_loss = g_loss + loss.detach()
         finally:
             state.D.requires_grad_(True)
+        mesh_mod.average_gradients(list(state.G.parameters()), self.world)
         grads = _grads(state.G) if self.return_grads else None
         with record_function("train_step.g_update"):
             for group in state.opt_g.param_groups:  # each group clips by its own norm
@@ -384,8 +495,10 @@ class TrainStep:
             state.G.zero_grad(set_to_none=True)
 
             # w_avg running mean, one update per step from the updated mapping
+            # (over a data axis, from the whole batch's ws)
             with torch.no_grad():
-                state.G.mapping.w_avg.copy_(state.G.mapping.updated_w_avg(state.G.mapping(z)))
+                ws = torch.cat(mesh_mod.all_gather(state.G.mapping(z), self.data_group))
+                state.G.mapping.w_avg.copy_(state.G.mapping.updated_w_avg(ws))
             _ema_update(state.ema, state.G, t.ema_decay)
             _ema_update(state.ema2, state.G, t.ema2_decay)
         return {"g_loss": g_loss}, grads
@@ -401,7 +514,7 @@ class TrainStep:
         for _ in range(self.cfg.train.g_iters):
             g_metrics, grads_g = self.g_phase(state, real_imgs.shape[0], generator)
         state.step += 1
-        metrics = {**d_metrics, **g_metrics}
+        metrics = mesh_mod.all_reduce_mean_dict({**d_metrics, **g_metrics}, self.world)
         if self.return_grads:
             return state, metrics, {"d": grads_d, "g": grads_g}
         return state, metrics

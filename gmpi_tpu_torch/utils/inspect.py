@@ -6,10 +6,9 @@ the reference's ``misc`` toolbox, ``gmpi/models/torch_utils/misc.py``):
   (``misc.print_module_summary``, ``misc.py:196-264``);
 * :func:`profile_scope` -- a named ``torch.profiler`` span
   (``misc.profiled_function``);
-* :func:`trace` -- a ``torch.profiler`` run that writes a Chrome trace.
-
-``check_replica_consistency`` (replicated parameters equal on every device)
-comes with multi-GPU training.
+* :func:`trace` -- a ``torch.profiler`` run that writes a Chrome trace;
+* :func:`check_replica_consistency` -- replicated tensors equal on every rank
+  (``misc.check_ddp_consistency``).
 """
 
 from __future__ import annotations
@@ -19,6 +18,7 @@ import os
 from typing import Mapping, Optional, Sequence, Tuple, Union
 
 import torch
+import torch.distributed as dist
 from torch.profiler import ProfilerActivity, profile, record_function
 
 
@@ -92,3 +92,57 @@ def trace(log_dir: str):
     with profile(activities=activities) as prof:
         yield prof
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+def check_replica_consistency(tensors_or_module: Union[torch.nn.Module, Mapping, Sequence],
+                              group=None, atol: float = 0.0) -> None:
+    """Assert that every rank of ``group`` (the default group when None)
+    holds the same values as its rank 0: DDP's broadcast-and-compare
+    (``misc.check_ddp_consistency``), the counterpart of the JAX function's
+    comparison of a replicated array's shards.  ``tensors_or_module``: a
+    module (its state dict), a mapping of names to tensors, or a sequence of
+    tensors.  Rank 0's values are broadcast (one flat buffer a dtype) and
+    each rank's largest absolute difference per tensor is reduced over the
+    group, so every rank raises alike on divergence, naming the tensor with
+    the largest difference beyond ``atol``.  Without a process group, or in
+    a group of one, it does nothing."""
+    from gmpi_tpu_torch.parallel import mesh as mesh_mod
+
+    if not (dist.is_available() and dist.is_initialized()):
+        return
+    group = group if group is not None else dist.group.WORLD
+    if dist.get_world_size(group) == 1:
+        return
+    if isinstance(tensors_or_module, torch.nn.Module):
+        named = tensors_or_module.state_dict()
+    elif isinstance(tensors_or_module, Mapping):
+        named = dict(tensors_or_module)
+    else:
+        named = {str(i): t for i, t in enumerate(tensors_or_module)}
+    names = sorted(named)
+    if not names:
+        return
+    # one device for the buffers (an optimizer's step counts live on the host)
+    dev = next((t.device for t in named.values() if t.device.type != "cpu"),
+               torch.device("cpu"))
+    diffs = torch.zeros(len(names), dtype=torch.float64)
+    for dtype in sorted({named[k].dtype for k in names}, key=str):
+        idx = [i for i, k in enumerate(names) if named[k].dtype == dtype]
+        mine = torch.cat([named[names[i]].detach().reshape(-1).to(dev) for i in idx])
+        ref = mesh_mod.broadcast_(mine.clone(), group, 0)
+        for i, a, b in zip(idx, mine.split([named[names[i]].numel() for i in idx]),
+                           ref.split([named[names[i]].numel() for i in idx])):
+            if a.numel():
+                d = (a.double() - b.double()).abs()
+                # NaN against NaN is a match; NaN against a number is not
+                d = torch.where(torch.isnan(a.double()) & torch.isnan(b.double()), 0.0, d)
+                diffs[i] = float(d.nan_to_num(float("inf")).max())
+    if dist.get_backend(group) != "gloo":  # NCCL reduces device tensors only
+        diffs = diffs.to(dev)
+    mesh_mod.all_reduce_(diffs, group, op=dist.ReduceOp.MAX)
+    diffs = diffs.cpu()
+    if float(diffs.max()) > atol:
+        worst = int(diffs.argmax())
+        raise AssertionError(
+            f"replica divergence at {names[worst]}: max abs diff {float(diffs[worst])} from "
+            f"rank 0 ({int((diffs > atol).sum())} of {len(names)} tensors beyond atol {atol})")

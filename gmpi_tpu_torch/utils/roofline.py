@@ -11,7 +11,7 @@ full power limit).  :func:`chip_for` picks one from
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, Optional
 
 
 @dataclasses.dataclass(frozen=True)
@@ -42,6 +42,7 @@ def render_cost(
     backward: bool = False,
     bytes_per_el: int = 4,
     patch_overread: float = 2.5,
+    tex_bytes_per_el: Optional[int] = None,
 ) -> Dict[str, float]:
     """Least-traffic and arithmetic model of warp + composite.
 
@@ -50,13 +51,16 @@ def render_cost(
     writes the composited image, and does ~11 operations a tap for the
     bilinear combine and ~10 a plane and pixel for the over-composite.  The
     backward about doubles the traffic (the texture gradient's writes) and
-    the arithmetic.
+    the arithmetic.  ``tex_bytes_per_el`` (default ``bytes_per_el``) is the
+    size of a texel read alone: 2 for the fused forward's bf16-texture form,
+    whose images (and texture gradient) stay 4 bytes an element.
     """
     p_out = n_views * n_planes * img_h * img_w  # warped samples
     tex_bytes = n_views * n_planes * 4 * tex_h * tex_w * bytes_per_el
     out_bytes = n_views * 4 * img_h * img_w * bytes_per_el
-
     read_bytes = tex_bytes * patch_overread
+    if tex_bytes_per_el is not None:
+        read_bytes = read_bytes * tex_bytes_per_el / bytes_per_el
     write_bytes = out_bytes
     warp_flops = p_out * 4 * 11  # 4 channels, ~11 operations a bilinear sample
     composite_flops = p_out * 4 * 10

@@ -439,6 +439,51 @@ def test_fused_fwd_kernel_matches_plain_version_at_the_edges(cuda, case, stack):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("stack", ["uniform", "sparse", "opaque_mid"])
+@pytest.mark.parametrize("case", ["main"] + list(EDGES))
+def test_fused_fwd_bf16_kernel_matches_plain_version(cuda, case, stack):
+    """The forward kernel's bf16-texture form against its bf16 plain version
+    (the same weights and roundings; 1e-4 absolute, the fp32 form's gate) at
+    a 128^2 scene of 8 planes and at the edges above (the unaligned slab
+    takes the kernel's copy of texels without 16-byte copies), in every
+    ``early_out`` mode with the residual; ``n_live`` may move by a plane at
+    the grad-safe threshold.  Never against the fp32 kernel: bf16 alphas may
+    stop a pixel elsewhere."""
+    if case == "main":
+        geom, (ray_dir, eye, z_dir) = _scene(cuda, 8, 128, [0.5, -0.1, 0.2], [0.2, 0.0, -0.1])
+        th = tw = 128
+        scal = fused_render.plane_affine(geom.dhw, eye, th, tw).contiguous()
+        rx, ry, q = (x.contiguous() for x in fused_render.ray_fields(ray_dir, z_dir))
+        tweak, n_l = None, 8
+    else:
+        _, (th, tw), tweak, (rx, ry, q, scal) = _edge_scene(cuda, case)
+        n_l = N_EDGE_PLANES
+    g = torch.Generator(device=cuda).manual_seed(8)
+    parent = torch.rand((3, n_l + 4, 4, th, tw), device=cuda, generator=g)
+    if stack != "uniform":
+        parent[:, :, 3] *= 0.05
+    if stack == "opaque_mid":
+        parent[:, 5:8, 3] = 1.0
+    parent = parent.to(torch.bfloat16)
+    tex = _unaligned_copy(parent)[:, 2:2 + n_l] if tweak == "slab" else \
+        parent[:, 2:2 + n_l].contiguous()
+    real = torch.isfinite(rx) & torch.isfinite(ry)
+    before = fused_render.LAUNCHES["fused_fwd"]
+    for early_out in (False, True, "grad"):
+        kw = dict(early_out=early_out, with_disp=True, with_warped=early_out is not True)
+        out = fused_render.warp_composite_fwd(tex, rx, ry, q, scal, **kw)
+        ref = fused_render.warp_composite_fwd_ref(tex, rx, ry, q, scal, **kw)
+        torch.cuda.synchronize()
+        for a, b in zip(out[:4], ref[:4]):
+            assert float(torch.where(real[:, None], a - b, 0.0).abs().max()) <= TOL
+        if early_out == "grad":
+            assert int(torch.where(real, out[-1] - ref[-1], 0).abs().max()) <= 1
+    assert fused_render.LAUNCHES["fused_fwd"] == before + 3
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        fused_render.warp_composite_fwd(tex.half(), rx, ry, q, scal)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("case", list(EDGES))
 def test_adjoint_kernel_matches_plain_version_at_the_edges(cuda, case):
     """Random cotangents with exact zeros among them; 1e-4 of max|plain|,

@@ -339,9 +339,13 @@ def test_cli_warm_start_and_refusals(tmp_path):
 
     with pytest.raises(FileNotFoundError, match="x.npz"):  # --inception_weights is read
         train_gmpi_torch.main(args + ["--inception_weights", "x.npz"], cfg=cfg)
-    for extra in (["--multihost"], ["--renderer_plane_shards", "2"]):
-        with pytest.raises(NotImplementedError, match="A9"):
-            train_gmpi_torch.main(args + extra, cfg=cfg)
+    # shards without the ranks to hold them, and --multihost without the
+    # environment of torch.distributed.run, raise (multi-process runs:
+    # tests/test_torch_multihost.py)
+    with pytest.raises(ValueError, match="do not divide a world of 1 ranks"):
+        train_gmpi_torch.main(args + ["--renderer_plane_shards", "2"], cfg=cfg)
+    with pytest.raises(ValueError, match="RANK|MASTER"):
+        train_gmpi_torch.main(args + ["--multihost"], cfg=cfg)
     if not torch.cuda.is_available():  # the default device is the card
         with pytest.raises(RuntimeError, match="cuda"):
             train_gmpi_torch.main(data + ["--output_dir", str(tmp_path / "x")], cfg=cfg)

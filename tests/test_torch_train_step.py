@@ -364,13 +364,26 @@ def test_lighting_changes_the_fakes_only_past_its_start():
     ({}, dict(mesh=object()), "A9"),
 ], ids=["renderer_plane_chunk", "debug_ray_check", "bf16_textures", "mesh"])
 def test_switches_not_ported_yet_raise(train, kw, queue):
-    """The switches still to port raise and name their roadmap queue; the two
-    ported since (``queue`` None) build a step."""
+    """Every switch of the step is ported now: the two ported first
+    (``queue`` None) build a non-fused step; bf16 textures (Queue A4) build a
+    step whose fused renders read bf16 and raise on any other dtype name; a
+    mesh (Queue A9) of one rank builds a step, and one that asks for shards
+    without the ranks to hold them raises."""
     if queue is None:
         assert make_train_step(tiny_config(**train), device="cpu", **kw).use_fused is False
-        return
-    with pytest.raises(NotImplementedError, match=queue):
-        make_train_step(tiny_config(**train), device="cpu", **kw)
+    elif queue == "A4":
+        step = make_train_step(tiny_config(use_fused_renderer=True, **train), device="cpu")
+        assert step.compute_dtype == torch.bfloat16
+        with pytest.raises(ValueError, match="fused_compute_dtype"):
+            make_train_step(tiny_config(fused_compute_dtype="fp16"), device="cpu")
+    else:
+        from gmpi_tpu_torch.parallel.mesh import Mesh
+
+        mesh = Mesh([1, 1, 1], ("data", "plane", "tile"), device="cpu")
+        step = make_train_step(tiny_config(), device="cpu", mesh=mesh)
+        assert not step.sharded and step.n_data == 1 and step.world is None
+        with pytest.raises(ValueError, match="needs 2 ranks"):
+            Mesh([2], ("plane",), device="cpu")
 
 
 def test_debug_ray_check_poisons_a_pose_whose_rays_escape():

@@ -1,11 +1,27 @@
 #!/usr/bin/env python
-"""Train GMPI with the PyTorch port ``gmpi_tpu_torch`` on one CUDA card
-(port of ``train_gmpi.py``; the reference's ``launch.py`` / ``run_gmpi.py``):
+"""Train GMPI with the PyTorch port ``gmpi_tpu_torch`` on CUDA cards (port of
+``train_gmpi.py``; the reference's ``launch.py`` / ``run_gmpi.py``):
 
     python train_gmpi_torch.py --dataset FFHQ256 \\
         --data_root ffhq256x256.zip --pose_root ffhq256_deep3dface_coeffs \\
         --output_dir runs/ffhq256 [--warm_start stylegan2_ffhq256_g.npz \\
         --warm_start_d stylegan2_ffhq256_d.npz]
+
+On N cards of a host, one process a card:
+
+    python -m torch.distributed.run --nproc_per_node N train_gmpi_torch.py \\
+        --multihost [--renderer_plane_shards P --renderer_tile_shards T] ...
+
+``--multihost`` initializes ``torch.distributed`` from the environment that
+``torch.distributed.run`` sets (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``,
+``MASTER_ADDR``, ``MASTER_PORT``) with ``--dist_backend`` (``nccl`` on cards,
+``gloo`` with ``--device cpu``; ``gloo`` on cards moves tensors through host
+memory, which lets several ranks share one card).  ``--device cuda`` is
+``cuda:LOCAL_RANK``; ``--device cuda:0`` pins every rank to card 0.  P x T
+ranks render each image together (plane / pixel-row shards) and the rest of
+the world splits the global batch (``--dataset``'s ``batch_size``) evenly
+over data ranks, each reading its own shard of the data; rank 0 writes every
+file (``train.loop``).
 
 The flags are those of ``train_gmpi.py`` plus ``--device`` (``cuda`` by
 default; ``cpu`` runs the plain PyTorch path), ``--sample_interval`` and
@@ -14,8 +30,7 @@ the reference's naming (``train.checkpoint.export_torch_style`` of either
 package writes them).  ``--inception_weights`` (a local ``.npz`` or ``.pth``
 of InceptionV3 under torchvision names) turns on the in-training FID every
 ``--fid_interval`` steps against the dataset's first ``--fid_n_imgs``
-images.  Not ported yet: ``--multihost`` / ``--renderer_*_shards``
-(``ROADMAP`` Queue A9).
+images.
 """
 
 from __future__ import annotations
@@ -50,13 +65,20 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--no_fused_renderer", action="store_true",
                    help="force the gather/banded render path")
     p.add_argument("--renderer_plane_shards", type=int, default=0,
-                   help="shard the renderer's plane axis over cards (not ported yet)")
+                   help="shard the renderer's plane axis over this many ranks (params and "
+                        "batch replicate over them)")
     p.add_argument("--renderer_tile_shards", type=int, default=0,
-                   help="shard output pixel rows over cards (not ported yet)")
+                   help="additionally shard output pixel rows over this many ranks "
+                        "(plane x tile mesh)")
     p.add_argument("--no_resume", action="store_true")
     p.add_argument("--multihost", action="store_true",
-                   help="multi-process training (not ported yet)")
-    p.add_argument("--device", default="cuda", help="torch device (default cuda)")
+                   help="initialize torch.distributed from the environment of "
+                        "python -m torch.distributed.run (one process a card)")
+    p.add_argument("--dist_backend", choices=("nccl", "gloo"), default=None,
+                   help="torch.distributed backend with --multihost (default nccl on a card, "
+                        "gloo with --device cpu)")
+    p.add_argument("--device", default="cuda",
+                   help="torch device (default cuda: cuda:LOCAL_RANK with --multihost)")
     p.add_argument("--sample_interval", type=int, default=200,
                    help="steps between snapshot grids")
     p.add_argument("--model_save_interval", type=int, default=500,
@@ -73,24 +95,54 @@ def main(argv=None, cfg=None, stats=None):
     p = build_parser()
     args = p.parse_args(argv)
 
+    import os
+
     import numpy as np
     import torch
+    import torch.distributed as dist
 
     from gmpi_tpu_torch.config import PRESETS, get_config
-    from gmpi_tpu_torch.data import ShardedLoader, get_dataset
-    from gmpi_tpu_torch.train.loop import train
     from gmpi_tpu_torch.utils.device import resolve_device
 
     if args.dataset not in PRESETS:
         p.error(f"--dataset must be one of {sorted(PRESETS)}")
-    if args.multihost or args.renderer_plane_shards > 1 or args.renderer_tile_shards > 1:
-        raise NotImplementedError("--multihost and --renderer_*_shards (multi-GPU training) "
-                                  "are not ported yet: ROADMAP Queue A9")
-    device = resolve_device(args.device)
+    device = torch.device(args.device)
+    if args.multihost and device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))
+    device = resolve_device(device)
+    if not args.multihost:
+        return _run(args, cfg, stats, device)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    dist.init_process_group(args.dist_backend or ("nccl" if device.type == "cuda" else "gloo"),
+                            init_method="env://")
+    try:
+        return _run(args, cfg, stats, device)
+    finally:
+        dist.destroy_process_group()
+
+
+def _run(args, cfg, stats, device):
+    import numpy as np
+    import torch
+
+    from gmpi_tpu_torch.config import get_config
+    from gmpi_tpu_torch.data import ShardedLoader, get_dataset
+    from gmpi_tpu_torch.train.loop import make_train_mesh, train
+
     cfg = cfg or get_config(args.dataset)
+    tr = cfg.train
     if args.fused_renderer or args.no_fused_renderer:
-        cfg = dataclasses.replace(cfg, train=dataclasses.replace(
-            cfg.train, use_fused_renderer=bool(args.fused_renderer)))
+        tr = dataclasses.replace(tr, use_fused_renderer=bool(args.fused_renderer))
+    if args.renderer_plane_shards or args.renderer_tile_shards:
+        tr = dataclasses.replace(tr, renderer_plane_shards=args.renderer_plane_shards,
+                                 renderer_tile_shards=args.renderer_tile_shards)
+    cfg = dataclasses.replace(cfg, train=tr)
+    mesh = make_train_mesh(cfg, device)
+    n_data = mesh.size("data")
+    if cfg.hparams.batch_size % n_data:
+        raise ValueError(f"batch_size {cfg.hparams.batch_size} does not split over {n_data} "
+                         f"data ranks")
     dataset_name = "FFHQ" if args.dataset.startswith("FFHQ") else args.dataset
     dataset = get_dataset(
         dataset_name,
@@ -102,7 +154,9 @@ def main(argv=None, cfg=None, stats=None):
         sphere_r=cfg.camera.sphere_r,
         flat_pose_dim=cfg.train.d_cond_pose_dim,
     )
-    loader = ShardedLoader(dataset, batch_size=cfg.hparams.batch_size, seed=args.seed)
+    # each data rank reads its own shard, a share of the global batch at a time
+    loader = ShardedLoader(dataset, batch_size=cfg.hparams.batch_size // n_data,
+                           shard_id=mesh.index("data"), num_shards=n_data, seed=args.seed)
 
     init_params_g = init_buffers_g = init_params_d = None
     if args.warm_start:
@@ -123,7 +177,7 @@ def main(argv=None, cfg=None, stats=None):
             generator=torch.Generator().manual_seed(args.seed + 7))
 
     fid_feature_fn = fid_real_images = None
-    if args.inception_weights:
+    if args.inception_weights and mesh.rank == 0:  # rank 0 alone computes the FID
         from gmpi_tpu_torch.eval.inception import load_inception, make_feature_fn
 
         fid_feature_fn = make_feature_fn(load_inception(args.inception_weights), device=device)
@@ -149,6 +203,7 @@ def main(argv=None, cfg=None, stats=None):
         fid_real_images=fid_real_images,
         device=device,
         stats=stats,
+        mesh=mesh,
     )
 
 
