@@ -155,9 +155,9 @@ Phases, each of which raises on failure (nonzero exit, no result line):
    stacks within 2e-2 (the JAX package's gate); K1 fp32, bf16, bf16, fp32 in
    turns at the serving path's MPI, each with its bound (bf16: 2 bytes a
    texel); ``BF16_STEPS`` train steps with ``fused_compute_dtype="bf16"``
-   (launches as phase 4's) beside phase 4's fp32 step and peak GB, and the
-   bf16 route's ``rgba`` gradient against the fp32 route's (2e-2 of
-   max|grad|).  (b) Ranks spawned as ``python3 chip_smoke.py --rank <job>
+   (launches as phase 4's) beside phase 4's fp32 step and peak GB, then
+   fp32 and bf16 steps in turns on two states from one seed, and the bf16
+   route's ``rgba`` gradient against the fp32 route's (2e-2 of max|grad|).  (b) Ranks spawned as ``python3 chip_smoke.py --rank <job>
    <rank> <world> <dir>``, every one on ``cuda:0``: 2 ranks over gloo render
    plane-sharded (the fused slab kernel per rank), pipelined and
    tile-sharded (fused, and banded with K7 per shard) at 4 views x 96
@@ -1764,6 +1764,21 @@ def bf16_phase(fr, cfg, card, chip, dev, fp32_step):
         f"{peak:.2f} GB; phase 4's fp32 step: median {fp32_step['ms']:.1f} ms, D "
         f"{fp32_step['d_ms']:.1f} G {fp32_step['g_ms']:.1f}, peak {fp32_step['peak_gb']:.2f} "
         f"GB ({card})")
+    # an fp32 state from the same seed, one step to warm it (Adam's moments), then
+    # whole steps in turns: fp32, bf16, bf16, fp32, each with its own peak
+    state32 = init_train_state(cfg, torch.Generator().manual_seed(0), device=dev)
+    step32 = make_train_step(cfg, device=dev)
+    step32(state32, real, real_pose, rng)
+    in_turns = []
+    for tag, st, fn in (("fp32", state32, step32), ("bf16", state, step), ("bf16", state, step),
+                        ("fp32", state32, step32)):
+        torch.cuda.reset_peak_memory_stats()
+        _, ms = host_ms(lambda: fn(st, real, real_pose, rng))
+        in_turns.append((tag, ms, torch.cuda.max_memory_allocated() / 1e9))
+    log("train steps in turns (fp32, bf16, bf16, fp32; host clock, peak GB each): "
+        + ", ".join(f"{tag} {ms:.1f} ms {gb:.2f} GB" for tag, ms, gb in in_turns) + f" ({card})")
+    record["step_turns"] = in_turns
+    del state32, step32
     # the rgba gradient of the bf16 route against the fp32 route's
     z = torch.randn((bs, cfg.train.z_dim), generator=rng).to(dev)
     with torch.no_grad():
