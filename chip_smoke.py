@@ -167,7 +167,8 @@ Phases, each of which raises on failure (nonzero exit, no result line):
    collectives a step, ``check_replica_consistency(atol=0)`` over the whole
    state after each); 4 ranks render plane x tile 2 x 2 (fused and banded)
    with the same gates; 2 ranks run ``train_gmpi_torch.main --multihost
-   --dist_backend gloo --device cuda:0`` data-parallel on a dataset like
+   --device cuda:0`` (which picks gloo for ranks that share a card)
+   data-parallel on a dataset like
    phase 8's (global batch 8, 4 a rank, 2 steps: disjoint shards, rank 0
    alone saves, equal replicas); one rank in an NCCL group renders through
    the same sharded calls with groups of one, so that NCCL gathers and
@@ -2071,10 +2072,11 @@ def _rank_train(dev, fr, record):
 
 
 def _rank_cli(rank, world, work, fr):
-    """This rank of ``train_gmpi_torch.main --multihost --dist_backend gloo
-    --device cuda:0``: data-parallel FFHQ256 (global batch 8, 4 a rank), 2
-    steps on the phase's dataset; its loader shard, its checkpoint saves,
-    its metrics and step ms, and the replicas checked after training."""
+    """This rank of ``train_gmpi_torch.main --multihost --device cuda:0``:
+    data-parallel FFHQ256 (global batch 8, 4 a rank), 2 steps on the phase's
+    dataset; the backend the CLI chose, its loader shard, its checkpoint
+    saves, its metrics and step ms, and the replicas checked after
+    training."""
     import hashlib
     import os
 
@@ -2101,16 +2103,25 @@ def _rank_cli(rank, world, work, fr):
         shards.append([self.shard_id, self.num_shards, self.batch_size,
                        [int(i) for i in self._epoch_indices(0)]])
 
+    backends, real_group = [], dist.init_process_group
+
+    def recorded_group(backend=None, **kw):
+        backends.append(backend)
+        return real_group(backend, **kw)
+
     loop_mod.save_checkpoint = counted_save
     loader_mod.ShardedLoader.__init__ = recorded_init
+    dist.init_process_group = recorded_group
     reset_counts(fr)
     stats = LoopStats()
     state = train_gmpi_torch.main(
         ["--dataset", "FFHQ256", "--data_root", zpath, "--pose_root", pose_dir,
-         "--output_dir", os.path.join(work, "cli_run"), "--multihost", "--dist_backend", "gloo",
-         "--device", RANK_DEVICE, "--total_iters", str(RANK_STEPS), "--seed", "5",
+         "--output_dir", os.path.join(work, "cli_run"), "--multihost", "--device", RANK_DEVICE, "--total_iters", str(RANK_STEPS), "--seed", "5",
          "--sample_interval", "1000", "--model_save_interval", "1000"], stats=stats)
     launches = dict(fr.LAUNCHES)
+    dist.init_process_group = real_group
+    if backends != ["gloo"]:  # two ranks on one card: NCCL would refuse them
+        raise RuntimeError(f"CLI rank {rank}: process groups {backends}, expected gloo")
     dist.init_process_group("gloo", init_method=f"file://{work}/cli_check.rendezvous",
                             rank=rank, world_size=world)
     try:

@@ -17,9 +17,9 @@ each axis and its device: ``cuda:LOCAL_RANK`` unless the caller names one.
 
 The collectives below are the one place where the transport is chosen: a
 group whose backend is ``gloo`` moves CUDA tensors through host memory (gloo
-reduces and broadcasts CUDA tensors but gathers and exchanges only host
-ones); any other backend (NCCL) moves device tensors directly.  Each counts
-the bytes this rank hands to it in ``COLLECTIVE_BYTES``.  A group of None (a
+reduces and broadcasts CUDA tensors but gathers only host ones); any other
+backend (NCCL) moves device tensors directly.  Each counts the bytes this
+rank hands to it in ``COLLECTIVE_BYTES``.  A group of None (a
 mesh axis of size 1 without a process group) is a world of one: every
 collective is the identity.
 """
@@ -35,7 +35,7 @@ import torch
 import torch.distributed as dist
 
 # payload bytes this rank handed to collectives (all-gather: its own tensor;
-# all-reduce and broadcast: the tensor; exchange: what it sends)
+# all-reduce and broadcast: the tensor)
 COLLECTIVE_BYTES = {"bytes": 0}
 
 
@@ -114,21 +114,6 @@ def broadcast_(t: torch.Tensor, group, src: int = 0) -> torch.Tensor:
     else:
         dist.broadcast(t, src=root, group=group)
     return t
-
-
-def exchange(t: torch.Tensor, peer: int, group) -> torch.Tensor:
-    """Send ``t`` to group rank ``peer`` and receive its tensor of the same
-    shape (both ranks call it naming each other); no gradient."""
-    COLLECTIVE_BYTES["bytes"] += t.numel() * t.element_size()
-    src = t.detach().contiguous()
-    if _staged(src, group):
-        src = src.cpu()
-    recv = torch.empty_like(src)
-    other = dist.get_global_rank(group, peer)
-    for work in dist.batch_isend_irecv([dist.P2POp(dist.isend, src, other, group),
-                                        dist.P2POp(dist.irecv, recv, other, group)]):
-        work.wait()
-    return recv.to(t.device)
 
 
 # -- autograd across ranks -------------------------------------------------------

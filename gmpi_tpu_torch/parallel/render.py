@@ -13,9 +13,9 @@ renders only its share:
 * **Plane sharding** — the plane axis split into contiguous slabs over the
   ``plane`` group; each rank composites its slab into premultiplied partials
   ``(color_pre, depth_pre[, disp_pre], trans)`` and the partials combine in
-  plane order, front shard first, ``(c_f + T_f * c_b, ..., T_f * T_b)``: by a
-  butterfly of pairwise exchanges for a power-of-two group, else gathered and
-  folded.  Exact: over-compositing is associative over contiguous slabs.
+  plane order, front shard first, ``(c_f + T_f * c_b, ..., T_f * T_b)``:
+  gathered and folded on every rank, whatever the group's size.  Exact:
+  over-compositing is associative over contiguous slabs.
 
 Gradients.  Every rank computes the same loss on the same full image, so the
 gathered results from other ranks enter as constants and this rank's own
@@ -55,39 +55,26 @@ def _unpack(flat: torch.Tensor, like: Sequence[torch.Tensor]) -> Tuple[torch.Ten
     return tuple(x.view_as(t) for x, t in zip(flat.split([t.numel() for t in like]), like))
 
 
-def ordered_allcombine(part: Sequence[torch.Tensor], group) -> Tuple[torch.Tensor, ...]:
-    """Ordered combine of every rank's slab partials over ``group`` (group
-    rank order = plane order) in log2(n) butterfly steps: at step k each rank
-    exchanges its partial with rank ``i ^ k`` and folds the pair front first,
-    so after log2(n) steps every rank holds the whole composite.  The partner's
-    partial enters as a constant (see the module doc).  Needs a power-of-two
-    group."""
-    n, idx = mesh_mod.group_size(group), mesh_mod.group_rank(group)
-    if n & (n - 1):
-        raise ValueError(f"butterfly combine needs a power-of-two group, got {n}")
-    part = tuple(part)
-    k = 1
-    while k < n:
-        recv = _unpack(mesh_mod.exchange(_pack(part), idx ^ k, group), part)
-        part = combine_segments(part, recv) if idx & k == 0 else combine_segments(recv, part)
-        k *= 2
-    return part
-
-
-def _gather_fold(part: Sequence[torch.Tensor], group) -> Tuple[torch.Tensor, ...]:
-    """Every rank's partials gathered and folded front to back."""
-    part = tuple(part)
-    slots = mesh_mod.gather_own_live(_pack(part), group)
+def _fold(part: Tuple[torch.Tensor, ...], slots: Sequence[torch.Tensor],
+          own: int) -> Tuple[torch.Tensor, ...]:
+    """Fold every rank's packed partials front to back, this rank's slot
+    ``own`` being ``part`` itself (its graph kept)."""
     carry = None
     for i, flat in enumerate(slots):
-        p = part if i == mesh_mod.group_rank(group) else _unpack(flat, part)
+        p = part if i == own else _unpack(flat, part)
         carry = p if carry is None else combine_segments(carry, p)
     return carry
 
 
-def _combine(part, group):
-    n = mesh_mod.group_size(group)
-    return ordered_allcombine(part, group) if n & (n - 1) == 0 else _gather_fold(part, group)
+def ordered_allcombine(part: Sequence[torch.Tensor], group) -> Tuple[torch.Tensor, ...]:
+    """Ordered combine of every rank's slab partials over ``group`` (group
+    rank order = plane order): the partials are all-gathered and every rank
+    folds them front to back, so every rank holds the whole composite.  The
+    other ranks' partials enter as constants (see the module doc).  Any group
+    size; each rank receives ``n - 1`` partials (the JAX package's butterfly
+    for power-of-two groups receives ``log2(n)``: the same at ``n = 2``)."""
+    part = tuple(part)
+    return _fold(part, mesh_mod.all_gather(_pack(part), group), mesh_mod.group_rank(group))
 
 
 def _rows(x: torch.Tensor, group) -> torch.Tensor:
@@ -176,7 +163,7 @@ def render_mpi_plane_sharded(mesh: Mesh, rgba: torch.Tensor, dhw: torch.Tensor,
     part = _slab_partial(mesh_mod.shard_planes(rgba, group), dhw[i * c:(i + 1) * c], ray_dir,
                          eye_pos, z_dir, align_corners, tiled_bands, patch_backend, slab_fn,
                          with_disp)
-    return _output(_combine(part, group), with_disp)
+    return _output(ordered_allcombine(part, group), with_disp)
 
 
 def render_mpi_plane_sharded_pipelined(mesh: Mesh, rgba: torch.Tensor, dhw: torch.Tensor,
@@ -208,19 +195,12 @@ def render_mpi_plane_sharded_pipelined(mesh: Mesh, rgba: torch.Tensor, dhw: torc
         return _slab_partial(mine[:, k * c:(k + 1) * c], dhw_r[k], ray_dir, eye_pos, z_dir,
                              align_corners, tiled_bands, patch_backend, slab_fn, with_disp)
 
-    def fold(part, pending):
-        carry = None
-        for j, flat in enumerate(pending.wait()):
-            p = part if j == i else _unpack(flat, part)
-            carry = p if carry is None else combine_segments(carry, p)
-        return carry
-
     acc = None
     part = sub_partial(0)
     for k in range(n_sub):
         pending = mesh_mod.AsyncGather(_pack(part), group)
         nxt = sub_partial(k + 1) if k + 1 < n_sub else None  # the warp of k + 1 ...
-        combined = fold(part, pending)                      # ... while k is on the wire
+        combined = _fold(part, pending.wait(), i)           # ... while k is on the wire
         acc = combined if acc is None else combine_segments(acc, combined)
         part = nxt
     return _output(acc, with_disp)
@@ -244,5 +224,5 @@ def render_mpi_plane_tile_sharded(mesh: Mesh, rgba: torch.Tensor, dhw: torch.Ten
     slab = mesh_mod.replicated_input(mesh_mod.shard_planes(rgba, pg), tg)
     part = _slab_partial(slab, dhw[i * c:(i + 1) * c], _rows(ray_dir, tg), eye_pos, z_dir,
                          align_corners, tiled_bands, patch_backend, slab_fn, with_disp)
-    outs = _combine(part, pg)[:-1]
+    outs = ordered_allcombine(part, pg)[:-1]
     return _output(tuple(_gather_rows(x, tg) for x in outs), with_disp)

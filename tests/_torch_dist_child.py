@@ -9,12 +9,15 @@ package (its result records which of the two were imported).  Each job
 reads ``<work_dir>/inputs.npz`` (written by the test) and writes
 ``<work_dir>/result_<rank>.pt``.  :func:`spawn` runs one job in ``world``
 processes and returns every rank's result, raising with the output of a rank
-that failed.
+that failed (:func:`start` and :func:`finish` split it, so that the caller
+can work while the children run).
 """
 
 import os
 import subprocess
 import sys
+
+import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
@@ -25,29 +28,46 @@ GEOM_KW = dict(min_d=0.95, max_d=1.12, distance_sample_method="inverse", fov_deg
                confined=True)
 
 
-def spawn(job: str, world: int, work_dir: str, timeout: float = 300.0, env=None):
-    """Run ``job`` in ``world`` child processes; every rank's result dict."""
-    import torch
-
+def start(job: str, world: int, work_dir: str, env=None):
+    """Start ``job`` in ``world`` child processes (their output goes to
+    ``<work_dir>/out_<rank>.txt``); :func:`finish` collects them."""
     env = dict(os.environ, **(env or {}))
     env["PYTHONPATH"] = os.pathsep.join([ROOT] + env.get("PYTHONPATH", "").split(os.pathsep))
     env.setdefault("OMP_NUM_THREADS", "1")
-    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), job, str(r),
-                               str(world), str(work_dir)], env=env, stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT, text=True) for r in range(world)]
-    outs = []
+    procs = []
+    for r in range(world):
+        with open(os.path.join(work_dir, f"out_{r}.txt"), "w") as log:
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), job, str(r), str(world),
+                 str(work_dir)], env=env, stdout=log, stderr=subprocess.STDOUT))
+    return procs
+
+
+def finish(procs, work_dir: str, timeout: float = 300.0):
+    """Wait for the children of :func:`start`; every rank's result dict,
+    raising with the output of a rank that failed."""
+    import torch
+
     try:
         for p in procs:
-            outs.append(p.communicate(timeout=timeout)[0])
+            p.wait(timeout=timeout)
     finally:
         for p in procs:
             if p.poll() is None:
                 p.kill()
-    for r, (p, out) in enumerate(zip(procs, outs)):
+                p.wait()
+    for r, p in enumerate(procs):
         if p.returncode != 0:
-            raise RuntimeError(f"{job}: rank {r} of {world} exited {p.returncode}\n{out[-6000:]}")
+            with open(os.path.join(work_dir, f"out_{r}.txt")) as log:
+                out = log.read()
+            raise RuntimeError(f"rank {r} of {len(procs)} exited {p.returncode}\n{out[-6000:]}")
     return [torch.load(os.path.join(work_dir, f"result_{r}.pt"), weights_only=False)
-            for r in range(world)]
+            for r in range(len(procs))]
+
+
+def spawn(job: str, world: int, work_dir: str, timeout: float = 300.0, env=None):
+    """Run ``job`` in ``world`` child processes; every rank's result dict."""
+    return finish(start(job, world, work_dir, env), work_dir, timeout)
 
 
 def _geometry(n_planes):
@@ -155,17 +175,22 @@ def tiny_config(**train):
     16, 4 planes, width 32), with the sharded tests' settings: D frozen (Adam's
     first step is ``lr * sign(g)``, so rounding noise in a near-zero D
     gradient would move D and every later number) and worst views chosen at
-    16^2 by the gather path in every layout."""
+    16^2 by the gather path in every layout.  ``resolution`` and ``n_planes``
+    resize it (the JAX package's fused kernels need 128 pixels)."""
+    import dataclasses
+
     from gmpi_tpu_torch import config as tcfg
     from gmpi_tpu_torch.core.poses import SphereCameraConfig
 
     batch = train.pop("batch_size", 4)
     mbstd = train.pop("mbstd_group_size", 2)
-    return tcfg.ExperimentConfig(
+    res = train.pop("resolution", 16)
+    n_planes = train.pop("n_planes", 4)
+    cfg = tcfg.ExperimentConfig(
         name="tiny", resolution=16, fov_deg=12.6,
         camera=SphereCameraConfig(sphere_center_z=1.0, sphere_r=1.0, yaw_mean=0.0,
                                   yaw_std=0.289, pitch_mean=0.0, pitch_std=0.127),
-        planes=tcfg.PlaneConfig(n_planes=4, min_d=0.95, max_d=1.12),
+        planes=tcfg.PlaneConfig(n_planes=n_planes, min_d=0.95, max_d=1.12),
         hparams=tcfg.StepHparams(batch_size=batch, img_size=16, tex_size=16, batch_split=1,
                                  gen_lr=0.002, disc_lr=0.002),
         train=tcfg.TrainHparams(**{**dict(z_dim=32, w_dim=32, n_view_per_z=2,
@@ -175,6 +200,8 @@ def tiny_config(**train):
         model=tcfg.ModelPreset(channel_base=512, channel_max=32, num_bf16_res=0,
                                conv_clamp=None, gen_alpha_largest_res=16,
                                mbstd_group_size=mbstd))
+    return dataclasses.replace(cfg, resolution=res, hparams=dataclasses.replace(
+        cfg.hparams, img_size=res, tex_size=res))
 
 
 # the layouts of the step tests: name -> (mesh axes, sizes, config overrides)
@@ -190,6 +217,22 @@ STEP_CASES = {
 }
 
 
+# the layouts held against the JAX package's step on the same mesh (the
+# tests/_torch_jax_step.py reference): name -> (mesh axes, sizes, overrides);
+# the fused fp32 layouts at 16^2 against the JAX step's gather route (the
+# JAX kernels need 128 pixels), bf16 textures at 128^2 against its fused slab
+JAX_CASES = {
+    2: {"plane": STEP_CASES[2]["plane"],
+        "tile_fused": STEP_CASES[2]["tile_fused"],
+        "data": STEP_CASES[2]["data"],
+        "plane_fused_bf16_128": (("plane",), (2,), dict(
+            use_fused_renderer=True, fused_compute_dtype="bf16", resolution=128, n_planes=2,
+            batch_size=2))},
+    4: {"plane_tile": STEP_CASES[4]["plane_tile"],
+        "plane_tile_fused": STEP_CASES[4]["plane_tile_fused"]},
+}
+
+
 def step_batch(cfg, seed=0):
     import numpy as np
 
@@ -199,21 +242,80 @@ def step_batch(cfg, seed=0):
             rng.standard_normal((bs, 16)).astype(np.float32))
 
 
-def run_step(cfg, mesh=None, seed=0):
-    """One step of a fresh state (weights from ``seed``) on ``step_batch``
-    (this rank's share over a data axis): ``(state, metrics, grads)``."""
+class inject_draws:
+    """Hand a train step the random numbers of the JAX step
+    (``tests/_torch_jax_step.jax_draws``): its z and camera and light angles
+    (whole batch; the step keeps this rank's share), and constant synthesis
+    noise.  A context manager; the draws must all be taken."""
+
+    def __init__(self, step, draws):
+        import torch
+
+        from gmpi_tpu_torch.core import poses
+
+        self.step, self.poses = step, poses
+        self.z = [torch.tensor(np.asarray(z)) for z in draws["z"]]
+        self.views = [tuple(torch.tensor(np.asarray(a)) for a in v) for v in draws["views"]]
+
+    def _z(self, generator, n):
+        z = self.z.pop(0)
+        assert z.shape[0] == n * self.step.n_data, (z.shape, n)
+        return z[self.step._data_share(n)] if self.step.n_data > 1 else z
+
+    def _angles(self, generator, n, cfg, device="cuda"):
+        yaws, pitches = self.views.pop(0)
+        assert yaws.shape[0] == n, (yaws.shape, n)
+        return yaws.to(device), pitches.to(device)
+
+    def _synth(self, G, z, generator, noise_mode="random"):
+        return self.synth(G, z, generator, "const")
+
+    def __enter__(self):
+        self.synth, self.sample = self.step.synth, self.poses.sample_yaw_pitch
+        self.step._sample_z, self.step.synth = self._z, self._synth
+        self.poses.sample_yaw_pitch = self._angles
+        return self
+
+    def __exit__(self, *exc):
+        self.poses.sample_yaw_pitch = self.sample
+        del self.step._sample_z, self.step.synth
+        if exc[0] is None:
+            assert not self.z and not self.views, "draws left over"
+
+
+def run_step(cfg, mesh=None, seed=0, params=None, draws=None):
+    """One step of a fresh state (weights from ``seed``, or ``params``: the
+    state dicts of G and D, with both EMAs on G's parameters) on
+    ``step_batch`` (this rank's share over a data axis), drawing from a
+    generator or taking ``draws``: ``(state, metrics, grads)``."""
+    import contextlib
+
     import torch
 
     from gmpi_tpu_torch.parallel.mesh import batch_share
     from gmpi_tpu_torch.train import init_train_state, make_train_step
 
     state = init_train_state(cfg, torch.Generator().manual_seed(seed), device="cpu")
+    if params is not None:
+        state.G.load_state_dict(params["G"], strict=True)
+        state.D.load_state_dict(params["D"], strict=True)
+        state.ema = {k: p.detach().clone() for k, p in state.G.named_parameters()}
+        state.ema2 = {k: v.clone() for k, v in state.ema.items()}
     step = make_train_step(cfg, device="cpu", mesh=mesh, return_grads=True)
     real, pose = step_batch(cfg)
     share = batch_share(mesh, real.shape[0])
-    _, metrics, grads = step(state, torch.from_numpy(real[share]), torch.from_numpy(pose[share]),
-                             torch.Generator().manual_seed(seed + 7))
+    with inject_draws(step, draws) if draws is not None else contextlib.nullcontext():
+        _, metrics, grads = step(state, torch.from_numpy(real[share]),
+                                 torch.from_numpy(pose[share]),
+                                 torch.Generator().manual_seed(seed + 7))
     return state, {k: float(v) for k, v in metrics.items()}, grads
+
+
+def step_record(state, metrics, grads):
+    """What a step test compares: metrics, gradients, G's state and EMAs."""
+    return {"metrics": metrics, "grads": grads,
+            "G": {k: v.detach().clone() for k, v in state.G.state_dict().items()},
+            "ema": dict(state.ema), "ema2": dict(state.ema2)}
 
 
 def job_step(rank, world, work, inputs):
@@ -237,6 +339,14 @@ def job_step(rank, world, work, inputs):
         out[name] = {"metrics": metrics, "grads": grads, "step": state.step,
                      "finite": all(bool(torch.isfinite(v).all())
                                    for v in state_tensors(state).values())}
+    # from the JAX package's state, on its draws
+    for name, (axes, sizes, over) in JAX_CASES[world].items():
+        ref = torch.load(os.path.join(work, f"jax_{name}.pt"), weights_only=False)
+        mesh = Mesh(sizes, axes, device="cpu")
+        state, metrics, grads = run_step(tiny_config(**over), mesh, params=ref["params"],
+                                         draws=ref["draws"])
+        check_replica_consistency(state_tensors(state), atol=0.0)
+        out["jax_" + name] = step_record(state, metrics, grads)
     # a perturbed replica is caught, on every rank
     state = init_train_state(tiny_config(), torch.Generator().manual_seed(0), device="cpu")
     if rank == world - 1:
@@ -272,8 +382,9 @@ def job_step(rank, world, work, inputs):
 
 
 def job_cli(rank, world, work, inputs):
-    """``train_gmpi_torch.main --multihost`` on the tiny config: the loader's
-    shard, who wrote checkpoints, the replicas after training."""
+    """``train_gmpi_torch.main --multihost`` on the tiny config: the process
+    group's backend, the loader's shard, who wrote checkpoints, the replicas
+    after training."""
     import torch
     import torch.distributed as dist
 
@@ -295,11 +406,19 @@ def job_cli(rank, world, work, inputs):
         shards.append((self.shard_id, self.num_shards, self.batch_size,
                        [int(i) for i in self._epoch_indices(0)]))
 
+    backends, real_group = [], dist.init_process_group
+
+    def recorded_group(backend=None, **kw):
+        backends.append(backend)
+        return real_group(backend, **kw)
+
     loop_mod.save_checkpoint = counted_save
     loader_mod.ShardedLoader.__init__ = recorded_init
+    dist.init_process_group = recorded_group
     cfg = tiny_config(batch_size=4, mbstd_group_size=4, train_d=True)
     argv = [str(a) for a in inputs["argv"]]
     state = train_gmpi_torch.main(argv, cfg=cfg)
+    dist.init_process_group = real_group
     # main() has closed its group: a fresh one for the replica check
     dist.init_process_group("gloo", init_method=f"file://{work}/rendezvous_check", rank=rank,
                             world_size=world)
@@ -307,7 +426,8 @@ def job_cli(rank, world, work, inputs):
 
     check_replica_consistency(state_tensors(state), atol=0.0)
     digest = {k: v.detach().clone() for k, v in state.G.state_dict().items()}
-    return {"saves": saves, "shards": shards, "step": state.step, "G": digest}
+    return {"saves": saves, "shards": shards, "step": state.step, "G": digest,
+            "backends": backends}
 
 
 JOBS = {"render": job_render, "step": job_step, "cli": job_cli}

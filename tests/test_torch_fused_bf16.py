@@ -10,9 +10,13 @@ whose front plane is opaque: the inference form and the training form
 within 1e-5 absolute (measured: 3.1e-6; the rest is the order of the JAX
 kernel's fp32 sums and rare bf16 ties of a hat), and the ``rgba`` gradient
 within 1e-3 of its largest entry (the backward is fp32 in both packages).
-Then the train step with ``fused_compute_dtype="bf16"``: every fused render
-of the step reads bf16 textures, and its metrics and gradients stay within
-the bf16 render's error of the fp32 fused step's.  The CUDA kernel's bf16
+Then the train step with ``fused_compute_dtype="bf16"`` at 128^2, 2 planes,
+batch 2, held against the JAX step with the same settings (its kernels in
+interpret mode, ``precision="bf16x3"``) from the same state on the same
+draws (``tests/_torch_jax_step.py``, whose ``BF16_GATES`` state the gates
+and what they measure); and, as a further check, every fused render of the
+step reads bf16 textures, and its metrics and gradients stay within the bf16
+render's error of the fp32 fused step's.  The CUDA kernel's bf16
 form is held against this plain version by ``tests/test_torch_cuda.py`` and
 ``chip_smoke.py`` on the card.
 """
@@ -118,6 +122,25 @@ def test_training_form_and_gradient_match_jax_bf16(case, stack):
     assert grad.dtype == torch.float32
     scale = float(np.abs(ref_grad).max())
     assert float(np.abs(grad.numpy() - ref_grad).max()) <= GRAD_REL * scale
+
+
+def test_bf16_step_matches_jax_bf16_step():
+    """The whole step, fused with bf16 textures, against the JAX step with
+    ``use_fused_renderer=True, fused_compute_dtype="bf16"``: metrics, every
+    D and G gradient, G's state and EMAs after the update."""
+    from tests import _torch_dist_child as child
+    from tests import _torch_jax_step as jax_step
+
+    cfg = child.tiny_config(use_fused_renderer=True, fused_compute_dtype="bf16", resolution=128,
+                            n_planes=2, batch_size=2)
+    cfg_j = jax_step.jax_config(cfg)
+    st = jax_step.jax_state(cfg_j)
+    real, pose = child.step_batch(cfg)
+    ref = jax_step.run_jax_step(cfg_j, st, real, pose)
+    state, metrics, grads = child.run_step(cfg, params=jax_step.port_params(st),
+                                           draws=jax_step.jax_draws(cfg_j))
+    jax_step.assert_step_matches(ref, child.step_record(state, metrics, grads),
+                                 **jax_step.BF16_GATES)
 
 
 def test_bf16_step_reads_bf16_and_tracks_the_fp32_step(monkeypatch):

@@ -1,5 +1,5 @@
-"""Two processes of ``train_gmpi_torch.py --multihost --dist_backend gloo
---device cpu`` on localhost, mirroring ``tests/test_multihost.py``.
+"""Two processes of ``train_gmpi_torch.py --multihost --device cpu`` on
+localhost, mirroring ``tests/test_multihost.py``.
 
 Each child (``tests/_torch_dist_child.py``, job ``cli``) sets the
 environment that ``python -m torch.distributed.run`` would (``RANK``,
@@ -8,7 +8,8 @@ test, a port from a bound socket) and calls ``train_gmpi_torch.main`` on the
 tiny config over a 16^2 fixture dataset of 7 usable images: a data mesh of
 2, a global batch of 4 (2 a rank), 2 steps.  The loader shards are disjoint
 and complete with DistributedSampler padding (7 images -> 4 a shard, one
-wrapped around), only rank 0 writes checkpoints, the ranks end with
+wrapped around), the CLI made a ``gloo`` group (the CPU's backend), only
+rank 0 writes checkpoints, the ranks end with
 identical parameters (``check_replica_consistency(atol=0)`` in the children,
 bitwise G here), and neither child imported JAX.
 """
@@ -36,13 +37,15 @@ def test_two_process_cli(tmp_path):
     data = _ffhq16(tmp_path, n=8)  # one image fail-listed: 7 usable
     out = tmp_path / "run"
     argv = data + ["--output_dir", str(out), "--device", "cpu", "--multihost",
-                   "--dist_backend", "gloo", "--total_iters", "2", "--seed", "3",
+                   "--total_iters", "2", "--seed", "3",
                    "--sample_interval", "1", "--model_save_interval", "1"]
     np.savez(tmp_path / "inputs.npz", argv=np.array(argv, dtype=object))
     results = child.spawn("cli", 2, str(tmp_path), timeout=400,
                           env={"MASTER_ADDR": "localhost", "MASTER_PORT": str(_free_port())})
 
-    # 1. the ranks' shards: disjoint and complete, padded to equal size
+    # 1. the CLI's process group on the CPU is gloo's; the ranks' shards are
+    # disjoint and complete, padded to equal size
+    assert [r["backends"] for r in results] == [["gloo"], ["gloo"]]
     shards = [r["shards"] for r in results]
     assert all(len(s) == 1 for s in shards)
     (id0, n0, b0, idx0), (id1, n1, b1, idx1) = shards[0][0], shards[1][0]

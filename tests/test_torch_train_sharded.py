@@ -2,22 +2,31 @@
 mesh=...)``), mirroring ``tests/test_train_sharded.py``.
 
 The tiny config (resolution 16, 4 planes, width 32, D frozen, worst views
-at 16^2) steps once from the same seeded state in ``gloo`` groups of 2 and 4
-ranks on the CPU (one spawn each: ``tests/_torch_dist_child.py``) over
-``("plane",)``, ``("tile",)``, ``("plane", "tile")`` and ``("data",)``
-meshes, fused (the kernels' plain versions, bf16 textures in one case) and
-not, and once in this process without a mesh.  The metrics and every D and
-G gradient agree within 1e-4 relative to each tensor's largest entry, the
-JAX package's own gate for its sharded step (1e-3 with bf16 textures, see
-``BF16_REL``); the single-process step is held
-against the JAX package by ``tests/test_torch_train_step.py``.  The data
-mesh splits a global batch of 8 at ``mbstd_group_size`` 4, so each minibatch
-std group straddles both ranks, and its D loss terms and gradients on given
-images are held against the JAX package's on the whole batch (1e-3 of the
-largest gradient, the two packages' gate); grouping each rank's samples
-alone misses them by far.  After every step the ranks' states are bitwise
-equal (``check_replica_consistency(atol=0)``), and a perturbed replica
-raises on every rank.
+at 16^2) steps once in ``gloo`` groups of 2 and 4 ranks on the CPU (one
+spawn each: ``tests/_torch_dist_child.py``) over ``("plane",)``,
+``("tile",)``, ``("plane", "tile")`` and ``("data",)`` meshes, fused (the
+kernels' plain versions, bf16 textures in two cases) and not.
+
+* Against the JAX package's step on a mesh of the same axes and sizes over
+  the virtual CPU devices of ``tests/conftest.py`` (the data mesh splits the
+  batch, as the JAX loop lays it out), from the JAX state on the JAX step's
+  draws (``tests/_torch_jax_step.py``): metrics, every D and G gradient, G's
+  state and both EMAs after the update, within ``FP32_GATES`` (1e-4
+  relative, the JAX package's own gate for its sharded step) and, for bf16
+  textures on a plane mesh at 128^2, ``BF16_GATES``; both state what they
+  measure.  The fused fp32 layouts at 16^2 are held against the JAX step's
+  gather route (the JAX kernels need 128 pixels).
+* Against the port's own step in one process, from one seeded state:
+  metrics and every gradient within 1e-4 relative (1e-3 with bf16 textures,
+  see ``BF16_REL``).
+
+The data mesh splits a global batch of 8 at ``mbstd_group_size`` 4, so each
+minibatch std group straddles both ranks; its D loss terms and gradients on
+given images are also held against the JAX package's on the whole batch
+(1e-3 of the largest gradient), and grouping each rank's samples alone
+misses them by far.  After every step the ranks' states are bitwise equal
+(``check_replica_consistency(atol=0)``), and a perturbed replica raises on
+every rank.
 """
 
 import dataclasses
@@ -34,6 +43,7 @@ from gmpi_tpu.train import losses as jax_losses
 from gmpi_tpu.train.step import init_train_state as jax_init_train_state
 from gmpi_tpu_torch.models.converter import params_from_jax
 from tests import _torch_dist_child as child
+from tests import _torch_jax_step as jax_step
 from tests.test_train import tiny_config as jax_tiny_config
 
 REL = 1e-4
@@ -71,16 +81,52 @@ def d_case():
     return cfg_j, params_d, batch
 
 
+def _jax_case(name, over):
+    """The JAX configuration, perturbed init state and draws of a case of
+    ``child.JAX_CASES``; under 128 pixels the JAX step renders through its
+    gather route (its fused kernels need 128 pixels), the fused kernels'
+    function in fp32."""
+    cfg_j = jax_step.jax_config(child.tiny_config(**over))
+    if cfg_j.hparams.img_size < 128:
+        cfg_j = dataclasses.replace(cfg_j, train=dataclasses.replace(
+            cfg_j.train, use_fused_renderer=False))
+    return cfg_j, jax_step.jax_state(cfg_j), jax_step.jax_draws(cfg_j)
+
+
 @pytest.fixture(scope="module")
-def runs(d_case, tmp_path_factory):
+def runs_and_refs(d_case, tmp_path_factory):
+    """Every rank's results of the step job by world size, and the JAX
+    step's of each ``child.JAX_CASES`` case (computed while the children
+    run; the fused plane x tile case shares the JAX step of its mesh)."""
     _, params_d, batch = d_case
-    out = {}
+    out, refs = {}, {}
     for world in (2, 4):
         work = tmp_path_factory.mktemp(f"step{world}")
         np.savez(work / "inputs.npz", **batch)
         torch.save(params_from_jax(params_d), work / "d_params.pt")
-        out[world] = child.spawn("step", world, str(work))
-    return out
+        cases = {}
+        for name, (axes, sizes, over) in child.JAX_CASES[world].items():
+            cfg_j, st, draws = _jax_case(name, over)
+            torch.save({"params": jax_step.port_params(st), "draws": draws},
+                       work / f"jax_{name}.pt")
+            cases[name] = (cfg_j, st, axes, sizes, over)
+        procs = child.start("step", world, str(work))
+        try:
+            done = {}
+            for name, (cfg_j, st, axes, sizes, over) in cases.items():
+                key = (axes, cfg_j.train.use_fused_renderer, cfg_j.hparams.img_size)
+                if key not in done:
+                    real, pose = child.step_batch(child.tiny_config(**over))
+                    done[key] = jax_step.run_jax_step(cfg_j, st, real, pose, axes, sizes)
+                refs[name] = done[key]
+        finally:
+            out[world] = child.finish(procs, str(work))
+    return out, refs
+
+
+@pytest.fixture(scope="module")
+def runs(runs_and_refs):
+    return runs_and_refs[0]
 
 
 def _assert_grads_close(a, b, tol=REL):
@@ -150,3 +196,20 @@ def test_data_parallel_minibatch_std_matches_jax(runs, d_case):
         local = res["d_terms_local_mbstd"]
         worst = max(float((local["grads"][k] - ref[k]).abs().max()) for k in ref)
         assert worst > 10 * CROSS_REL * biggest
+
+
+JAX_CASES = [(w, name) for w in sorted(child.JAX_CASES) for name in child.JAX_CASES[w]]
+
+
+@pytest.mark.parametrize("world,name", JAX_CASES, ids=[f"{w}-{n}" for w, n in JAX_CASES])
+def test_sharded_step_matches_jax(runs_and_refs, world, name):
+    """Each rank's step from the JAX package's state on its draws against
+    the JAX step on the same mesh: metrics, every D and G gradient, and G's
+    state and EMAs after the update (``jax_step.assert_step_matches``)."""
+    runs, refs = runs_and_refs
+    bf16 = child.JAX_CASES[world][name][2].get("fused_compute_dtype") == "bf16"
+    for res in runs[world]:
+        if bf16:
+            jax_step.assert_step_matches(refs[name], res["jax_" + name], **jax_step.BF16_GATES)
+        else:
+            jax_step.assert_step_matches(refs[name], res["jax_" + name], **jax_step.FP32_GATES)

@@ -14,10 +14,11 @@ On N cards of a host, one process a card:
 
 ``--multihost`` initializes ``torch.distributed`` from the environment that
 ``torch.distributed.run`` sets (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``,
-``MASTER_ADDR``, ``MASTER_PORT``) with ``--dist_backend`` (``nccl`` on cards,
-``gloo`` with ``--device cpu``; ``gloo`` on cards moves tensors through host
-memory, which lets several ranks share one card).  ``--device cuda`` is
-``cuda:LOCAL_RANK``; ``--device cuda:0`` pins every rank to card 0.  P x T
+``MASTER_ADDR``, ``MASTER_PORT``).  ``--device cuda`` is ``cuda:LOCAL_RANK``,
+one card a rank, over NCCL; ``--device cuda:0`` pins every rank to card 0,
+and where that puts several ranks of a host on one card (NCCL refuses two
+ranks on one device) they talk over ``gloo``, which moves the tensors
+through host memory; ``--device cpu`` uses ``gloo`` too.  P x T
 ranks render each image together (plane / pixel-row shards) and the rest of
 the world splits the global batch (``--dataset``'s ``batch_size``) evenly
 over data ranks, each reading its own shard of the data; rank 0 writes every
@@ -74,9 +75,6 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--multihost", action="store_true",
                    help="initialize torch.distributed from the environment of "
                         "python -m torch.distributed.run (one process a card)")
-    p.add_argument("--dist_backend", choices=("nccl", "gloo"), default=None,
-                   help="torch.distributed backend with --multihost (default nccl on a card, "
-                        "gloo with --device cpu)")
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda: cuda:LOCAL_RANK with --multihost)")
     p.add_argument("--sample_interval", type=int, default=200,
@@ -107,14 +105,17 @@ def main(argv=None, cfg=None, stats=None):
     if args.dataset not in PRESETS:
         p.error(f"--dataset must be one of {sorted(PRESETS)}")
     device = torch.device(args.device)
-    if args.multihost and device.type == "cuda" and device.index is None:
+    pinned = device.index is not None
+    if args.multihost and device.type == "cuda" and not pinned:
         device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))
     device = resolve_device(device)
     if not args.multihost:
         return _run(args, cfg, stats, device)
     if device.type == "cuda":
         torch.cuda.set_device(device)
-    dist.init_process_group(args.dist_backend or ("nccl" if device.type == "cuda" else "gloo"),
+    local_ranks = int(os.environ.get("LOCAL_WORLD_SIZE", os.environ.get("WORLD_SIZE", "1")))
+    shared_card = device.type == "cuda" and pinned and local_ranks > 1
+    dist.init_process_group("nccl" if device.type == "cuda" and not shared_card else "gloo",
                             init_method="env://")
     try:
         return _run(args, cfg, stats, device)
