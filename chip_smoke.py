@@ -102,7 +102,7 @@ Phases, each of which raises on failure (nonzero exit, no result line):
 9. eval at full FFHQ256 width — in a temp dir, a checkpoint of a seeded
    state, seeded random InceptionV3 weights as a ``.pth`` under torchvision
    names, phase 8's kind of dataset and the stub adapters below:
-   ``eval_gmpi_torch.main --task all`` (64 fakes, 16 consistency pairs, 16
+   ``eval_gmpi_torch.main --task all`` (32 fakes, 8 consistency pairs, 8
    geometry images at 224^2, 96 planes, the banded renderer) twice, whose
    FID/KID, consistency and geometry numbers must be present, finite and
    equal; ``prepare_fake`` once more with ``--fused_renderer``, whose PNGs
@@ -173,7 +173,42 @@ Phases, each of which raises on failure (nonzero exit, no result line):
    alone saves, equal replicas); one rank in an NCCL group renders through
    the same sharded calls with groups of one, so that NCCL gathers and
    reduces device tensors.  Any rank that fails fails the phase.  Two ranks
-   on one card measure correctness and per-rank cost, not scaling.
+   on one card measure correctness and per-rank cost, not scaling;
+13. the 1024^2 and 512^2 presets at full width — (a) every fused kernel
+   against its plain version at 1024^2 (phase 2's gates) on the three
+   stacks at the truncation corners of FFHQ1024 and of MetFaces, each with
+   its own planes: K1 serving (one stack of 96 planes in 4 views, fp32 and
+   bf16), and at 32 planes K1's training, D-phase, worst-view (V=16 in
+   groups of 4) and bf16 training forms, the composite backward, the splat
+   in both paths and the adjoint; (b) the counterpart of
+   ``tests/test_tpu_full_scale.py``: uniform rgba of 96 planes at 1024^2 and
+   a normal cotangent at the JAX bench pose and a +2 sigma corner, the fused
+   renderer (5e-4 of max|oracle|; bf16 textures 2e-2) and the banded route
+   through K7 (5e-4), forward and ``rgba`` gradient, against
+   ``render_mpi_chunked(plane_chunk=4)``, and K7 at that route's inputs;
+   (c) ``FakeImageGenerator`` at FFHQ1024: 2 seeds of 96-plane MPIs, 4 views
+   each, one K1 a render call, the last render against the gather
+   renderer, K1 timed at its inputs; (d) ``make_train_step`` on the FFHQ1024
+   preset (batch 4, ``batch_split`` 2, ``d_batch_split``, worst of 4 views
+   at full resolution): 5 steps, one by phase and one past
+   ``lighting_start_iter``, then 2 steps with each of ``fused_remat``,
+   ``r1_remat``, ``worst_view_render_res=256``, bf16 textures and all four
+   together; launches per run as ``step_launches`` works them out from the
+   step's code, step ms (D / G) and peak GB per run, metrics finite, every
+   parameter of G and D changed, one G micro-batch's ``rgba`` gradient
+   against the gather renderer's (1e-3 of max), and the kernels timed at
+   that micro-batch's inputs as in phase 5; (e) through the entry points:
+   ``train_gmpi_torch.main --dataset FFHQ1024`` on 8 noise PNGs of 1024^2
+   (2 steps, the checkpoint loaded back bitwise, resumed to 3),
+   ``eval_gmpi_torch.main --task prepare_fake`` on it, banded and fused (4
+   fakes; dumps at most 1 level apart, K7 exact and the banded render within
+   5e-4 of the gather renderer on the banded run's own inputs), and
+   ``train_gmpi_torch.main --dataset AFHQCat`` on a folder of 8 PNGs of
+   512^2 with an EG3D ``dataset.json`` (2 steps), then 4 views of one of
+   its MPIs through K1 against the gather renderer.  Only depth is cut
+   (seeds, steps, images), and the phase prints its cuts.
+
+Each phase prints its seconds.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -577,6 +612,204 @@ def check_edges(fr, cam, poses, cfg, dev):
     return errs
 
 
+def backward_kernels_at(fr, mpi, dhw, rays, cot, adj_bands, rates, card, plain_iters=5):
+    """Phase 5 (and 13a at 1024^2): at a G micro-batch's inputs (``mpi``
+    rendered into ``rays = (ray_dir, eye, z_dir)`` with the color cotangent
+    ``cot``), the forward's training form, the composite backward, the splat
+    in both of its paths and the adjoint against their plain versions, then
+    timed (CUDA events, one launch a pair with everything the wrapper
+    launches; the backward kernels also 10 queued), each beside the bound of
+    the bytes and operations these inputs need, and ``grid_sample``'s
+    backward as the library yardstick of the splat and the adjoint.  Returns
+    ``(errors by kernel, timings)``; raises on an error above ``TOL``."""
+    from gmpi_tpu_torch.core.renderer import homography_grid
+
+    ray_dir, eye, z_dir = rays
+    bs, n_train, res = mpi.shape[0], mpi.shape[1], mpi.shape[-1]
+    rx, ry, q, scal = fused_inputs(fr, dhw, ray_dir, eye, z_dir, res)
+    fwd_train = lambda: fr.warp_composite_fwd(  # noqa: E731
+        mpi, rx, ry, q, scal, early_out="grad", with_disp=False, with_warped=True)
+    *_, warped, n_live = fwd_train()
+    d_samp = fr.composite_bwd(warped, q, scal, cot, n_live=n_live, grad_tau=fr.GRAD_TAU)
+    d_samp_ref = fr.composite_bwd_ref(warped, q, scal, cot, n_live=n_live, grad_tau=fr.GRAD_TAU)
+    d_tex = fr.warp_splat(d_samp, rx, ry, scal, res, res, n_live=n_live)
+    d_tex_ref = fr.warp_splat_ref(d_samp, rx, ry, scal, res, res, n_live=n_live)
+    d_tex_direct = fr._launch_splat(d_samp, rx, ry, scal, n_live, res, res, boxed=False)
+    torch.cuda.synchronize()
+    splat_errs = {"box": rel_err(d_tex, d_tex_ref), "direct": rel_err(d_tex_direct, d_tex_ref)}
+    del d_tex_direct
+    a_tex = fr.warp_adjoint(d_samp, rx, ry, scal, adj_bands, res, res)
+    a_tex_ref = fr.warp_adjoint_ref(d_samp, rx, ry, scal, res, res)
+    torch.cuda.synchronize()
+    errs = {"composite_bwd": rel_err(d_samp, d_samp_ref),
+            "splat": worse(splat_errs["box"], splat_errs["direct"]),
+            "adjoint": worse(rel_err(a_tex, a_tex_ref), rel_err(a_tex, d_tex))}
+    del a_tex, a_tex_ref
+    if not all(e <= TOL for e in errs.values()):  # also catches NaN
+        raise RuntimeError(f"a backward kernel disagrees with its plain version on the main "
+                           f"path's inputs: {errs}")
+    del d_samp_ref, d_tex_ref, d_tex
+    texels, pairs = needed_work(fr, mpi, rx, ry, scal, n_live=n_live)
+    n_pix, stack = rx.numel(), mpi.numel() * 4
+    all_pairs = bs * n_train * res * res
+    work = {  # bytes each kernel must move on these inputs, each tensor once
+        # texels touched + rays + scal + outputs + n_live + the live residual
+        "fused_fwd_train": texels * 16 + 3 * n_pix * 4 + scal.numel() * 4 + 5 * n_pix * 4
+        + n_pix * 4 + pairs * 16,
+        # live residual + q, g_color, n_live + scal; d_samp written whole
+        "composite_bwd": pairs * 16 + 5 * n_pix * 4 + scal.numel() * 4 + stack,
+        # live d_samp + rx, ry, n_live + scal; d_tex written whole
+        "splat": pairs * 16 + 3 * n_pix * 4 + scal.numel() * 4 + stack,
+        # live d_samp + rx, ry + scal; d_tex written whole
+        "adjoint": pairs * 16 + 2 * n_pix * 4 + scal.numel() * 4 + stack,
+    }
+    with torch.no_grad():
+        t_fwd_train = time_ms(fwd_train)
+        t_fwd_train_plain = time_ms(lambda: fr.warp_composite_fwd_ref(
+            mpi, rx, ry, q, scal, early_out="grad", with_disp=False, with_warped=True),
+            iters=plain_iters, warmup=1)
+        t_bwd = time_ms(lambda: fr.composite_bwd(warped, q, scal, cot, n_live=n_live,
+                                                 grad_tau=fr.GRAD_TAU))
+        t_bwd_queued = time_ms(lambda: fr.composite_bwd(warped, q, scal, cot, n_live=n_live,
+                                                        grad_tau=fr.GRAD_TAU), queued=10)
+        t_bwd_plain = time_ms(lambda: fr.composite_bwd_ref(warped, q, scal, cot, n_live=n_live,
+                                                           grad_tau=fr.GRAD_TAU),
+                              iters=plain_iters, warmup=1)
+        # the splat's direct path at the same inputs (that of a box beyond its shared memory)
+        splat_direct = lambda: fr._launch_splat(  # noqa: E731
+            d_samp, rx, ry, scal, n_live, res, res, boxed=False)
+        t_splat_direct = time_ms(splat_direct)
+        t_splat_direct_queued = time_ms(splat_direct, queued=10)
+        t_splat = time_ms(lambda: fr.warp_splat(d_samp, rx, ry, scal, res, res, n_live=n_live))
+        t_splat_plain = time_ms(lambda: fr.warp_splat_ref(d_samp, rx, ry, scal, res, res,
+                                                          n_live=n_live), iters=plain_iters, warmup=1)
+        # the adjoint in turn with the splat: splat, adjoint, adjoint, splat
+        t_adj = [time_ms(lambda: fr.warp_adjoint(d_samp, rx, ry, scal, adj_bands, res, res))
+                 for _ in range(2)]
+        t_splat_again = time_ms(lambda: fr.warp_splat(d_samp, rx, ry, scal, res, res,
+                                                      n_live=n_live))
+        t_adj_plain = time_ms(lambda: fr.warp_adjoint_ref(d_samp, rx, ry, scal, res, res),
+                              iters=plain_iters, warmup=1)
+        t_adj_queued = time_ms(lambda: fr.warp_adjoint(d_samp, rx, ry, scal, adj_bands, res, res),
+                               queued=10)
+        t_splat_queued = time_ms(lambda: fr.warp_splat(d_samp, rx, ry, scal, res, res,
+                                                       n_live=n_live), queued=10)
+    t_adj = min(t_adj)
+    # one PyTorch call that computes the splat's and the adjoint's function:
+    # grid_sample's backward (timed here as a yardstick, used nowhere in the port)
+    per_plane = lambda x: x[:, None].expand(bs, n_train, *x.shape[1:]).reshape(  # noqa: E731
+        bs * n_train, *x.shape[1:])
+    grid, _ = homography_grid(dhw.repeat(bs, 1), per_plane(eye), per_plane(ray_dir),
+                              per_plane(z_dir))
+    tex_flat = mpi.reshape(bs * n_train, 4, res, res).clone().requires_grad_()
+    sampled = torch.nn.functional.grid_sample(tex_flat, grid, mode="bilinear",
+                                              padding_mode="zeros", align_corners=True)
+    d_flat = d_samp.reshape(sampled.shape)
+    t_splat_lib = time_ms(lambda: torch.autograd.grad(sampled, tex_flat, d_flat,
+                                                      retain_graph=True), iters=10, warmup=2)
+    del sampled, tex_flat, grid, d_flat
+    bounds = {key: bound(val, FLOP_PER_PAIR[key.replace("_train", "")] * pairs, rates)
+              for key, val in work.items()}
+    log(f"training inputs: {pairs} live pixel-plane pairs of {all_pairs} "
+        f"(mean n_live {float(n_live.float().mean()):.2f} of {n_train}), {texels} texels touched")
+    log(f"fused_fwd training form: {t_fwd_train:.4f} ms as the path launches it, plain "
+        f"{t_fwd_train_plain:.3f} ms, needs {work['fused_fwd_train']} B; bound {bounds['fused_fwd_train'][0]:.5f} ms ({card})")
+    log(f"composite_bwd: {t_bwd:.4f} ms with everything its wrapper launches (10 launches "
+        f"queued: {t_bwd_queued:.4f} a launch), plain {t_bwd_plain:.3f} ms, needs "
+        f"{work['composite_bwd']} B; bound {bounds['composite_bwd'][0]:.5f} ms ({card})")
+    log(f"splat (texel boxes, as the path launches it): {t_splat:.4f} ms with everything its "
+        f"wrapper launches, the zero fill of d_tex included (10 queued: {t_splat_queued:.4f} a "
+        f"launch); every tap into d_tex {t_splat_direct:.4f} (10 queued: "
+        f"{t_splat_direct_queued:.4f}); errors by path {splat_errs}; plain {t_splat_plain:.3f} ms, grid_sample backward "
+        f"{t_splat_lib:.4f} ms, needs {work['splat']} B; bound {bounds['splat'][0]:.5f} ms "
+        f"({card})")
+    log(f"adjoint (measured windows {adj_bands}): {t_adj:.4f} ms with everything its wrapper "
+        f"launches (the kernel alone: no op precedes it); the splat timed around it "
+        f"{t_splat:.4f} / {t_splat_again:.4f} ms; 10 launches queued: adjoint "
+        f"{t_adj_queued:.4f}, splat {t_splat_queued:.4f} a launch; plain {t_adj_plain:.3f} ms, "
+        f"grid_sample "
+        f"backward {t_splat_lib:.4f} ms, needs {work['adjoint']} B; bound "
+        f"{bounds['adjoint'][0]:.5f} ms ({card})")
+    del warped, d_samp
+    torch.cuda.empty_cache()
+    timings = dict(fwd_train=t_fwd_train, fwd_train_plain=t_fwd_train_plain, bwd=t_bwd,
+                   bwd_queued=t_bwd_queued, bwd_plain=t_bwd_plain, splat=t_splat,
+                   splat_queued=t_splat_queued, splat_plain=t_splat_plain,
+                   splat_direct=t_splat_direct, splat_direct_queued=t_splat_direct_queued,
+                   splat_again=t_splat_again, splat_lib=t_splat_lib, adj=t_adj,
+                   adj_plain=t_adj_plain, adj_queued=t_adj_queued, splat_errs=splat_errs,
+                   bounds=bounds, work=work, pairs=pairs, texels=texels)
+    return errs, timings
+
+
+def no_grad_forms_at(fr, mpi_d, rays_d, mpi_w, rays_w, rates, card, plain_iters=5):
+    """The forward's two no-grad launches of a train step at a main path's
+    inputs (phase 5, and 13a at 1024^2), as fused inputs ``(rx, ry, q,
+    scal)``: the D phase's fakes (``mpi_d`` into ``rays_d``, a view each) and
+    worst-view selection (each of ``mpi_w`` read by the group of its
+    candidate views in ``rays_w``, as ``TrainStep.worst_views`` renders it;
+    beside it the
+    materialized repeat that this form read before stacks could be grouped),
+    each against its plain version and timed beside its bound.  Returns
+    ``(max abs error, timings)``."""
+    n_train, res = mpi_w.shape[1], mpi_w.shape[-1]
+    n_cand = rays_w[0].shape[0] // mpi_w.shape[0]
+    no_grad_forms, err = {}, 0.0
+    for form, tex, rays in (("d_phase_form", mpi_d, rays_d), ("worst_views_form", mpi_w, rays_w)):
+        n_v = rays[0].shape[0]
+        err = worse(err, check_inference_form(fr, f"main path's inputs, {form}, V={n_v}", tex,
+                                              *rays, False))
+        t_kernel = time_ms(lambda: fr.warp_composite_fwd(tex, *rays, with_disp=False))
+        t_plain = time_ms(lambda: fr.warp_composite_fwd_ref(tex, *rays, with_disp=False),
+                          iters=plain_iters, warmup=1)
+        texels_f, pairs_f = needed_work(fr, tex, *rays[:2], rays[3])
+        n_pix_f = rays[0].numel()
+        bytes_f = texels_f * 16 + 3 * n_pix_f * 4 + rays[3].numel() * 4 + 5 * n_pix_f * 4
+        b = bound(bytes_f, FLOP_PER_PAIR["fused_fwd"] * pairs_f, rates)
+        log(f"fused_fwd {form} (V={n_v}, {tex.shape[0]} stacks, L={n_train}, no gradient): "
+            f"{t_kernel:.4f} ms as the path launches it, plain {t_plain:.3f} ms, needs {bytes_f} B "
+            f"({pairs_f} live pixel-plane pairs of {n_v * n_train * res * res}, {texels_f} "
+            f"texels touched); bound {b[0]:.5f} ms by {b[1]} ({card})")
+        no_grad_forms.update({f"{form}_ms": t_kernel, f"{form}_plain_ms": t_plain,
+                              f"{form}_bound_ms": b[0]})
+    repeat = mpi_w.repeat_interleave(n_cand, dim=0)
+    t_repeat = time_ms(lambda: fr.warp_composite_fwd(repeat, *rays_w, with_disp=False))
+    log(f"fused_fwd worst_views_form on a materialized repeat of the stacks ({repeat.numel() * 4} "
+        f"B): {t_repeat:.4f} ms ({card})")
+    no_grad_forms["worst_views_form_repeat_ms"] = t_repeat
+    del repeat
+    torch.cuda.empty_cache()
+    return err, no_grad_forms
+
+
+def patch_gather_at(pg, texf, offs, band_x, band_yc, rates, card, label):
+    """The patch gather at a path's inputs (its last tile-row step's texture
+    and offsets): exactly its plain version, then timed beside its plain
+    version, one PyTorch call for the same copy (the advanced index alone,
+    its indices made beforehand) and its byte bound.  Returns the timings;
+    raises on a difference."""
+    out, ref = pg.gather_patches(texf, offs, band_x, band_yc), pg.gather_patches_ref(
+        texf, offs, band_x, band_yc)
+    torch.cuda.synchronize()
+    if not torch.equal(out, ref):
+        raise RuntimeError(f"patch_gather disagrees with its plain version at {label}")
+    dev = texf.device
+    n_idx = torch.arange(texf.shape[0], device=dev).reshape(-1, 1, 1, 1)
+    rows_i = (offs[..., 0, None].long() + torch.arange(band_x, device=dev))[..., None]
+    cols_i = (offs[..., 1, None].long() + torch.arange(band_yc, device=dev))[:, :, None, :]
+    ms = time_ms(lambda: pg.gather_patches(texf, offs, band_x, band_yc, validate=False))
+    plain_ms = time_ms(lambda: pg.gather_patches_ref(texf, offs, band_x, band_yc))
+    lib_ms = time_ms(lambda: texf[n_idx, rows_i, cols_i])
+    n_bytes = 2 * out.numel() * out.element_size() + offs.numel() * 4
+    b = bound(n_bytes, 0, rates)
+    log(f"patch_gather at {label} ({tuple(out.shape)} {str(texf.dtype).split('.')[1]} from "
+        f"{tuple(texf.shape)}): equal to its plain version; {ms:.4f} ms, plain {plain_ms:.4f} "
+        f"ms, one advanced index {lib_ms:.4f} ms, needs {n_bytes} B; bound {b[0]:.5f} ms "
+        f"({card})")
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": b[0],
+            "bound_by": b[1], "bytes": n_bytes}
+
+
 def reset_counts(fr):
     """Zero the launch counts by kernel."""
     for key in fr.LAUNCHES:
@@ -875,8 +1108,8 @@ def _pngs_apart(dir_a, dir_b):
 
 
 # phases 9 and 10: depth of the eval and viz runs (widths stay FFHQ256's)
-EVAL_FAKES = 64  # the JAX CLI's default is 2048
-EVAL_PAIRS = 16  # consistency pairs and geometry images; the default is 1024
+EVAL_FAKES = 32  # the JAX CLI's default is 2048; this depth keeps the script near 10 min
+EVAL_PAIRS = 8  # consistency pairs and geometry images; the default is 1024
 EVAL_PLANES = 96
 INCEPTION_IMAGES = 2048  # the train CLI's --fid_n_imgs default
 TRAIN_FID_IMAGES = 16
@@ -2138,6 +2371,786 @@ def _rank_cli(rank, world, work, fr):
             "step_ms": stats.step_ms, "metrics": stats.metrics, "launches": launches}
 
 
+# -- phase 13: the 1024^2 and 512^2 presets ---------------------------------------------
+# depth of phase 13; every width is the preset's own
+PRESET_SEEDS = (0, 1)  # FFHQ1024 serving seeds, 96 planes each (an FID set is 50k)
+PRESET_VIEWS = 4
+PRESET_STEPS = (2, 3)  # FFHQ1024 steps at the preset's own settings: warm-up, timed
+SWITCH_STEPS = 2  # steps with each memory switch: one whole, one timed by phase
+PRESET_IMAGES = 8  # noise PNGs of each synthetic dataset
+PRESET_LOOP_STEPS = (2, 3)  # train CLI steps, then resumed to
+PRESET_FAKES = 4  # prepare_fake images of the FFHQ1024 checkpoint, banded and fused
+FULL_SCALE_PLANES = 96
+FULL_SCALE_POSES = ((0.1, 0.05), (0.578, 0.254))  # the JAX bench pose; a +2 sigma corner
+FULL_SCALE_BF16_GATE = 2e-2  # the JAX package's bf16 gate
+PLAIN_ITERS = 3  # timed runs of a plain version at 1024^2
+REMAT_PLANE_CHUNK = 8  # render_mpi_fused_remat's slab, which the train step takes
+
+
+def step_launches(cfg):
+    """Kernel launches of one fused train step of ``cfg``, as ``train/step.py``
+    makes them: the D phase renders its fakes in ``d_split`` micro-batches
+    without a gradient, worst-view selection renders every candidate in one
+    call (none when ``worst_view_render_res`` sends it through the gather
+    path), and each of the ``batch_split`` G micro-batches renders with a
+    gradient (one forward, one composite backward, one splat).  Under
+    ``fused_remat`` every render is ``render_mpi_fused_remat``'s slabs, and
+    the backward runs each slab's forward again."""
+    t, h = cfg.train, cfg.hparams
+    split = h.batch_split
+    d_split = split if (t.d_batch_split and h.batch_size % split == 0) else 1
+    slabs = -(-cfg.planes.n_planes // REMAT_PLANE_CHUNK) if t.fused_remat else 1
+    worst = t.n_view_per_z > 1 and t.select_worst_view and not t.worst_view_render_res
+    fwd = d_split * slabs + (slabs if worst else 0) + split * slabs * (2 if t.fused_remat else 1)
+    return {"fused_fwd": fwd, "composite_bwd": split * slabs, "splat": split * slabs}
+
+
+def scaled(launches, n):
+    return {k: v * n for k, v in launches.items()}
+
+
+def memory_switches(res):
+    """Phase 13d's memory switches of the 1024^2 preset (``docs/TPU_TRAIN.md``),
+    each alone, then all four together."""
+    each = (("fused_remat", dict(fused_remat=True)), ("r1_remat", dict(r1_remat=True)),
+            (f"worst_view_render_res={res // 4}", dict(worst_view_render_res=res // 4)),
+            ("bf16 textures", dict(fused_compute_dtype="bf16")))
+    return each + (("all four", {k: v for _, sw in each for k, v in sw.items()}),)
+
+
+def corner_angles(cfg):
+    """``[4, 1]`` yaws and pitches at the four truncation corners of ``cfg``'s
+    pose range."""
+    c, k = cfg.camera, cfg.camera.n_truncated_stds
+    sy, sp = k * c.yaw_std, k * c.pitch_std
+    return (torch.tensor([[c.yaw_mean + sy], [c.yaw_mean - sy], [c.yaw_mean + sy],
+                          [c.yaw_mean - sy]]),
+            torch.tensor([[c.pitch_mean + sp], [c.pitch_mean - sp], [c.pitch_mean - sp],
+                          [c.pitch_mean + sp]]))
+
+
+def preset_rays(cfg, n_planes, yaws, pitches, dev):
+    """``(plane geometry at n_planes, (ray_dir, eye, z_dir))`` of ``cfg`` at its
+    resolution, one camera a row of ``yaws``/``pitches``."""
+    from gmpi_tpu_torch.core import camera as cam
+    from gmpi_tpu_torch.core import poses
+
+    geom = dataclasses.replace(cfg, planes=dataclasses.replace(
+        cfg.planes, n_planes=n_planes)).plane_geometry(device=dev)
+    c2w, _, _ = poses.sample_sphere_poses(None, yaws.shape[0], cfg.camera, given_yaws=yaws,
+                                          given_pitches=pitches, device=dev)
+    res = cfg.resolution
+    return geom, cam.generate_rays(cam.intrinsics_from_fov(cfg.fov_deg, res, res), c2w)
+
+
+def render_checks(label, color, depth, gather, lo, hi):
+    """A render's outputs: finite, colour in [-1, 1] up to fp32 rounding (a
+    saturated tanh gives an RGB of exactly 1, and the compositing weights sum
+    to 1 within rounding), depth in ``[lo, hi]`` and within 5e-4 of the
+    gather renderer's; returns the largest difference."""
+    if not (torch.isfinite(color).all() and torch.isfinite(depth).all()):
+        raise RuntimeError(f"{label}: non-finite render")
+    if color.min() < -1.0 - 1e-6 or color.max() > 1.0 + 1e-6:
+        raise RuntimeError(f"{label}: colour {float(color.min())}..{float(color.max())} outside "
+                           f"[-1, 1]")
+    if depth.min() < lo or depth.max() > hi:
+        raise RuntimeError(f"{label}: depth {float(depth.min())}..{float(depth.max())} outside "
+                           f"[{lo}, {hi}]")
+    err = max(float((color - (gather.color * 2.0 - 1.0)).abs().max()),
+              float((depth - gather.depth).abs().max()))
+    if not err <= 5e-4:  # also catches NaN
+        raise RuntimeError(f"{label}: {err} from the gather renderer (gate 5e-4)")
+    return err
+
+
+def preset_kernels(fr, ffhq, metfaces, dev):
+    """Phase 13a: every fused kernel against its plain version at 1024^2, on the
+    three stacks, at the truncation corners of FFHQ1024 and of MetFaces (each
+    with its own planes): K1's serving form (one stack of 96 planes in 4
+    views; with disparity for MetFaces) in fp32 and bf16; at 32 planes in
+    the 4 corner views, K1's training form, the composite backward, the splat
+    (both paths) and the adjoint (``check_training_kernels``), K1's D-phase
+    and bf16 training forms, and its worst-view form (4 stacks, each into 4
+    views at 4 scales of its corner: V=16).  Gates as phase 2.  Returns the
+    largest error by kernel."""
+    from gmpi_tpu_torch.core.renderer import plan_fused
+
+    bf = torch.bfloat16
+    errs = dict.fromkeys(("fused_fwd", "composite_bwd", "splat", "adjoint"), 0.0)
+    gen = torch.Generator(device=dev).manual_seed(30)
+    n_eval, n_train, n_cand = ffhq.eval_n_planes, ffhq.planes.n_planes, ffhq.train.n_view_per_z
+    for cfg in (ffhq, metfaces):
+        res = cfg.resolution
+        yaws, pitches = corner_angles(cfg)
+        geom, rays = preset_rays(cfg, n_eval, yaws, pitches, dev)
+        f = fused_inputs(fr, geom.dhw, *rays, res)
+        for case, tex in three_stacks(1, n_eval, res, dev, seed=30):
+            label = f"{cfg.name} {case}, V=4, L={n_eval}, {res}^2"
+            e = check_inference_form(fr, label, tex.expand(4, -1, -1, -1, -1), *f,
+                                     cfg is metfaces)
+            e = worse(e, check_inference_form(fr, f"bf16 {label}", tex.to(bf).expand(
+                4, -1, -1, -1, -1), *f, cfg is metfaces))
+            errs["fused_fwd"] = worse(errs["fused_fwd"], e)
+            del tex
+        geom_t, rays_t = preset_rays(cfg, n_train, yaws, pitches, dev)
+        f_t = fused_inputs(fr, geom_t.dhw, *rays_t, res)
+        scales = torch.linspace(1.0, 0.25, n_cand).reshape(1, n_cand)
+        _, rays_w = preset_rays(cfg, n_train, (yaws * scales).reshape(-1, 1),
+                                (pitches * scales).reshape(-1, 1), dev)
+        f_w = fused_inputs(fr, geom_t.dhw, *rays_w, res)
+        t0 = time.perf_counter()
+        adj = plan_fused(geom_t.dhw, *rays_t, res, res)[1][0]  # also checks the warp is monotone
+        log(f"adjoint plan at {cfg.name}'s 4 corner poses, {n_train} planes, {res}^2: {adj} in "
+            f"{time.perf_counter() - t0:.1f} s (host)")
+        for case, tex in three_stacks(4, n_train, res, dev, seed=31):
+            label = f"{cfg.name} {case}, V=4, L={n_train}, {res}^2"
+            for kname, e in check_training_kernels(fr, label, tex, *f_t, gen, adj).items():
+                errs[kname] = worse(errs[kname], e)
+            d_samp = torch.randn(tex.shape, device=dev, generator=gen)
+            e_s = check_splat_paths(fr, d_samp, f_t[0], f_t[1], f_t[3], res, res)
+            log(f"splat vs plain [{label}] by path: {e_s}")
+            errs["splat"] = worse(errs["splat"], worse(e_s["box"], e_s["direct"]))
+            del d_samp
+            e = check_inference_form(fr, f"{label}, D-phase form", tex, *f_t, False)
+            e = worse(e, check_inference_form(fr, f"{cfg.name} {case}, V={4 * n_cand}, 4 stacks "
+                                                  f"in groups of {n_cand} views, L={n_train}",
+                                              tex, *f_w, False))
+            e = worse(e, check_bf16_training_form(fr, label, tex.to(bf), *f_t))
+            errs["fused_fwd"] = worse(errs["fused_fwd"], e)
+            del tex
+        del f, f_t, f_w
+        torch.cuda.empty_cache()
+    if not all(e <= TOL for e in errs.values()):  # also catches NaN
+        raise RuntimeError(f"a kernel disagrees with its plain version at 1024^2: {errs}")
+    log(f"13a: kernels vs plain versions at 1024^2, largest error by kernel {errs} (gate {TOL})")
+    return errs
+
+
+def chunked_gather_fp64(rgba, dhw, ray_dir, eye, z_dir, plane_chunk=4):
+    """The colour of ``render_mpi_chunked(plane_chunk=4)`` evaluated in float64
+    from the same float32 inputs, differentiable in ``rgba``: the exact
+    function that the float32 renderers round.  At 1024^2 the float32 gather
+    renderer's texel coordinates are up to 3e-4 of a texel off at a +2 sigma
+    corner pose, the fused kernels' (``plane_affine`` and ``ray_fields``,
+    one FMA) up to 2e-4."""
+    from gmpi_tpu_torch.core.renderer import combine_segments, composite_partial, homography_grid
+    from gmpi_tpu_torch.ops.grid_sample import grid_sample_bilinear
+
+    v, n_l, _, th, tw = rgba.shape
+    h, w = ray_dir.shape[2:]
+    carry = None
+    for lo in range(0, n_l, plane_chunk):
+        k = min(plane_chunk, n_l - lo)
+        with torch.no_grad():
+            grid, depth = homography_grid(
+                dhw[lo:lo + k].double().repeat(v, 1), eye.double().repeat_interleave(k, 0),
+                ray_dir.double().repeat_interleave(k, 0), z_dir.double().repeat_interleave(k, 0))
+        samp = grid_sample_bilinear(rgba[:, lo:lo + k].double().reshape(v * k, 4, th, tw),
+                                    grid).reshape(v, k, 4, h, w)
+        part = composite_partial(samp[:, :, :3], samp[:, :, 3:4], depth.reshape(v, k, 1, h, w))
+        carry = part if carry is None else combine_segments(carry, part)
+    return carry[0]
+
+
+def full_scale_checks(fr, tw, pg, cfg, rates, card, dev):
+    """Phase 13b, the counterpart of ``tests/test_tpu_full_scale.py``: uniform
+    rgba ``[1, 96, 4, 1024, 1024]`` and a normal cotangent on the colour, at
+    the JAX bench pose and at a +2 sigma corner, forward and ``rgba``
+    gradient under autograd: the fused renderer (fp32, 5e-4 of max|oracle|;
+    bf16 textures, 2e-2) against ``render_mpi_chunked(plane_chunk=4)``'s
+    function in float64 (``chunked_gather_fp64``), and the banded route
+    (``render_mpi(tiled_bands=bands_for_config(...))``, patches through K7;
+    5e-4) against ``render_mpi_chunked(plane_chunk=4)`` itself, whose float32
+    texel coordinates it shares; every pair of the four is printed.
+    Launches are read per route; the last patch gather is held against its
+    plain version (exactly) and timed.  Returns the phase's record."""
+    from gmpi_tpu_torch.core.bands import bands_for_config
+    from gmpi_tpu_torch.core.renderer import render_mpi, render_mpi_chunked, render_mpi_fused
+
+    res, n_l = cfg.resolution, FULL_SCALE_PLANES
+    g = torch.Generator(device=dev).manual_seed(40)
+    rgba = torch.rand((1, n_l, 4, res, res), device=dev, generator=g)
+    cot = torch.randn((1, 3, res, res), device=dev, generator=g)
+    t0 = time.perf_counter()
+    bands = bands_for_config(cfg, img_size=res, n_planes=n_l)
+    bands_s = time.perf_counter() - t0
+    log(f"tile bands for {n_l} planes at {res}^2: {bands} in {bands_s:.1f} s (host)")
+    kept = {}
+    gather = tw.gather_patches
+
+    def recorded_gather(texf, offs, band_x, band_yc, **kw):
+        kept["gather"] = (texf, offs, band_x, band_yc)
+        return gather(texf, offs, band_x, band_yc, **kw)
+
+    record = {"bands": list(bands), "bands_host_s": bands_s, "poses": {}}
+    gates = {"fused": 5e-4, "fused bf16": FULL_SCALE_BF16_GATE, "banded": 5e-4}
+    tw.gather_patches = recorded_gather
+    try:
+        for yaw, pitch in FULL_SCALE_POSES:
+            geom, rays = preset_rays(cfg, n_l, torch.tensor([[yaw]]), torch.tensor([[pitch]]),
+                                     dev)
+
+            def color_and_grad(render):
+                x = rgba.clone().requires_grad_()
+                color = render(x).color
+                return color.detach(), torch.autograd.grad((color * cot).sum(), x)[0]
+
+            oracle, oracle_ms = host_ms(lambda: color_and_grad(
+                lambda x: render_mpi_chunked(x, geom.dhw, *rays, plane_chunk=4)))
+            exact = color_and_grad(lambda x: types.SimpleNamespace(
+                color=chunked_gather_fp64(x, geom.dhw, *rays)))
+            exact = tuple(t.float() for t in exact)
+            err_o = (rel_err(oracle[0], exact[0]), rel_err(oracle[1], exact[1]))
+            log(f"full scale [the float32 chunked gather, yaw {yaw}, pitch {pitch}]: colour "
+                f"{err_o[0]:.3e}, rgba gradient {err_o[1]:.3e} of max from its float64 "
+                f"evaluation ({card})")
+            routes = {
+                "fused": lambda x: render_mpi_fused(x, geom.dhw, *rays, with_disp=False),
+                "fused bf16": lambda x: render_mpi_fused(x, geom.dhw, *rays, with_disp=False,
+                                                         compute_dtype=torch.bfloat16),
+                "banded": lambda x: render_mpi(x, geom.dhw, *rays, tiled_bands=bands,
+                                               patch_backend="cuda")}
+            pose = {"oracle_ms": oracle_ms, "fp32_oracle_vs_fp64": err_o}
+            for name, render in routes.items():
+                reset_counts(fr)
+                torch.cuda.reset_peak_memory_stats()
+                (color, grad), ms = host_ms(lambda: color_and_grad(render))
+                launches = dict(fr.LAUNCHES)
+                errs = {ref: (rel_err(color, o[0]), rel_err(grad, o[1]))
+                        for ref, o in (("fp64", exact), ("fp32", oracle))}
+                gated = "fp32" if name == "banded" else "fp64"
+                err_c, err_g = errs[gated]
+                peak = torch.cuda.max_memory_allocated() / 1e9
+                log(f"full scale [{name}, yaw {yaw}, pitch {pitch}, {n_l} x {res}^2]: colour, "
+                    f"rgba gradient of max|oracle| against the float64 chunked gather "
+                    f"{errs['fp64'][0]:.3e}, {errs['fp64'][1]:.3e}, against the float32 one "
+                    f"{errs['fp32'][0]:.3e}, {errs['fp32'][1]:.3e} (gate {gates[name]} on the "
+                    f"{gated} one); forward + backward {ms:.1f} ms host-timed (oracle "
+                    f"{oracle_ms:.1f}), peak {peak:.2f} GB; launches {launches} ({card})")
+                if not (err_c <= gates[name] and err_g <= gates[name]):  # also catches NaN
+                    raise RuntimeError(f"full scale [{name}] disagrees with the chunked gather")
+                want = {**dict.fromkeys(fr.LAUNCHES, 0),
+                        **({"patch_gather": launches["patch_gather"]} if name == "banded" else
+                           {"fused_fwd": 1, "composite_bwd": 1, "splat": 1})}
+                if launches != want or (name == "banded" and not launches["patch_gather"]):
+                    raise RuntimeError(f"full scale [{name}] launched {launches}")
+                pose[name] = {"rel_err_vs_fp64": errs["fp64"], "rel_err_vs_fp32": errs["fp32"],
+                              "ms": ms, "peak_gb": peak, "launches": launches}
+            record["poses"][f"{yaw},{pitch}"] = pose
+            del oracle, exact, color, grad
+            torch.cuda.empty_cache()
+    finally:
+        tw.gather_patches = gather
+
+    # K7 at the banded route's own inputs (its last tile-row step)
+    record["patch_gather"] = patch_gather_at(pg, *kept.pop("gather"), rates, card,
+                                             "the full-scale banded route's inputs")
+    return record
+
+
+def preset_serving(fr, cfg, rates, card, dev):
+    """Phase 13c: ``FakeImageGenerator`` at the full width of ``cfg`` (FFHQ1024),
+    fused: for each seed ``sample_mpi`` at 96 planes, then ``render`` of 4
+    views; one K1 launch a render call, checks as phase 3's, the last render
+    against the gather renderer, then K1 at the last render's inputs against
+    its plain version and timed beside its bound.  Returns the record and
+    K1's timings."""
+    from gmpi_tpu_torch.core.renderer import render_mpi
+    from gmpi_tpu_torch.eval.harness import FakeImageGenerator
+    from gmpi_tpu_torch.models.generator import Generator
+
+    res, n_planes = cfg.resolution, cfg.eval_n_planes
+    t0 = time.perf_counter()
+    gen = FakeImageGenerator(cfg, Generator(cfg.generator_cfg(),
+                                            generator=torch.Generator().manual_seed(0)),
+                             use_fused=True, device=dev)
+    log(f"generator: {cfg.name} full width ({sum(p.numel() for p in gen.G.parameters())} "
+        f"params, {n_planes} planes), built in {time.perf_counter() - t0:.1f} s")
+    lo, hi = cfg.planes.min_d * 0.9, cfg.planes.max_d * 1.4
+    gen_ms, render_ms = [], []
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(fr)
+    for seed in PRESET_SEEDS:
+        mpi, ms = host_ms(lambda: gen.sample_mpi(seed))
+        gen_ms.append(ms)
+        yv, pv = gen.sample_views(seed, PRESET_VIEWS)
+        mpi_v = mpi.expand(PRESET_VIEWS, -1, -1, -1, -1)
+        (color, depth), ms = host_ms(lambda: gen.render(mpi_v, yv, pv))
+        render_ms.append(ms)
+        if mpi.shape != (1, n_planes, 4, res, res) or not torch.isfinite(mpi).all():
+            raise RuntimeError(f"{cfg.name} seed {seed}: bad MPI {tuple(mpi.shape)}")
+        if color.shape != (PRESET_VIEWS, 3, res, res):
+            raise RuntimeError(f"{cfg.name} seed {seed}: bad render shape {tuple(color.shape)}")
+    launches = dict(fr.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    if launches != {**dict.fromkeys(fr.LAUNCHES, 0), "fused_fwd": len(PRESET_SEEDS)}:
+        raise RuntimeError(f"{cfg.name} serving launched {launches}, expected one fused_fwd "
+                           f"a render call")
+    geom, rays = gen.geom, preset_rays(cfg, n_planes, yv, pv, dev)[1]
+    with torch.no_grad():
+        gather = render_mpi(mpi_v, geom.dhw, *rays)
+    err = render_checks(f"{cfg.name} serving", color, depth, gather, lo, hi)
+    log(f"13c: {cfg.name} serving, {len(PRESET_SEEDS)} seeds x {PRESET_VIEWS} views x "
+        f"{n_planes} planes: launches {launches}; sample_mpi ms {['%.1f' % x for x in gen_ms]}, "
+        f"render ms {['%.2f' % x for x in render_ms]} (host clock after synchronize), peak "
+        f"{peak:.2f} GB; the last render vs the gather renderer {err:.2e} (gate 5e-4) ({card})")
+    del gather
+    f = fused_inputs(fr, geom.dhw, *rays, res)
+    err_k = check_inference_form(fr, f"{cfg.name} serving inputs, V={PRESET_VIEWS}", mpi_v, *f,
+                                 True)
+    with torch.no_grad():
+        ms = time_ms(lambda: fr.warp_composite_fwd(mpi_v, *f))
+        queued = time_ms(lambda: fr.warp_composite_fwd(mpi_v, *f), queued=10)
+        plain = time_ms(lambda: fr.warp_composite_fwd_ref(mpi_v, *f), iters=PLAIN_ITERS, warmup=1)
+    texels, pairs = needed_work(fr, mpi_v, f[0], f[1], f[3])
+    n_pix = f[0].numel()
+    n_bytes = texels * 16 + 3 * n_pix * 4 + f[3].numel() * 4 + 6 * n_pix * 4
+    b = bound(n_bytes, FLOP_PER_PAIR["fused_fwd"] * pairs, rates)
+    log(f"fused_fwd at {cfg.name}'s serving inputs ({PRESET_VIEWS} views x {n_planes} planes, "
+        f"{res}^2): {ms:.4f} ms (10 queued: {queued:.4f} a launch), plain {plain:.3f} ms, needs "
+        f"{n_bytes} B ({pairs} live pairs); bound {b[0]:.5f} ms by {b[1]} ({card})")
+    record = {"sample_mpi_ms": gen_ms, "render_ms": render_ms, "peak_gb": peak,
+              "launches": launches, "vs_gather": err}
+    timing = {"ms": ms, "queued_ms": queued, "plain_ms": plain, "bound_ms": b[0],
+              "bound_by": b[1], "max_abs_err": err_k}
+    del gen, mpi, mpi_v, color, depth
+    torch.cuda.empty_cache()
+    return record, timing
+
+
+def preset_training(fr, cfg, rates, card, dev):
+    """Phase 13d: ``make_train_step`` on ``cfg`` (FFHQ1024: batch 4,
+    ``batch_split`` 2, ``d_batch_split``, worst of 4 views at full
+    resolution) on one seeded state: ``PRESET_STEPS`` steps as the preset
+    stands, one step timed by phase, one past ``lighting_start_iter`` (the
+    state stays past it), then ``SWITCH_STEPS`` steps with each memory switch
+    (one whole, one timed by phase).  Each run's launches are reset before
+    and read after and must be ``step_launches``'s; metrics finite, ``r1 >
+    0``; peak GB a run.  Then every parameter of G and D must have changed,
+    the ``rgba`` gradient of one G micro-batch must match the gather
+    renderer's autograd (1e-3 of max), and the kernels are held and timed at
+    that micro-batch's inputs (phase 5's functions).  Returns the record, the
+    launches of all runs, the largest kernel errors and the timings."""
+    from gmpi_tpu_torch.core import bands as bands_mod
+    from gmpi_tpu_torch.core import poses
+    from gmpi_tpu_torch.core.renderer import plan_fused, render_mpi, render_mpi_fused
+    from gmpi_tpu_torch.train import flat_pose_from_c2w, init_train_state, make_train_step
+
+    res, bs, split = cfg.resolution, cfg.hparams.batch_size, cfg.hparams.batch_split
+    t0 = time.perf_counter()
+    state = init_train_state(cfg, torch.Generator().manual_seed(0), device=dev)
+    data = torch.Generator().manual_seed(1)
+    real = (torch.rand((bs, 3, res, res), generator=data) * 2.0 - 1.0).to(dev)
+    real_c2w, _, _ = poses.sample_sphere_poses(data, bs, cfg.camera, device=dev)
+    real_pose = flat_pose_from_c2w(real_c2w, cfg.train.d_cond_pose_dim)
+    log(f"train state: {cfg.name} full width (G {sum(p.numel() for p in state.G.parameters())} "
+        f"params, D {sum(p.numel() for p in state.D.parameters())}), batch {bs}, batch_split "
+        f"{split}, d_batch_split {cfg.train.d_batch_split}, {cfg.planes.n_planes} planes, worst "
+        f"of {cfg.train.n_view_per_z} views; built in {time.perf_counter() - t0:.1f} s")
+    before = {"G": snapshot(state.G.parameters()), "D": snapshot(state.D.parameters())}
+    rng = torch.Generator().manual_seed(2)
+    runs, all_launches = {}, dict.fromkeys(fr.LAUNCHES, 0)
+    for label, switches in (("preset", {}),) + memory_switches(res):
+        run_cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, **switches))
+        step = make_train_step(run_cfg, device=dev)
+        if not step.use_fused:
+            raise RuntimeError("the train step did not select the fused renderer on a card")
+        n_whole = sum(PRESET_STEPS) if label == "preset" else SWITCH_STEPS - 1
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(fr)
+        step_ms, metrics = [], []
+        for _ in range(n_whole):
+            (_, m), ms = host_ms(lambda: step(state, real, real_pose, rng))
+            step_ms.append(ms)
+            metrics.append(m)
+        # one step by phase, each phase's peak apart, worst-view selection's inside G's
+        peaks = {"whole steps": torch.cuda.max_memory_allocated() / 1e9}
+        worst_views = step.worst_views
+
+        def worst_views_apart(*args, **kw):
+            peaks["G before worst views"] = torch.cuda.max_memory_allocated() / 1e9
+            torch.cuda.reset_peak_memory_stats()
+            out = worst_views(*args, **kw)
+            peaks["worst views"] = torch.cuda.max_memory_allocated() / 1e9
+            torch.cuda.reset_peak_memory_stats()
+            return out
+
+        step.worst_views = worst_views_apart
+        torch.cuda.reset_peak_memory_stats()
+        (dm, _), d_ms = host_ms(lambda: step.d_phase(state, real, real_pose, rng))
+        peaks["D phase"] = torch.cuda.max_memory_allocated() / 1e9
+        torch.cuda.reset_peak_memory_stats()
+        (gm, _), g_ms = host_ms(lambda: step.g_phase(state, bs, rng))
+        peaks["G after worst views"] = torch.cuda.max_memory_allocated() / 1e9
+        del step.worst_views, worst_views, worst_views_apart  # they hold this run's step
+        state.step += 1
+        metrics.append({**dm, **gm})
+        if label == "preset":  # past the lighting augmentation's start, for this and later runs
+            state.step = cfg.train.lighting_start_iter + 500
+            torch.cuda.reset_peak_memory_stats()
+            (_, m), lit_ms = host_ms(lambda: step(state, real, real_pose, rng))
+            peaks["lit step"] = torch.cuda.max_memory_allocated() / 1e9
+            step_ms.append(lit_ms)
+            metrics.append(m)
+        launches = dict(fr.LAUNCHES)
+        peak = max(peaks.values())
+        want = {**dict.fromkeys(fr.LAUNCHES, 0), **scaled(step_launches(run_cfg), len(metrics))}
+        if launches != want:
+            raise RuntimeError(f"{cfg.name} [{label}] launched {launches} in {len(metrics)} "
+                               f"steps, expected {want}")
+        for i, m in enumerate(metrics):
+            vals = {key: float(val) for key, val in m.items()}
+            if not all(x == x and abs(x) != float("inf") for x in vals.values()):
+                raise RuntimeError(f"{cfg.name} [{label}] step {i}: non-finite metric {vals}")
+            if not vals["r1"] > 0:
+                raise RuntimeError(f"{cfg.name} [{label}] step {i}: r1 = {vals['r1']}")
+        log(f"13d: {cfg.name} [{label}]: {len(metrics)} steps, launches {launches} (a step "
+            f"{step_launches(run_cfg)}); whole steps ms {['%.1f' % x for x in step_ms]}, one by "
+            f"phase D {d_ms:.1f} + G {g_ms:.1f}; peak {peak:.2f} GB (by span "
+            + ", ".join(f"{k} {v:.2f}" for k, v in peaks.items()) + "); last metrics "
+            + ", ".join(f"{k} {float(v):.4f}" for k, v in metrics[-1].items()) + f" ({card})")
+        runs[label] = {"switches": switches, "step_ms": step_ms, "d_ms": d_ms, "g_ms": g_ms,
+                       "peak_gb": peak, "peak_gb_by_span": peaks, "launches": launches}
+        for k in all_launches:
+            all_launches[k] += launches[k]
+        del step
+    for part in ("G", "D"):
+        module = getattr(state, part)
+        still = [name for (name, p), b in zip(module.named_parameters(), before[part])
+                 if torch.equal(p.detach(), b)]
+        if still:
+            raise RuntimeError(f"{cfg.name}: {len(still)} {part} parameters did not change over "
+                               f"13d's steps: {still[:5]}")
+    del before
+
+    # one G micro-batch: the rgba gradient against the gather renderer's autograd, then
+    # the kernels held and timed at its inputs (and at the step's no-grad renders')
+    step = make_train_step(cfg, device=dev)
+    mbs = bs // split
+    z = torch.randn((bs, cfg.train.z_dim), generator=rng).to(dev)
+    with torch.no_grad():
+        mpi = step.synth(state.G, z, rng)
+    del state, real, real_pose
+    torch.cuda.empty_cache()
+    yv, pv = step.sample_views(rng, mbs)
+    geom, rays = preset_rays(cfg, cfg.planes.n_planes, yv, pv, dev)
+    cot = torch.randn((mbs, 3, res, res), device=dev,
+                      generator=torch.Generator(device=dev).manual_seed(41))
+    grads = []
+    for render in (render_mpi_fused, render_mpi):
+        x = mpi[:mbs].clone().requires_grad_()
+        grads.append(torch.autograd.grad((render(x, geom.dhw, *rays).color * cot).sum(), x)[0])
+    err_g = rel_err(grads[0], grads[1])
+    log(f"{cfg.name} G micro-batch rgba gradient, fused Function vs gather autograd: rel err "
+        f"{err_g:.3e} (gate {GRAD_REL})")
+    if not err_g <= GRAD_REL:
+        raise RuntimeError(f"{cfg.name}: the fused gradient disagrees with the gather renderer's")
+    del grads, x
+    corner = bands_mod._corner_rays(cfg.camera, cfg.fov_deg, res, res)
+    adj_bands = plan_fused(geom.dhw, *corner, res, res)[1][0]
+    errs, k = backward_kernels_at(fr, mpi[:mbs].contiguous(), geom.dhw, rays, cot, adj_bands,
+                                  rates, card, plain_iters=PLAIN_ITERS)
+    n_cand = cfg.train.n_view_per_z
+    yv_w, pv_w = step.sample_views(rng, bs * n_cand)
+    rays_w = fused_inputs(fr, geom.dhw, *preset_rays(cfg, cfg.planes.n_planes, yv_w, pv_w,
+                                                     dev)[1], res)
+    err_f, forms = no_grad_forms_at(fr, mpi[:mbs].contiguous(), fused_inputs(fr, geom.dhw, *rays,
+                                                                             res),
+                                    mpi, rays_w, rates, card, plain_iters=PLAIN_ITERS)
+    errs["fused_fwd"] = err_f
+    del mpi
+    torch.cuda.empty_cache()
+    record = {"runs": runs, "grad_vs_gather": err_g, "adjoint_windows": list(adj_bands)}
+    return record, all_launches, errs, {**k, **forms}
+
+
+def write_afhq_dataset(root, n_images, res, seed):
+    """An AFHQ-cat style folder in ``root``: ``n_images`` seeded noise PNGs of
+    ``res``^2 and an EG3D ``dataset.json`` whose labels hold a random
+    camera-to-world matrix and 9 intrinsics each (as
+    ``tests/test_torch_data.py`` writes them).  Returns the folder."""
+    import json
+    import os
+
+    import numpy as np
+    from PIL import Image
+    from scipy.spatial.transform import Rotation
+
+    rng = np.random.default_rng(seed)
+    folder = os.path.join(root, "afhq")
+    os.makedirs(folder)
+    labels = []
+    for i in range(n_images):
+        name = f"cat{i:03d}.png"
+        Image.fromarray(rng.integers(0, 256, (res, res, 3), dtype=np.uint8)).save(
+            os.path.join(folder, name))
+        c2w = np.eye(4)
+        c2w[:3, :3] = Rotation.random(random_state=int(rng.integers(1 << 30))).as_matrix()
+        c2w[:3, 3] = rng.standard_normal(3) * 2.0 + np.array([0, 0, 3.0])
+        labels.append([name, list(c2w.reshape(-1)) + [0.0] * 9])
+    with open(os.path.join(folder, "dataset.json"), "w") as f:
+        json.dump({"labels": labels}, f)
+    return folder
+
+
+def preset_loop_eval(fr, tw, pg, card, dev, tmp):
+    """Phase 13e, through the entry points: ``train_gmpi_torch.main
+    --dataset FFHQ1024`` on ``PRESET_IMAGES`` noise PNGs of 1024^2 for
+    ``PRESET_LOOP_STEPS[0]`` steps (its checkpoint loaded into a fresh state
+    must equal the live state bitwise), resumed to ``PRESET_LOOP_STEPS[1]``;
+    ``eval_gmpi_torch.main --task prepare_fake`` on that checkpoint,
+    banded and ``--fused_renderer`` (dumps at most 1 level apart, launches per
+    route, K7 equal to its plain version and the banded render within 5e-4
+    of the gather renderer on the banded run's own last inputs); then
+    ``train_gmpi_torch.main --dataset AFHQCat`` on a folder of 512^2 PNGs
+    with an EG3D ``dataset.json`` for ``PRESET_LOOP_STEPS[0]`` steps, and 4
+    views of one of its MPIs through K1 against the gather renderer.
+    Returns the record and the launches of its main paths; writes under
+    ``tmp``."""
+    import copy
+    import os
+
+    import eval_gmpi_torch
+    import train_gmpi_torch
+    from gmpi_tpu_torch.config import get_config
+    from gmpi_tpu_torch.core.renderer import render_mpi
+    from gmpi_tpu_torch.eval import harness
+    from gmpi_tpu_torch.train import checkpoint as ckpt_mod
+    from gmpi_tpu_torch.train import init_train_state
+    from gmpi_tpu_torch.train.loop import LoopStats
+
+    record, paths = {}, []
+    ffhq = get_config("FFHQ1024")
+    t0 = time.perf_counter()
+    zpath, pose_dir = write_ffhq_dataset(tmp, PRESET_IMAGES, ffhq.resolution, seed=10)
+    log(f"dataset: {PRESET_IMAGES} noise PNGs of {ffhq.resolution}^2 in a zip "
+        f"({os.path.getsize(zpath)} B), one fail-listed, written in "
+        f"{time.perf_counter() - t0:.1f} s")
+    out = os.path.join(tmp, "ffhq1024")
+    ckpt_dir = os.path.join(out, "checkpoints")
+    args = ["--dataset", "FFHQ1024", "--data_root", zpath, "--pose_root", pose_dir,
+            "--output_dir", out, "--seed", "5", "--device", str(dev)]
+    first, last = PRESET_LOOP_STEPS
+    reset_counts(fr)
+    stats1 = LoopStats()
+    state = train_gmpi_torch.main(args + ["--total_iters", str(first)], stats=stats1)
+    fresh = init_train_state(ffhq, torch.Generator().manual_seed(77), device=dev)
+    loaded = ckpt_mod.load_checkpoint(ckpt_dir, fresh)
+    restored = same_tree(ckpt_mod.state_payload(loaded), ckpt_mod.state_payload(state))
+    if state.step != first or not restored:
+        raise RuntimeError(f"FFHQ1024 train CLI ended at step {state.step}; checkpoint bitwise "
+                           f"the live state: {restored}")
+    del state, fresh, loaded
+    torch.cuda.empty_cache()
+    stats2 = LoopStats()
+    state = train_gmpi_torch.main(args + ["--total_iters", str(last)], stats=stats2)
+    if stats2.start_step != first or state.step != last:
+        raise RuntimeError(f"the resumed FFHQ1024 run went from {stats2.start_step} to "
+                           f"{state.step}, expected {first} to {last}")
+    del state
+    torch.cuda.empty_cache()
+    launches = dict(fr.LAUNCHES)
+    want = {**dict.fromkeys(fr.LAUNCHES, 0), **scaled(step_launches(ffhq), last)}
+    if launches != want:
+        raise RuntimeError(f"the FFHQ1024 train CLI launched {launches} in {last} steps, "
+                           f"expected {want}")
+    for st in (stats1, stats2):
+        for m in st.metrics:
+            if not all(v == v and abs(v) != float("inf") for v in m.values()) or not m["r1"] > 0:
+                raise RuntimeError(f"FFHQ1024 loop: bad metrics {m}")
+    paths.append(launches)
+    steps = stats1.step_ms + stats2.step_ms
+    log(f"13e: train_gmpi_torch.main --dataset FFHQ1024: {first} steps, a checkpoint of "
+        f"{stats1.save_bytes[-1]} B saved in {stats1.save_s[-1]:.2f} s and loaded back bitwise, "
+        f"resumed from step {stats2.start_step} to {last} (load {stats2.load_s:.2f} s); step ms "
+        f"{['%.1f' % x for x in steps]}, data wait ms "
+        f"{['%.2f' % x for x in stats1.data_wait_ms + stats2.data_wait_ms]}; launches "
+        f"{launches} ({card})")
+    record["ffhq1024_loop"] = {"step_ms": steps, "save_s": stats1.save_s + stats2.save_s,
+                               "save_bytes": stats1.save_bytes + stats2.save_bytes,
+                               "load_s": stats2.load_s, "launches": launches}
+
+    # prepare_fake on that checkpoint, banded then fused
+    common = ["--dataset", "FFHQ1024", "--task", "prepare_fake", "--ckpt", ckpt_dir,
+              "--n_planes", str(ffhq.eval_n_planes), "--n_imgs", str(PRESET_FAKES),
+              "--device", str(dev)]
+    kept, row_steps = {}, {"n": 0}
+    row_step, gather = tw._warp_row_tiles, tw.gather_patches
+    render = harness.FakeImageGenerator.render
+
+    def counted_row_step(*a, **kw):
+        row_steps["n"] += 1
+        return row_step(*a, **kw)
+
+    def recorded_gather(texf, offs, band_x, band_yc, **kw):
+        kept["gather"] = (texf, offs, band_x, band_yc)
+        return gather(texf, offs, band_x, band_yc, **kw)
+
+    def recorded_render(gen, mpi, yaws, pitches):
+        if not gen.use_fused:
+            kept["render"] = (gen, mpi, yaws, pitches)
+        return render(gen, mpi, yaws, pitches)
+
+    tw._warp_row_tiles, tw.gather_patches = counted_row_step, recorded_gather
+    harness.FakeImageGenerator.render = recorded_render
+    eval_s, eval_launches = {}, {}
+    try:
+        for route, extra in (("banded", []), ("fused", ["--fused_renderer"])):
+            reset_counts(fr)
+            row_steps["n"] = 0
+            t0 = time.perf_counter()
+            eval_gmpi_torch.main(common + extra + ["--out", os.path.join(tmp, route)])
+            eval_s[route] = time.perf_counter() - t0
+            eval_launches[route] = dict(fr.LAUNCHES)
+            want = {**dict.fromkeys(fr.LAUNCHES, 0),
+                    **({"patch_gather": row_steps["n"]} if route == "banded" else
+                       {"fused_fwd": PRESET_FAKES})}
+            if eval_launches[route] != want or (route == "banded" and not row_steps["n"]):
+                raise RuntimeError(f"prepare_fake [{route}] launched {eval_launches[route]}, "
+                                   f"expected {want}")
+            paths.append(eval_launches[route])
+    finally:
+        tw._warp_row_tiles, tw.gather_patches = row_step, gather
+        harness.FakeImageGenerator.render = render
+    worst, share = _pngs_apart(os.path.join(tmp, "banded", "rgb"), os.path.join(tmp, "fused",
+                                                                                "rgb"))
+    texf, offs, band_x, band_yc = kept["gather"]
+    same = torch.equal(pg.gather_patches(texf, offs, band_x, band_yc),
+                       pg.gather_patches_ref(texf, offs, band_x, band_yc))
+    gen, mpi, yaws, pitches = kept["render"]
+    plain = copy.copy(gen)
+    plain.tiled_bands = None
+    color, depth = gen.render(mpi, yaws, pitches)
+    color_g, depth_g = plain.render(mpi, yaws, pitches)
+    err = max(float((color - color_g).abs().max()), float((depth - depth_g).abs().max()))
+    log(f"13e: eval_gmpi_torch.main --task prepare_fake on the FFHQ1024 checkpoint, "
+        f"{PRESET_FAKES} fakes x {ffhq.eval_n_planes} planes: banded {eval_s['banded']:.1f} s "
+        f"(launches by route below), fused {eval_s['fused']:.1f} s; "
+        f"launches {eval_launches}; dumps at most {worst} level apart ({share:.3e} of pixel "
+        f"channels differ); K7 on the banded run's last inputs {tuple(texf.shape)} equal to its "
+        f"plain version: {same}; its last banded render vs the gather renderer {err:.2e} (gate "
+        f"5e-4) ({card})")
+    if worst > 1 or not same or not err <= 5e-4:
+        raise RuntimeError("FFHQ1024 prepare_fake: the dumps, the patch gather or the banded "
+                           "render disagree")
+    record["ffhq1024_eval"] = {"seconds": eval_s, "launches": eval_launches,
+                               "max_level_apart": worst, "banded_vs_gather": err}
+    del kept, texf, offs, gen, mpi, plain, color, depth, color_g, depth_g
+    torch.cuda.empty_cache()
+
+    # AFHQCat at 512^2 from a folder with an EG3D dataset.json
+    afhq = get_config("AFHQCat")
+    folder = write_afhq_dataset(tmp, PRESET_IMAGES, afhq.resolution, seed=11)
+    reset_counts(fr)
+    stats = LoopStats()
+    state = train_gmpi_torch.main(["--dataset", "AFHQCat", "--data_root", folder,
+                                   "--pose_root", folder, "--output_dir",
+                                   os.path.join(tmp, "afhq_run"), "--seed", "6",
+                                   "--total_iters", str(first), "--device", str(dev)],
+                                  stats=stats)
+    launches = dict(fr.LAUNCHES)
+    want = {**dict.fromkeys(fr.LAUNCHES, 0), **scaled(step_launches(afhq), first)}
+    if state.step != first or launches != want:
+        raise RuntimeError(f"the AFHQCat train CLI ended at step {state.step} with launches "
+                           f"{launches}, expected {first} steps and {want}")
+    for m in stats.metrics:
+        if not all(v == v and abs(v) != float("inf") for v in m.values()) or not m["r1"] > 0:
+            raise RuntimeError(f"AFHQCat loop: bad metrics {m}")
+    paths.append(launches)
+    gen = harness.FakeImageGenerator(afhq, state.G, use_fused=True, device=dev)
+    mpi = gen.sample_mpi(0)
+    yv, pv = gen.sample_views(0, PRESET_VIEWS)
+    mpi_v = mpi.expand(PRESET_VIEWS, -1, -1, -1, -1)
+    reset_counts(fr)
+    color, depth = gen.render(mpi_v, yv, pv)
+    render_launches = dict(fr.LAUNCHES)
+    if render_launches != {**dict.fromkeys(fr.LAUNCHES, 0), "fused_fwd": 1}:
+        raise RuntimeError(f"an AFHQCat render launched {render_launches}")
+    paths.append(render_launches)
+    _, rays = preset_rays(afhq, afhq.eval_n_planes, yv, pv, dev)
+    with torch.no_grad():
+        gather = render_mpi(mpi_v, gen.geom.dhw, *rays)
+    err_a = render_checks("AFHQCat render", color, depth, gather, afhq.planes.min_d * 0.9,
+                          afhq.planes.max_d * 1.4)
+    err_k = check_inference_form(fr, f"AFHQCat render inputs, V={PRESET_VIEWS}", mpi_v,
+                                 *fused_inputs(fr, gen.geom.dhw, *rays, afhq.resolution), False)
+    log(f"13e: train_gmpi_torch.main --dataset AFHQCat ({PRESET_IMAGES} PNGs of "
+        f"{afhq.resolution}^2, dataset.json poses): {first} steps, step ms "
+        f"{['%.1f' % x for x in stats.step_ms]}, launches {launches}; {PRESET_VIEWS} views x "
+        f"{afhq.eval_n_planes} planes of one of its MPIs through K1 vs the gather renderer "
+        f"{err_a:.2e} (gate 5e-4) ({card})")
+    record["afhqcat"] = {"step_ms": stats.step_ms, "launches": launches, "vs_gather": err_a}
+    del state, gen, mpi, mpi_v, gather
+    torch.cuda.empty_cache()
+    return record, paths, err_k
+
+
+def presets_phase(fr, tw, pg, card, rates, dev):
+    """Phase 13: the 1024^2 and 512^2 presets at full width (13a kernels, 13b
+    the full-scale tier, 13c FFHQ1024 serving, 13d FFHQ1024 training with
+    each memory switch, 13e the train and eval entry points on FFHQ1024 and
+    AFHQCat).  Returns ``(record, launches of its main paths, largest kernel
+    errors, kernel timings at 1024^2)``."""
+    import shutil
+    import tempfile
+
+    from gmpi_tpu_torch.config import get_config
+
+    ffhq, metfaces = get_config("FFHQ1024"), get_config("MetFaces")
+    log(f"phase 13 depth (widths are the presets'): {len(PRESET_SEEDS)} serving seeds x "
+        f"{PRESET_VIEWS} views, {sum(PRESET_STEPS)} + 1 preset steps and {SWITCH_STEPS} a "
+        f"memory switch, {PRESET_IMAGES} PNGs a dataset, {PRESET_LOOP_STEPS} CLI steps, "
+        f"{PRESET_FAKES} fakes a route")
+    laps, t0 = {}, time.perf_counter()
+
+    def lap(name):
+        laps[name] = time.perf_counter() - t0 - sum(laps.values())
+        log(f"phase {name}: {laps[name]:.1f} s")
+
+    errs = preset_kernels(fr, ffhq, metfaces, dev)
+    lap("13a")
+    full = full_scale_checks(fr, tw, pg, ffhq, rates, card, dev)
+    torch.cuda.empty_cache()
+    lap("13b")
+    serving, k1_serving = preset_serving(fr, ffhq, rates, card, dev)
+    lap("13c")
+    training, train_launches, train_errs, k = preset_training(fr, ffhq, rates, card, dev)
+    for kname, e in train_errs.items():
+        errs[kname] = worse(errs[kname], e)
+    errs["fused_fwd"] = worse(errs["fused_fwd"], k1_serving["max_abs_err"])
+    lap("13d")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_presets_")
+    try:
+        loop_eval, paths, err_k = preset_loop_eval(fr, tw, pg, card, dev, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    errs["fused_fwd"] = worse(errs["fused_fwd"], err_k)
+    lap("13e")
+    paths = [serving["launches"], train_launches] + paths
+    timings = {"fused_fwd": {**k1_serving, "train_form_ms": k["fwd_train"],
+                             "train_form_plain_ms": k["fwd_train_plain"],
+                             "train_form_bound_ms": k["bounds"]["fused_fwd_train"][0],
+                             **{key: val for key, val in k.items() if "_form_" in key}},
+               "composite_bwd": {"ms": k["bwd"], "queued_ms": k["bwd_queued"],
+                                 "plain_ms": k["bwd_plain"],
+                                 "bound_ms": k["bounds"]["composite_bwd"][0],
+                                 "bound_by": k["bounds"]["composite_bwd"][1]},
+               "splat": {"ms": k["splat"], "queued_ms": k["splat_queued"],
+                         "plain_ms": k["splat_plain"], "library_ms": k["splat_lib"],
+                         "direct_path_ms": k["splat_direct"], "bound_ms": k["bounds"]["splat"][0],
+                         "bound_by": k["bounds"]["splat"][1]},
+               "adjoint": {"ms": k["adj"], "queued_ms": k["adj_queued"], "plain_ms": k["adj_plain"],
+                           "library_ms": k["splat_lib"], "bound_ms": k["bounds"]["adjoint"][0],
+                           "bound_by": k["bounds"]["adjoint"][1]},
+               "patch_gather": full.pop("patch_gather")}
+    for kname, t in timings.items():
+        t["launches"] = sum(path.get(kname, 0) for path in paths)
+    record = {"full_scale": full, "serving": serving, "training": training,
+              "loop_eval": loop_eval, "seconds": laps}
+    return record, paths, errs, timings
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs a CUDA card",
@@ -2160,6 +3173,13 @@ def main() -> int:
     from gmpi_tpu_torch.utils import roofline
 
     # -- 1. setup --------------------------------------------------------------
+    phase_s, t_start = {}, time.perf_counter()
+
+    def lap(name):
+        """Print and keep the seconds since the last lap."""
+        phase_s[name] = time.perf_counter() - t_start - sum(phase_s.values())
+        log(f"phase {name}: {phase_s[name]:.1f} s")
+
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60)
     card = smi.stdout.strip().splitlines()[0]
@@ -2201,6 +3221,8 @@ def main() -> int:
         c2w, _, _ = poses.sample_sphere_poses(None, len(yaws), c, given_yaws=yaws,
                                               given_pitches=pitches, device=dev)
         return cam.generate_rays(intr, c2w)
+
+    lap("1")
 
     # -- 2a. forward kernel vs plain version at the serving shapes --------------
     yaws = torch.tensor([[k * c.yaw_std], [-k * c.yaw_std], [k * c.yaw_std], [0.0]])
@@ -2253,9 +3275,13 @@ def main() -> int:
         del tex
     torch.cuda.empty_cache()
 
+    lap("2a-2b")
+
     # -- 2e. the forward and the adjoint at the edges of their designs ------------------
     for kname, e in check_edges(fr, cam, poses, cfg, dev).items():
         max_err[kname] = worse(max_err[kname], e)
+
+    lap("2e")
 
     # -- 2c. patch gather vs plain version at the banded serving path's shapes ---------
     t0 = time.perf_counter()
@@ -2287,6 +3313,8 @@ def main() -> int:
                 raise RuntimeError("patch_gather disagrees with its plain version")
         del texf, out, ref
     torch.cuda.empty_cache()
+
+    lap("2c")
 
     # -- 3. serving main path ----------------------------------------------------
     t0 = time.perf_counter()
@@ -2365,6 +3393,8 @@ def main() -> int:
     serving_gather_ms = gather_ms
     del gen, mpi, mpi_v, gather, out, ref
     torch.cuda.empty_cache()
+
+    lap("3")
 
     # -- 4. training main path -------------------------------------------------------
     t0 = time.perf_counter()
@@ -2454,6 +3484,8 @@ def main() -> int:
     if not err_g <= GRAD_REL:
         raise RuntimeError("the fused Function's gradient disagrees with the gather renderer's")
 
+    lap("4")
+
     # -- 7. adjoint route at the training shapes ---------------------------------------------
     grads_a = []
     reset_counts(fr)
@@ -2478,147 +3510,23 @@ def main() -> int:
         raise RuntimeError("the adjoint route's gradient disagrees or is not repeatable")
     del grads_r, grads_a, x, out
 
-    # -- 5. timing and bounds at the training main path's inputs ----------------------
-    rx, ry, q, scal = fused_inputs(fr, geom_train.dhw, ray_dir, eye, z_dir, res)
-    fwd_train = lambda: fr.warp_composite_fwd(  # noqa: E731
-        mpi, rx, ry, q, scal, early_out="grad", with_disp=False, with_warped=True)
-    *_, warped, n_live = fwd_train()
-    d_samp = fr.composite_bwd(warped, q, scal, cot, n_live=n_live, grad_tau=fr.GRAD_TAU)
-    d_samp_ref = fr.composite_bwd_ref(warped, q, scal, cot, n_live=n_live, grad_tau=fr.GRAD_TAU)
-    d_tex = fr.warp_splat(d_samp, rx, ry, scal, res, res, n_live=n_live)
-    d_tex_ref = fr.warp_splat_ref(d_samp, rx, ry, scal, res, res, n_live=n_live)
-    d_tex_direct = fr._launch_splat(d_samp, rx, ry, scal, n_live, res, res, boxed=False)
-    torch.cuda.synchronize()
-    splat_errs = {"box": rel_err(d_tex, d_tex_ref), "direct": rel_err(d_tex_direct, d_tex_ref)}
-    del d_tex_direct
-    a_tex = fr.warp_adjoint(d_samp, rx, ry, scal, adj_bands, res, res)
-    a_tex_ref = fr.warp_adjoint_ref(d_samp, rx, ry, scal, res, res)
-    torch.cuda.synchronize()
-    max_err["composite_bwd"] = max(max_err["composite_bwd"], rel_err(d_samp, d_samp_ref))
-    max_err["splat"] = worse(max_err["splat"], max(splat_errs.values()))
-    max_err["adjoint"] = max(max_err["adjoint"], rel_err(a_tex, a_tex_ref), rel_err(a_tex, d_tex))
-    del a_tex, a_tex_ref
-    if not (max_err["composite_bwd"] <= TOL and max_err["splat"] <= TOL
-            and max_err["adjoint"] <= TOL):
-        raise RuntimeError(f"a backward kernel disagrees with its plain version on the main "
-                           f"path's inputs: {max_err}")
-    del d_samp_ref, d_tex_ref, d_tex
-    texels, pairs = needed_work(fr, mpi, rx, ry, scal, n_live=n_live)
-    n_pix, stack = rx.numel(), mpi.numel() * 4
-    all_pairs = bs * n_train * res * res
-    work = {  # bytes each kernel must move on these inputs, each tensor once
-        # texels touched + rays + scal + outputs + n_live + the live residual
-        "fused_fwd_train": texels * 16 + 3 * n_pix * 4 + scal.numel() * 4 + 5 * n_pix * 4
-        + n_pix * 4 + pairs * 16,
-        # live residual + q, g_color, n_live + scal; d_samp written whole
-        "composite_bwd": pairs * 16 + 5 * n_pix * 4 + scal.numel() * 4 + stack,
-        # live d_samp + rx, ry, n_live + scal; d_tex written whole
-        "splat": pairs * 16 + 3 * n_pix * 4 + scal.numel() * 4 + stack,
-        # live d_samp + rx, ry + scal; d_tex written whole
-        "adjoint": pairs * 16 + 2 * n_pix * 4 + scal.numel() * 4 + stack,
-    }
-    with torch.no_grad():
-        t_fwd_train = time_ms(fwd_train)
-        t_fwd_train_plain = time_ms(lambda: fr.warp_composite_fwd_ref(
-            mpi, rx, ry, q, scal, early_out="grad", with_disp=False, with_warped=True),
-            iters=5, warmup=1)
-        t_bwd = time_ms(lambda: fr.composite_bwd(warped, q, scal, cot, n_live=n_live,
-                                                 grad_tau=fr.GRAD_TAU))
-        t_bwd_queued = time_ms(lambda: fr.composite_bwd(warped, q, scal, cot, n_live=n_live,
-                                                        grad_tau=fr.GRAD_TAU), queued=10)
-        t_bwd_plain = time_ms(lambda: fr.composite_bwd_ref(warped, q, scal, cot, n_live=n_live,
-                                                           grad_tau=fr.GRAD_TAU),
-                              iters=5, warmup=1)
-        # the splat's direct path at the same inputs (that of a box beyond its shared memory)
-        splat_direct = lambda: fr._launch_splat(  # noqa: E731
-            d_samp, rx, ry, scal, n_live, res, res, boxed=False)
-        t_splat_direct = time_ms(splat_direct)
-        t_splat_direct_queued = time_ms(splat_direct, queued=10)
-        t_splat = time_ms(lambda: fr.warp_splat(d_samp, rx, ry, scal, res, res, n_live=n_live))
-        t_splat_plain = time_ms(lambda: fr.warp_splat_ref(d_samp, rx, ry, scal, res, res,
-                                                          n_live=n_live), iters=5, warmup=1)
-        # the adjoint in turn with the splat: splat, adjoint, adjoint, splat
-        t_adj = [time_ms(lambda: fr.warp_adjoint(d_samp, rx, ry, scal, adj_bands, res, res))
-                 for _ in range(2)]
-        t_splat_again = time_ms(lambda: fr.warp_splat(d_samp, rx, ry, scal, res, res,
-                                                      n_live=n_live))
-        t_adj_plain = time_ms(lambda: fr.warp_adjoint_ref(d_samp, rx, ry, scal, res, res),
-                              iters=5, warmup=1)
-        t_adj_queued = time_ms(lambda: fr.warp_adjoint(d_samp, rx, ry, scal, adj_bands, res, res),
-                               queued=10)
-        t_splat_queued = time_ms(lambda: fr.warp_splat(d_samp, rx, ry, scal, res, res,
-                                                       n_live=n_live), queued=10)
-    t_adj = min(t_adj)
-    # one PyTorch call that computes the splat's and the adjoint's function:
-    # grid_sample's backward (timed here as a yardstick, used nowhere in the port)
-    per_plane = lambda x: x[:, None].expand(bs, n_train, *x.shape[1:]).reshape(  # noqa: E731
-        bs * n_train, *x.shape[1:])
-    grid, _ = homography_grid(geom_train.dhw.repeat(bs, 1), per_plane(eye), per_plane(ray_dir),
-                              per_plane(z_dir))
-    tex_flat = mpi.reshape(bs * n_train, 4, res, res).clone().requires_grad_()
-    sampled = torch.nn.functional.grid_sample(tex_flat, grid, mode="bilinear",
-                                              padding_mode="zeros", align_corners=True)
-    d_flat = d_samp.reshape(sampled.shape)
-    t_splat_lib = time_ms(lambda: torch.autograd.grad(sampled, tex_flat, d_flat,
-                                                      retain_graph=True), iters=10, warmup=2)
-    del sampled, tex_flat, grid, d_flat
-    bounds = {key: bound(val, FLOP_PER_PAIR[key.replace("_train", "")] * pairs, rates)
-              for key, val in work.items()}
-    log(f"training inputs: {pairs} live pixel-plane pairs of {all_pairs} "
-        f"(mean n_live {float(n_live.float().mean()):.2f} of {n_train}), {texels} texels touched")
-    log(f"fused_fwd training form: {t_fwd_train:.4f} ms as the path launches it, plain "
-        f"{t_fwd_train_plain:.3f} ms, needs {work['fused_fwd_train']} B; bound {bounds['fused_fwd_train'][0]:.5f} ms ({card})")
-    log(f"composite_bwd: {t_bwd:.4f} ms with everything its wrapper launches (10 launches "
-        f"queued: {t_bwd_queued:.4f} a launch), plain {t_bwd_plain:.3f} ms, needs "
-        f"{work['composite_bwd']} B; bound {bounds['composite_bwd'][0]:.5f} ms ({card})")
-    log(f"splat (texel boxes, as the path launches it): {t_splat:.4f} ms with everything its "
-        f"wrapper launches, the zero fill of d_tex included (10 queued: {t_splat_queued:.4f} a "
-        f"launch); every tap into d_tex {t_splat_direct:.4f} (10 queued: "
-        f"{t_splat_direct_queued:.4f}); errors by path {splat_errs}; plain {t_splat_plain:.3f} ms, grid_sample backward "
-        f"{t_splat_lib:.4f} ms, needs {work['splat']} B; bound {bounds['splat'][0]:.5f} ms "
-        f"({card})")
-    log(f"adjoint (measured windows {adj_bands}): {t_adj:.4f} ms with everything its wrapper "
-        f"launches (the kernel alone: no op precedes it); the splat timed around it "
-        f"{t_splat:.4f} / {t_splat_again:.4f} ms; 10 launches queued: adjoint "
-        f"{t_adj_queued:.4f}, splat {t_splat_queued:.4f} a launch; plain {t_adj_plain:.3f} ms, "
-        f"grid_sample "
-        f"backward {t_splat_lib:.4f} ms, needs {work['adjoint']} B; bound "
-        f"{bounds['adjoint'][0]:.5f} ms ({card})")
-    del warped, d_samp
-    torch.cuda.empty_cache()
+    lap("7")
 
-    # the forward's two no-grad launches of a step at the main path's inputs: the D phase's
-    # fakes (these 8 MPIs and views) and worst-view selection (each MPI read by the group of
-    # its candidate views, as TrainStep.worst_views renders it; beside it the materialized
-    # repeat that this form read before stacks could be grouped)
+    # -- 5. timing and bounds at the training main path's inputs ----------------------
+    bwd_errs, k5 = backward_kernels_at(fr, mpi, geom_train.dhw, (ray_dir, eye, z_dir), cot,
+                                       adj_bands, rates, card)
+    for kname, e in bwd_errs.items():
+        max_err[kname] = worse(max_err[kname], e)
     yv_w, pv_w = step.sample_views(rng, bs * n_cand)
     rays_w = fused_inputs(fr, geom_train.dhw, *rays_at(yv_w, pv_w), res)
-    no_grad_forms = {}
-    for form, tex, rays in (("d_phase_form", mpi, (rx, ry, q, scal)),
-                            ("worst_views_form", mpi, rays_w)):
-        n_v = rays[0].shape[0]
-        err = check_inference_form(fr, f"main path's inputs, {form}, V={n_v}", tex, *rays, False)
-        max_err["fused_fwd"] = worse(max_err["fused_fwd"], err)
-        t_kernel = time_ms(lambda: fr.warp_composite_fwd(tex, *rays, with_disp=False))
-        t_plain = time_ms(lambda: fr.warp_composite_fwd_ref(tex, *rays, with_disp=False),
-                          iters=5, warmup=1)
-        texels_f, pairs_f = needed_work(fr, tex, *rays[:2], rays[3])
-        n_pix_f = rays[0].numel()
-        bytes_f = texels_f * 16 + 3 * n_pix_f * 4 + rays[3].numel() * 4 + 5 * n_pix_f * 4
-        b = bound(bytes_f, FLOP_PER_PAIR["fused_fwd"] * pairs_f, rates)
-        log(f"fused_fwd {form} (V={n_v}, {tex.shape[0]} stacks, L={n_train}, no gradient): "
-            f"{t_kernel:.4f} ms as the path launches it, plain {t_plain:.3f} ms, needs {bytes_f} B "
-            f"({pairs_f} live pixel-plane pairs of {n_v * n_train * res * res}, {texels_f} "
-            f"texels touched); bound {b[0]:.5f} ms by {b[1]} ({card})")
-        no_grad_forms.update({f"{form}_ms": t_kernel, f"{form}_plain_ms": t_plain,
-                              f"{form}_bound_ms": b[0]})
-    mpi_w = mpi.repeat_interleave(n_cand, dim=0)
-    t_repeat = time_ms(lambda: fr.warp_composite_fwd(mpi_w, *rays_w, with_disp=False))
-    log(f"fused_fwd worst_views_form on a materialized repeat of the stacks ({mpi_w.numel() * 4} "
-        f"B): {t_repeat:.4f} ms ({card})")
-    no_grad_forms["worst_views_form_repeat_ms"] = t_repeat
-    del mpi, mpi_w
+    err, no_grad_forms = no_grad_forms_at(
+        fr, mpi, fused_inputs(fr, geom_train.dhw, ray_dir, eye, z_dir, res), mpi, rays_w, rates,
+        card)
+    max_err["fused_fwd"] = worse(max_err["fused_fwd"], err)
+    del mpi
     torch.cuda.empty_cache()
+
+    lap("5")
 
     # -- 6. banded serving path ------------------------------------------------------------
     gen_b = FakeImageGenerator(cfg, gen_module, use_fused=False, device=dev)
@@ -2689,26 +3597,7 @@ def main() -> int:
         raise RuntimeError("the planned bands do not cover the sampled poses")
 
     # the patch gather at this path's inputs (the last tile-row step's texture and offsets)
-    texf, offs, _, _ = calls["gather_args"]
-    out, ref = pg.gather_patches(texf, offs, band_x, band_yc), pg.gather_patches_ref(
-        texf, offs, band_x, band_yc)
-    torch.cuda.synchronize()
-    if not torch.equal(out, ref):
-        max_err["patch_gather"] = float("inf")
-        raise RuntimeError("patch_gather disagrees with its plain version on the path's inputs")
-    # one PyTorch call for the same copy: the advanced index alone, its indices made beforehand
-    n_idx = torch.arange(texf.shape[0], device=dev).reshape(-1, 1, 1, 1)
-    rows_i = (offs[..., 0, None].long() + torch.arange(band_x, device=dev))[..., None]
-    cols_i = (offs[..., 1, None].long() + torch.arange(band_yc, device=dev))[:, :, None, :]
-    t_pg = time_ms(lambda: pg.gather_patches(texf, offs, band_x, band_yc, validate=False))
-    t_pg_plain = time_ms(lambda: pg.gather_patches_ref(texf, offs, band_x, band_yc))
-    t_pg_lib = time_ms(lambda: texf[n_idx, rows_i, cols_i])
-    pg_bytes = 2 * out.numel() * out.element_size() + offs.numel() * 4
-    pg_bound = bound(pg_bytes, 0, rates)
-    log(f"patch_gather at the path's inputs ({tuple(out.shape)} f32 from {tuple(texf.shape)}): "
-        f"{t_pg:.4f} ms, plain {t_pg_plain:.4f} ms, one advanced index {t_pg_lib:.4f} ms, needs "
-        f"{pg_bytes} B; bound {pg_bound[0]:.5f} ms ({card})")
-    del out, ref, texf, offs, n_idx, rows_i, cols_i
+    k7 = patch_gather_at(pg, *calls.pop("gather_args"), rates, card, "the path's inputs")
 
     # where the banded render's time goes: one call under the profiler, by the tiled
     # warp's spans; beside it the fused and the gather render of the same MPI
@@ -2742,10 +3631,14 @@ def main() -> int:
     del mpis, mpi_v, gen_b, gen_module, chunked, gather
     torch.cuda.empty_cache()
 
+    lap("6")
+
     # -- 8. training loop from a dataset --------------------------------------------------
     del state, step, step_with_grads
     torch.cuda.empty_cache()
     loop = training_loop_phase(fr, cfg, card, dev)
+
+    lap("8")
 
     # -- 9. eval and 10. viz at full FFHQ256 width ----------------------------------------
     import os
@@ -2760,10 +3653,14 @@ def main() -> int:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
+    lap("9-10")
+
     # -- 11. variants and checkpoints at full FFHQ256 width ------------------------------
     torch.cuda.empty_cache()
     variants, k1_err = variants_phase(fr, cfg, card, chip, dev)
     max_err["fused_fwd"] = worse(max_err["fused_fwd"], k1_err)
+
+    lap("11")
 
     # -- 12. bf16 textures in K1, and ranks on the one card --------------------------------
     torch.cuda.empty_cache()
@@ -2771,11 +3668,24 @@ def main() -> int:
                                                   "g_ms": g_ms, "peak_gb": peak_gb})
     max_err["fused_fwd"] = worse(max_err["fused_fwd"], bf16["max_abs_err"])
     torch.cuda.empty_cache()
+    lap("12a")
     ranks = ranks_phase(fr, card, dev)
+    lap("12b")
+
+    # -- 13. the 1024^2 and 512^2 presets --------------------------------------------------
+    torch.cuda.empty_cache()
+    presets, preset_paths, preset_errs, at_1024 = presets_phase(fr, tw, pg, card, rates, dev)
+    for kname, e in preset_errs.items():
+        max_err[kname] = worse(max_err[kname], e)
+    phase_s["13"] = sum(presets["seconds"].values())
+    log(f"phase 13: {phase_s['13']:.1f} s; seconds by phase "
+        f"{ {k: round(v, 1) for k, v in phase_s.items()} }; the run so far "
+        f"{time.perf_counter() - t_start:.1f} s")
 
     main_paths = (serving_launches, train_launches, adjoint_launches, banded_launches,
                   loop["launches"], evaluation["launches"], viz["launches"],
-                  *variants["launches"].values(), bf16["train_launches"], ranks["launches"])
+                  *variants["launches"].values(), bf16["train_launches"], ranks["launches"],
+                  *preset_paths)
 
     def entry(kname, line, ms, plain_ms, b, library_ms, replaces="gmpi_tpu/ops/pallas_warp.py",
               **extra):
@@ -2784,29 +3694,31 @@ def main() -> int:
                 "launches": sum(path[kname] for path in main_paths),
                 "max_abs_err": max_err[kname], "err_scale": "max|plain| per field", "ms": ms,
                 "plain_ms": plain_ms, "bound_ms": b[0], "bound_by": b[1],
-                "library_ms": library_ms, **extra}
+                "library_ms": library_ms, "at_1024": at_1024[kname], **extra}
 
     record = {"kernels": [
         entry("fused_fwd", 518, fwd_ms, fwd_plain_ms, fwd_bound, None,
               serving_launches=serving_launches["fused_fwd"],
-              train_launches=train_launches["fused_fwd"], train_form_ms=t_fwd_train,
+              train_launches=train_launches["fused_fwd"], train_form_ms=k5["fwd_train"],
               queued_ms=fwd_queued_ms,
-              train_form_plain_ms=t_fwd_train_plain,
-              train_form_bound_ms=bounds["fused_fwd_train"][0], **no_grad_forms,
+              train_form_plain_ms=k5["fwd_train_plain"],
+              train_form_bound_ms=k5["bounds"]["fused_fwd_train"][0], **no_grad_forms,
               bf16_ms=bf16["ms"], bf16_plain_ms=bf16["plain_ms"], bf16_bound_ms=bf16["bound_ms"],
               bf16_bound_by=bf16["bound_by"], bf16_turns_ms=bf16["turns_ms"],
               bf16_max_abs_err=bf16["max_abs_err"],
               bf16_launches=bf16["train_launches"]["fused_fwd"]),
-        entry("composite_bwd", 2407, t_bwd, t_bwd_plain, bounds["composite_bwd"], None,
-              also_replaces="gmpi_tpu/ops/pallas_warp.py:2295", queued_ms=t_bwd_queued),
-        entry("splat", 1355, t_splat, t_splat_plain, bounds["splat"], t_splat_lib,
+        entry("composite_bwd", 2407, k5["bwd"], k5["bwd_plain"], k5["bounds"]["composite_bwd"], None,
+              also_replaces="gmpi_tpu/ops/pallas_warp.py:2295", queued_ms=k5["bwd_queued"]),
+        entry("splat", 1355, k5["splat"], k5["splat_plain"], k5["bounds"]["splat"], k5["splat_lib"],
               also_replaces="gmpi_tpu/ops/pallas_warp.py:1184", form="texel boxes",
-              queued_ms=t_splat_queued, errs_by_path=splat_errs, direct_path_ms=t_splat_direct,
-              direct_path_queued_ms=t_splat_direct_queued),
-        entry("adjoint", 2029, t_adj, t_adj_plain, bounds["adjoint"], t_splat_lib,
-              splat_ms_around=[t_splat, t_splat_again], windows=list(adj_bands),
-              queued_ms=t_adj_queued, splat_queued_ms=t_splat_queued),
-        entry("patch_gather", 33, t_pg, t_pg_plain, pg_bound, t_pg_lib,
+              queued_ms=k5["splat_queued"], errs_by_path=k5["splat_errs"],
+              direct_path_ms=k5["splat_direct"],
+              direct_path_queued_ms=k5["splat_direct_queued"]),
+        entry("adjoint", 2029, k5["adj"], k5["adj_plain"], k5["bounds"]["adjoint"], k5["splat_lib"],
+              splat_ms_around=[k5["splat"], k5["splat_again"]], windows=list(adj_bands),
+              queued_ms=k5["adj_queued"], splat_queued_ms=k5["splat_queued"]),
+        entry("patch_gather", 33, k7["ms"], k7["plain_ms"], (k7["bound_ms"], k7["bound_by"]),
+              k7["library_ms"],
               replaces="gmpi_tpu/ops/pallas_patch.py", err_scale="exact equality required"),
     ], "train_steps": n_steps, "train_step_ms": statistics.median(timed),
         "banded_render_ms": t_banded, "banded_spans_ms": banded_spans,
@@ -2814,7 +3726,8 @@ def main() -> int:
         "banded_peak_gb": peak_banded, "banded_chunked_peak_gb": peak_chunked,
         "serving_gather_ms": serving_gather_ms, "loop": loop,
         "eval": {**{k: v for k, v in evaluation.items() if k != "tasks"}, "viz": viz},
-        "variants": variants, "bf16": bf16, "ranks": ranks}
+        "variants": variants, "bf16": bf16, "ranks": ranks, "presets": presets,
+        "phase_s": phase_s}
     log(json.dumps(record))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -96,7 +96,7 @@ def _sample(rgba, grid, align_corners, tiled_bands, patch_backend="torch"):
         fn = make_tiled_warp_with_adjoint(
             band_y, band_x, (tiled_bands[2], tiled_bands[3]), tile=tile,
             align_corners=align_corners, row_scan=row_scan, rows_per_step=rows_per_step,
-            patch_backend=patch_backend)
+            patch_backend=patch_backend, adjoint_step_bytes=TILED_STEP_BYTES)
         return fn(rgba, grid)
     return grid_sample_tiled(rgba, grid, band_y=band_y, band_x=band_x, tile=tile,
                              align_corners=align_corners, row_scan=row_scan,

@@ -437,7 +437,7 @@ def warp_splat_ref(d_samp: torch.Tensor, rx: torch.Tensor, ry: torch.Tensor,
         if n_live is not None:
             g = torch.where((l < n_live)[:, None], g, 0.0)
         s = scal[:, l, :, None, None]
-        fx, fy = s[:, 0] * rx + s[:, 1], s[:, 2] * ry + s[:, 3]
+        fx, fy = _fma(s[:, 0], rx, s[:, 1]), _fma(s[:, 2], ry, s[:, 3])
         x0, y0 = torch.floor(fx), torch.floor(fy)
         wx, wy = fx - x0, fy - y0
         acc = torch.zeros((4, v * tex_h * tex_w), dtype=d_samp.dtype, device=d_samp.device)
@@ -583,7 +583,7 @@ def warp_adjoint_ref(d_samp: torch.Tensor, rx: torch.Tensor, ry: torch.Tensor,
     planes = []
     for l in range(n_l):
         s = scal[:, l, :, None, None]
-        fx, fy = s[:, 0] * rx + s[:, 1], s[:, 2] * ry + s[:, 3]
+        fx, fy = _fma(s[:, 0], rx, s[:, 1]), _fma(s[:, 2], ry, s[:, 3])
         x0, y0 = torch.floor(fx), torch.floor(fy)
         acc = torch.zeros((4, v * tex_h * tex_w), dtype=d_samp.dtype, device=d_samp.device)
         for yy in (y0, y0 + 1):

@@ -197,7 +197,8 @@ def make_tiled_warp_with_adjoint(band_y: int, band_x: int, adjoint_bands: Tuple[
                                  tile: Tuple[int, int] = (8, 128), align_corners: bool = True,
                                  row_scan: bool = False, rows_per_step: int = 1,
                                  adjoint_tile: Tuple[int, int] = (32, 512),
-                                 adjoint_rows_per_step: int = 1, patch_backend: str = "torch"
+                                 adjoint_rows_per_step: int = 1, patch_backend: str = "torch",
+                                 adjoint_step_bytes: Optional[int] = None
                                  ) -> Callable[[torch.Tensor, torch.Tensor], torch.Tensor]:
     """Tiled warp with the exact scatter-free adjoint as its backward.
 
@@ -205,6 +206,8 @@ def make_tiled_warp_with_adjoint(band_y: int, band_x: int, adjoint_bands: Tuple[
     through :func:`gmpi_tpu_torch.ops.tiled_warp_adjoint.grid_sample_tiled_adjoint`
     instead of autograd's scatter-add, and keeps only ``grid`` as residual (the
     hats are recomputed).  The grid is a constant (UV grids carry no gradient).
+    ``adjoint_step_bytes`` bounds the backward's live hats a step (its plane
+    groups).
     """
     from gmpi_tpu_torch.ops.tiled_warp_adjoint import grid_sample_tiled_adjoint
 
@@ -227,7 +230,8 @@ def make_tiled_warp_with_adjoint(band_y: int, band_x: int, adjoint_bands: Tuple[
                      (256 if tw % 256 == 0 else 128 if tw % 128 == 0 else tw))
             d_tex = grid_sample_tiled_adjoint(cot, grid, ctx.tex_shape, pbr, pbc, tile=atile,
                                               align_corners=align_corners, row_scan=row_scan,
-                                              rows_per_step=adjoint_rows_per_step)
+                                              rows_per_step=adjoint_rows_per_step,
+                                              step_bytes=adjoint_step_bytes)
             return d_tex, None
 
     return TiledWarp.apply

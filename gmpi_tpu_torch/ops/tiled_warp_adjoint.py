@@ -25,7 +25,7 @@ kernel, here as in the JAX package.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -81,19 +81,45 @@ def grid_sample_tiled_adjoint(cot: torch.Tensor, grid: torch.Tensor,
                               tex_shape: Tuple[int, int, int, int], band_rows: int,
                               band_cols: int, tile: Tuple[int, int] = (8, 128),
                               align_corners: bool = True, row_scan: bool = False,
-                              rows_per_step: int = 1) -> torch.Tensor:
+                              rows_per_step: int = 1, step_bytes: Optional[int] = None
+                              ) -> torch.Tensor:
     """``d_tex [N, C, Th, Tw]``, the adjoint warp of ``cot [N, C, Ho, Wo]``
     (the cotangent of the warped output) for the forward sampling grid ``grid
     [N, Ho, Wo, 2]``, with no scatter.
 
     ``row_scan`` / ``rows_per_step`` mirror the forward: texture tile rows are
     processed in groups in a loop, to balance live memory against per-step
-    overhead."""
+    overhead.  ``step_bytes`` also bounds the planes of a step: they go
+    through in groups whose hats and mixed products stay under it (at 96
+    planes of 1024^2, one plane's tile row of them takes ~1.6 GB).  Planes
+    are independent, so the grouping changes no value."""
     n, c, th, tw = tex_shape
-    _, _, ho, wo = cot.shape
     tr, tc = tile
     if th % tr or tw % tc:
         raise ValueError(f"texture {th}x{tw} is not a multiple of the tile {tr}x{tc}")
+    n_ty, n_tx = th // tr, tw // tc
+    g = n_ty
+    if row_scan:
+        g = max(1, min(rows_per_step, n_ty))
+        while n_ty % g:
+            g -= 1
+    n_step = n
+    if step_bytes is not None:
+        # fx, fy, cot bands, both hats and the mixed product of a plane's g tile rows
+        plane_bytes = 4 * g * n_tx * band_rows * band_cols * (2 + c + tr + tc + tr * c)
+        n_step = max(1, min(n, step_bytes // plane_bytes))
+    return torch.cat([_adjoint_planes(cot[i:i + n_step], grid[i:i + n_step],
+                                      (min(n_step, n - i), c, th, tw), band_rows, band_cols,
+                                      tile, align_corners, g)
+                      for i in range(0, n, n_step)])
+
+
+def _adjoint_planes(cot, grid, tex_shape, band_rows, band_cols, tile, align_corners, g):
+    """:func:`grid_sample_tiled_adjoint` of a group of planes, ``g`` tile rows
+    a step."""
+    n, c, th, tw = tex_shape
+    _, _, ho, wo = cot.shape
+    tr, tc = tile
     n_ty, n_tx = th // tr, tw // tc
     dev = cot.device
     fx, fy = _coords(tex_shape, grid, align_corners)
@@ -120,11 +146,6 @@ def grid_sample_tiled_adjoint(cot: torch.Tensor, grid: torch.Tensor,
     n_idx = torch.arange(n, device=dev).reshape(n, 1, 1, 1, 1)
     cols = (px_lo[:, :, None] + torch.arange(band_cols, device=dev))[:, None, :, None, :]
     p = band_rows * band_cols
-    g = n_ty
-    if row_scan:
-        g = max(1, min(rows_per_step, n_ty))
-        while n_ty % g:
-            g -= 1
     out = []
     for r0 in range(0, n_ty, g):
         rows = (py_lo[:, r0:r0 + g, None] + torch.arange(band_rows, device=dev)

@@ -176,13 +176,15 @@ def tiny_config(**train):
     first step is ``lr * sign(g)``, so rounding noise in a near-zero D
     gradient would move D and every later number) and worst views chosen at
     16^2 by the gather path in every layout.  ``resolution`` and ``n_planes``
-    resize it (the JAX package's fused kernels need 128 pixels)."""
+    resize it (the JAX package's fused kernels need 128 pixels);
+    ``batch_size`` and ``batch_split`` set the batch and its micro-batches."""
     import dataclasses
 
     from gmpi_tpu_torch import config as tcfg
     from gmpi_tpu_torch.core.poses import SphereCameraConfig
 
     batch = train.pop("batch_size", 4)
+    split = train.pop("batch_split", 1)
     mbstd = train.pop("mbstd_group_size", 2)
     res = train.pop("resolution", 16)
     n_planes = train.pop("n_planes", 4)
@@ -191,7 +193,7 @@ def tiny_config(**train):
         camera=SphereCameraConfig(sphere_center_z=1.0, sphere_r=1.0, yaw_mean=0.0,
                                   yaw_std=0.289, pitch_mean=0.0, pitch_std=0.127),
         planes=tcfg.PlaneConfig(n_planes=n_planes, min_d=0.95, max_d=1.12),
-        hparams=tcfg.StepHparams(batch_size=batch, img_size=16, tex_size=16, batch_split=1,
+        hparams=tcfg.StepHparams(batch_size=batch, img_size=16, tex_size=16, batch_split=split,
                                  gen_lr=0.002, disc_lr=0.002),
         train=tcfg.TrainHparams(**{**dict(z_dim=32, w_dim=32, n_view_per_z=2,
                                           worst_view_render_res=16, train_d=False,
@@ -245,8 +247,10 @@ def step_batch(cfg, seed=0):
 class inject_draws:
     """Hand a train step the random numbers of the JAX step
     (``tests/_torch_jax_step.jax_draws``): its z and camera and light angles
-    (whole batch; the step keeps this rank's share), and constant synthesis
-    noise.  A context manager; the draws must all be taken."""
+    (whole batch; the step keeps this rank's share), the lights one
+    micro-batch at a time as the step draws them, each draw of the size the
+    step asks for, and constant synthesis noise.  A context manager; the
+    draws must all be taken."""
 
     def __init__(self, step, draws):
         import torch

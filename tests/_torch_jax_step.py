@@ -42,21 +42,25 @@ STEP_KEY = 7
 
 def jax_config(cfg_t):
     """The JAX ``ExperimentConfig`` of a port configuration built by
-    ``tests/_torch_dist_child.tiny_config`` (same sizes, batch, minibatch
-    std group and train switches)."""
+    ``tests/_torch_dist_child.tiny_config`` (same sizes, batch and its
+    split, minibatch std group and train switches, the memory switches of
+    the 1024^2 presets among them).  Under 128 pixels the JAX step renders
+    through its gather route, the fused kernels' function in fp32: its fused
+    kernels need 128 pixels."""
     base = _jax_base_config()
     t = cfg_t.train
+    h = cfg_t.hparams
     train = dataclasses.replace(
         base.train, train_d=t.train_d, worst_view_render_res=t.worst_view_render_res,
-        use_fused_renderer=t.use_fused_renderer, fused_compute_dtype=t.fused_compute_dtype,
-        aug_with_lighting=t.aug_with_lighting, lighting_start_iter=t.lighting_start_iter,
-        n_view_per_z=t.n_view_per_z)
-    h = cfg_t.hparams
+        use_fused_renderer=t.use_fused_renderer and h.img_size >= 128,
+        fused_compute_dtype=t.fused_compute_dtype, aug_with_lighting=t.aug_with_lighting,
+        lighting_start_iter=t.lighting_start_iter, n_view_per_z=t.n_view_per_z,
+        d_batch_split=t.d_batch_split, r1_remat=t.r1_remat, fused_remat=t.fused_remat)
     return dataclasses.replace(
         base, resolution=cfg_t.resolution,
         planes=dataclasses.replace(base.planes, n_planes=cfg_t.planes.n_planes),
         hparams=dataclasses.replace(base.hparams, batch_size=h.batch_size, img_size=h.img_size,
-                                    tex_size=h.tex_size),
+                                    tex_size=h.tex_size, batch_split=h.batch_split),
         model=dataclasses.replace(base.model, mbstd_group_size=cfg_t.model.mbstd_group_size,
                                   gen_alpha_largest_res=cfg_t.model.gen_alpha_largest_res),
         train=train)
@@ -107,33 +111,41 @@ def _light_cfg(cfg_j):
 
 
 def jax_draws(cfg_j, key=STEP_KEY):
-    """The random numbers of one JAX step with ``batch_split`` 1, whole
-    batch, in the order the port's step asks for them: ``z`` (D phase, G
-    phase) and ``views`` (D cameras, D light, G cameras or worst-view
-    candidates, G light; the lights only with the lighting augmentation)."""
-    t, bs = cfg_j.train, cfg_j.hparams.batch_size
-    assert cfg_j.hparams.batch_split == 1 and t.g_iters == 1
+    """The random numbers of one JAX step, whole batch, in the order the
+    port's step asks for them: ``z`` (D phase, G phase) and ``views`` (D
+    cameras, the D phase's light of each micro-batch, G cameras or
+    worst-view candidates, the G phase's light of each micro-batch; the
+    lights only with the lighting augmentation).  The JAX step splits its
+    light key into one key a micro-batch: ``d_split`` of them in the D phase
+    (``batch_split`` with ``d_batch_split``, else 1), ``batch_split`` in the
+    G phase (``gmpi_tpu/train/step.py``: ``d_phase``, ``g_phase``)."""
+    t, h = cfg_j.train, cfg_j.hparams
+    bs, n_split = h.batch_size, h.batch_split
+    assert t.g_iters == 1
+    d_split = n_split if (t.d_batch_split and bs % n_split == 0) else 1
     lit = t.aug_with_lighting
     light_cfg = _light_cfg(cfg_j) if lit else None
 
     def angles(k, n, cfg):
         return tuple(np.asarray(a) for a in jposes.sample_yaw_pitch(k, n, cfg))
 
+    def lights(k_light, n_micro):
+        return [angles(k, bs // n_micro, light_cfg)
+                for k in jax.random.split(k_light, n_micro)] if lit else []
+
     rng_d, rng_g = jax.random.split(jax.random.key(key))
     z, views = [], []
     k_z, _, k_light, k_pose = jax.random.split(rng_d, 4)
     z.append(np.asarray(jax.random.normal(k_z, (bs, t.z_dim), jnp.float32)))
     views.append(angles(k_pose, bs, cfg_j.camera))
-    if lit:
-        views.append(angles(jax.random.split(k_light, 1)[0], bs, light_cfg))
+    views += lights(k_light, d_split)
     k_z, k_worst, _, k_light, k_pose = jax.random.split(jax.random.fold_in(rng_g, 0), 5)
     z.append(np.asarray(jax.random.normal(k_z, (bs, t.z_dim), jnp.float32)))
     if t.n_view_per_z > 1 and t.select_worst_view:
         views.append(angles(jax.random.split(k_worst)[1], bs * t.n_view_per_z, cfg_j.camera))
     else:
         views.append(angles(k_pose, bs, cfg_j.camera))
-    if lit:
-        views.append(angles(jax.random.split(k_light, 1)[0], bs, light_cfg))
+    views += lights(k_light, n_split)
     return {"z": z, "views": views}
 
 

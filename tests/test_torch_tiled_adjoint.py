@@ -54,16 +54,28 @@ def test_required_output_bands_equal_jax(scene, tile):
     assert ta.required_output_bands(tex.shape, torch.from_numpy(grid), tile=tile) == ref
 
 
-@pytest.mark.parametrize("row_scan,rows_per_step", [(False, 1), (True, 1), (True, 2)])
-def test_grid_sample_tiled_adjoint_matches_jax(scene, row_scan, rows_per_step):
+@pytest.mark.parametrize("row_scan,rows_per_step,step_bytes", [
+    (False, 1, None), (True, 1, None), (True, 2, None), (False, 1, 1), (True, 2, 1)])
+def test_grid_sample_tiled_adjoint_matches_jax(scene, row_scan, rows_per_step, step_bytes,
+                                               monkeypatch):
+    """With ``step_bytes`` (1 byte: one plane a step) the planes go through
+    one at a time, to the same values."""
     tex, grid, cot = scene
     pbr, pbc = jta.required_output_bands(tex.shape, jnp.asarray(grid), tile=(8, 32))
     ref = jta.grid_sample_tiled_adjoint(jnp.asarray(cot), jnp.asarray(grid), tex.shape, pbr, pbc,
                                         tile=(8, 32), row_scan=row_scan,
                                         rows_per_step=rows_per_step)
+    groups, planes = [], ta._adjoint_planes
+
+    def recorded(cot, *a, **kw):
+        groups.append(cot.shape[0])
+        return planes(cot, *a, **kw)
+
+    monkeypatch.setattr(ta, "_adjoint_planes", recorded)
     out = ta.grid_sample_tiled_adjoint(torch.from_numpy(cot), torch.from_numpy(grid), tex.shape,
                                        pbr, pbc, tile=(8, 32), row_scan=row_scan,
-                                       rows_per_step=rows_per_step)
+                                       rows_per_step=rows_per_step, step_bytes=step_bytes)
+    assert groups == ([tex.shape[0]] if step_bytes is None else [1] * tex.shape[0])
     assert out.shape == tex.shape
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=0, atol=1e-4)
     with pytest.raises(ValueError, match="multiple of the tile"):

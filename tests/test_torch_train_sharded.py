@@ -83,13 +83,9 @@ def d_case():
 
 def _jax_case(name, over):
     """The JAX configuration, perturbed init state and draws of a case of
-    ``child.JAX_CASES``; under 128 pixels the JAX step renders through its
-    gather route (its fused kernels need 128 pixels), the fused kernels'
-    function in fp32."""
+    ``child.JAX_CASES`` (under 128 pixels ``jax_config`` renders through the
+    JAX step's gather route)."""
     cfg_j = jax_step.jax_config(child.tiny_config(**over))
-    if cfg_j.hparams.img_size < 128:
-        cfg_j = dataclasses.replace(cfg_j, train=dataclasses.replace(
-            cfg_j.train, use_fused_renderer=False))
     return cfg_j, jax_step.jax_state(cfg_j), jax_step.jax_draws(cfg_j)
 
 

@@ -357,21 +357,21 @@ def test_lighting_changes_the_fakes_only_past_its_start():
     assert torch.equal(lit[:, :, 3], mpi[:, :, 3])
 
 
-@pytest.mark.parametrize("train,kw,queue", [
-    (dict(renderer_plane_chunk=2), {}, None),
-    (dict(debug_ray_check=True), {}, None),
-    (dict(fused_compute_dtype="bf16"), {}, "A4"),
-    ({}, dict(mesh=object()), "A9"),
+@pytest.mark.parametrize("train,kind", [
+    (dict(renderer_plane_chunk=2), "non_fused"),
+    (dict(debug_ray_check=True), "non_fused"),
+    (dict(fused_compute_dtype="bf16"), "texture_dtype"),
+    ({}, "mesh"),
 ], ids=["renderer_plane_chunk", "debug_ray_check", "bf16_textures", "mesh"])
-def test_switches_not_ported_yet_raise(train, kw, queue):
-    """Every switch of the step is ported now: the two ported first
-    (``queue`` None) build a non-fused step; bf16 textures (Queue A4) build a
-    step whose fused renders read bf16 and raise on any other dtype name; a
-    mesh (Queue A9) of one rank builds a step, and one that asks for shards
-    without the ranks to hold them raises."""
-    if queue is None:
-        assert make_train_step(tiny_config(**train), device="cpu", **kw).use_fused is False
-    elif queue == "A4":
+def test_every_switch_builds_a_step_and_bad_values_raise(train, kind):
+    """Every switch of the step builds one: ``renderer_plane_chunk`` and
+    ``debug_ray_check`` a non-fused step; bf16 textures a step whose fused
+    renders read bf16, while any other dtype name raises; a mesh of one rank
+    a step, while a mesh that asks for shards without the ranks to hold
+    them raises."""
+    if kind == "non_fused":
+        assert make_train_step(tiny_config(**train), device="cpu").use_fused is False
+    elif kind == "texture_dtype":
         step = make_train_step(tiny_config(use_fused_renderer=True, **train), device="cpu")
         assert step.compute_dtype == torch.bfloat16
         with pytest.raises(ValueError, match="fused_compute_dtype"):

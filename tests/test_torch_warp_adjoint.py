@@ -126,8 +126,9 @@ def _kernel_search_in_python(d_samp, rx, ry, scal, tex_h, tex_w, tile=(32, 16), 
     for v in range(v_n):
         for l in range(l_n):
             ax, bx, ay, by = scal[v, l, :4]
-            with np.errstate(invalid="ignore"):
-                fx, fy = ax * rx[v] + bx, ay * ry[v] + by  # [H, W]
+            with np.errstate(invalid="ignore"):  # the kernel's fmaf: one rounding
+                fx = (np.float64(ax) * rx[v].astype(np.float64) + bx).astype(np.float32)
+                fy = (np.float64(ay) * ry[v].astype(np.float64) + by).astype(np.float32)
             for u0 in range(0, tex_h, tile_y):
                 for x0 in range(0, tex_w, tile_x):
                     # 1. the tile's image box [ia, ib) x [ja, jb)
