@@ -70,7 +70,7 @@ Phases, each of which raises on failure (nonzero exit, no result line):
    its patches come through the patch-gather kernel) renders the 96-plane MPIs
    of phase 3's seeds, 4 views each, through
    ``render_mpi(tiled_bands=bands_for_config(...))``: all 384 textures in one
-   call, the tile rows looped in groups that keep the live hats under
+   call, in texture groups and tile-row steps that keep the live hats under
    ``renderer.TILED_STEP_BYTES``; then the last MPI through
    ``render_mpi_chunked`` in slabs of 24 planes, twice.  Launch counts are
    reset just before and read just after: one patch-gather launch per call of
@@ -206,7 +206,32 @@ Phases, each of which raises on failure (nonzero exit, no result line):
    ``train_gmpi_torch.main --dataset AFHQCat`` on a folder of 8 PNGs of
    512^2 with an EG3D ``dataset.json`` (2 steps), then 4 views of one of
    its MPIs through K1 against the gather renderer.  Only depth is cut
-   (seeds, steps, images), and the phase prints its cuts.
+   (seeds, steps, images), and the phase prints its cuts;
+14. the tile-banded route at full width — (a) ``bands_for_config`` of each
+   of the five presets at its eval size (96 planes) planned on the card,
+   twice, and on the host, each timed: the tuples must be equal, or the
+   card's plan must cover; either way it must cover the spans measured on
+   the card at the 9 corner poses and at 64 sampled poses; (b)
+   ``train_gmpi_torch.main --no_fused_renderer`` on FFHQ256 and on FFHQ1024
+   at the presets' settings from noise PNGs in a zip: 2 steps, resumed to 3,
+   each step's D and G phases timed and its peak memory read by span (D
+   phase, G before worst views, worst views, G after them); launches reset
+   before and read after: one patch gather a tile-row step, nothing else;
+   K7 equal to its plain version on the first inputs of each shape that the
+   steps hand it (worst-view groups, D- and G-phase renders); metrics
+   finite, every G and D parameter moved from the initial weights, a G
+   micro-batch's ``rgba`` gradient through the step's banded render within
+   1e-3 of max of the gather renderer's; (c) ``eval_gmpi_torch.main --task
+   prepare_fake``, banded (eval's default), on the FFHQ1024 banded
+   checkpoint and on the MetFaces checkpoint of (d), 4 fakes each: the
+   planning timed on the card, one patch gather a tile-row step, K7 equal
+   to its plain version and the render within 5e-4 of the gather renderer
+   on the run's own last inputs; then ``--task prepare_real`` of the
+   training PNGs and ``--task fid_kid`` between them and the banded fakes
+   (random Inception weights), finite; (d) ``train_gmpi_torch.main`` (fused) on
+   FFHQ512 (a zip) and MetFaces (a folder of PNGs with a pose folder), 2
+   steps each: launches as ``step_launches`` works them out, step, D and G
+   ms and peak GB by span.
 
 Each phase prints its seconds.
 
@@ -214,6 +239,7 @@ The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
+import contextlib
 import dataclasses
 import json
 import statistics
@@ -786,8 +812,9 @@ def patch_gather_at(pg, texf, offs, band_x, band_yc, rates, card, label):
     """The patch gather at a path's inputs (its last tile-row step's texture
     and offsets): exactly its plain version, then timed beside its plain
     version, one PyTorch call for the same copy (the advanced index alone,
-    its indices made beforehand) and its byte bound.  Returns the timings;
-    raises on a difference."""
+    its indices made beforehand) and its byte bound: each texel that some
+    patch covers read once (patches overlap), the offsets read and the
+    patches written once.  Returns the timings; raises on a difference."""
     out, ref = pg.gather_patches(texf, offs, band_x, band_yc), pg.gather_patches_ref(
         texf, offs, band_x, band_yc)
     torch.cuda.synchronize()
@@ -800,7 +827,11 @@ def patch_gather_at(pg, texf, offs, band_x, band_yc, rates, card, label):
     ms = time_ms(lambda: pg.gather_patches(texf, offs, band_x, band_yc, validate=False))
     plain_ms = time_ms(lambda: pg.gather_patches_ref(texf, offs, band_x, band_yc))
     lib_ms = time_ms(lambda: texf[n_idx, rows_i, cols_i])
-    n_bytes = 2 * out.numel() * out.element_size() + offs.numel() * 4
+    covered = torch.zeros(texf.shape, dtype=torch.bool, device=dev)
+    covered[n_idx, rows_i, cols_i] = True
+    n_bytes = ((int(covered.sum()) + out.numel()) * out.element_size()
+               + offs.numel() * offs.element_size())
+    del covered
     b = bound(n_bytes, 0, rates)
     log(f"patch_gather at {label} ({tuple(out.shape)} {str(texf.dtype).split('.')[1]} from "
         f"{tuple(texf.shape)}): equal to its plain version; {ms:.4f} ms, plain {plain_ms:.4f} "
@@ -2153,7 +2184,8 @@ def _rank_renders(mesh_p, mesh_t, mesh_pt, dev, gates, record, fr):
     cot = torch.randn((4, 3, res, res), device=dev, generator=g)
     with torch.no_grad():
         ref = render_mpi_fused(rgba, geom.dhw, *rays, with_disp=False)
-    bands = tuple(bands_mod.bands_for_config(cfg, img_size=res, n_planes=n_planes)[:2])
+    bands = tuple(bands_mod.bands_for_config(cfg, img_size=res, n_planes=n_planes,
+                                             device=dev)[:2])
     slab = make_fused_slab_renderer()
 
     def fused(r, d, rd, e, z):
@@ -2572,9 +2604,10 @@ def full_scale_checks(fr, tw, pg, cfg, rates, card, dev):
     rgba = torch.rand((1, n_l, 4, res, res), device=dev, generator=g)
     cot = torch.randn((1, 3, res, res), device=dev, generator=g)
     t0 = time.perf_counter()
-    bands = bands_for_config(cfg, img_size=res, n_planes=n_l)
+    bands = bands_for_config(cfg, img_size=res, n_planes=n_l, device=dev)
     bands_s = time.perf_counter() - t0
-    log(f"tile bands for {n_l} planes at {res}^2: {bands} in {bands_s:.1f} s (host)")
+    log(f"tile bands for {n_l} planes at {res}^2: {bands} in {bands_s:.1f} s (planned on "
+        f"{dev})")
     kept = {}
     gather = tw.gather_patches
 
@@ -2582,7 +2615,7 @@ def full_scale_checks(fr, tw, pg, cfg, rates, card, dev):
         kept["gather"] = (texf, offs, band_x, band_yc)
         return gather(texf, offs, band_x, band_yc, **kw)
 
-    record = {"bands": list(bands), "bands_host_s": bands_s, "poses": {}}
+    record = {"bands": list(bands), "bands_s": bands_s, "poses": {}}
     gates = {"fused": 5e-4, "fused bf16": FULL_SCALE_BF16_GATE, "banded": 5e-4}
     tw.gather_patches = recorded_gather
     try:
@@ -2709,13 +2742,71 @@ def preset_serving(fr, cfg, rates, card, dev):
     log(f"fused_fwd at {cfg.name}'s serving inputs ({PRESET_VIEWS} views x {n_planes} planes, "
         f"{res}^2): {ms:.4f} ms (10 queued: {queued:.4f} a launch), plain {plain:.3f} ms, needs "
         f"{n_bytes} B ({pairs} live pairs); bound {b[0]:.5f} ms by {b[1]} ({card})")
+    # K1's bf16 form at the same inputs: 2 bytes a texel
+    mpi16 = fr.cast_texture(mpi_v, torch.bfloat16)
+    err_k = worse(err_k, check_inference_form(fr, f"bf16 {cfg.name} serving inputs", mpi16, *f,
+                                              True))
+    with torch.no_grad():
+        ms16 = time_ms(lambda: fr.warp_composite_fwd(mpi16, *f))
+        plain16 = time_ms(lambda: fr.warp_composite_fwd_ref(mpi16, *f), iters=PLAIN_ITERS,
+                          warmup=1)
+    texels16, pairs16 = needed_work(fr, mpi16, f[0], f[1], f[3])
+    bytes16 = n_bytes - texels * 16 + texels16 * 8
+    b16 = bound(bytes16, FLOP_PER_PAIR["fused_fwd"] * pairs16, rates)
+    log(f"fused_fwd bf16 at {cfg.name}'s serving inputs: {ms16:.4f} ms, plain {plain16:.3f} ms, "
+        f"needs {bytes16} B; bound {b16[0]:.5f} ms by {b16[1]} ({card})")
     record = {"sample_mpi_ms": gen_ms, "render_ms": render_ms, "peak_gb": peak,
               "launches": launches, "vs_gather": err}
     timing = {"ms": ms, "queued_ms": queued, "plain_ms": plain, "bound_ms": b[0],
-              "bound_by": b[1], "max_abs_err": err_k}
-    del gen, mpi, mpi_v, color, depth
+              "bound_by": b[1], "max_abs_err": err_k, "bf16_ms": ms16, "bf16_plain_ms": plain16,
+              "bf16_bound_ms": b16[0], "bf16_bound_by": b16[1]}
+    del gen, mpi, mpi_v, mpi16, color, depth
     torch.cuda.empty_cache()
     return record, timing
+
+
+@contextlib.contextmanager
+def phases_timed(spans):
+    """While active, every ``TrainStep``'s D and G phases are timed (host clock
+    between ``synchronize`` calls) into ``spans["D ms"]`` / ``spans["G ms"]``,
+    one entry a step, and the peak memory of each of 13d's spans is read into
+    ``spans["<span> GB"]``: the D phase, G before worst-view selection, worst
+    views, G after them."""
+    from gmpi_tpu_torch.train.step import TrainStep
+
+    d_phase, g_phase, worst_views = TrainStep.d_phase, TrainStep.g_phase, TrainStep.worst_views
+
+    def peak(span):
+        spans.setdefault(f"{span} GB", []).append(torch.cuda.max_memory_allocated() / 1e9)
+        torch.cuda.reset_peak_memory_stats()
+
+    def timed(phase, key, last_span):
+        def run(self, *args, **kw):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            out = phase(self, *args, **kw)
+            torch.cuda.synchronize()
+            spans.setdefault(f"{key} ms", []).append((time.perf_counter() - t0) * 1e3)
+            peak(last_span)
+            return out
+        return run
+
+    def worst_views_apart(self, *args, **kw):
+        peak("G before worst views")
+        out = worst_views(self, *args, **kw)
+        torch.cuda.synchronize()
+        peak("worst views")
+        return out
+
+    TrainStep.d_phase = timed(d_phase, "D", "D phase")
+    TrainStep.g_phase = timed(g_phase, "G", "G after worst views")
+    TrainStep.worst_views = worst_views_apart
+    try:
+        yield spans
+    finally:
+        TrainStep.d_phase, TrainStep.g_phase, TrainStep.worst_views = (d_phase, g_phase,
+                                                                       worst_views)
 
 
 def preset_training(fr, cfg, rates, card, dev):
@@ -2765,27 +2856,12 @@ def preset_training(fr, cfg, rates, card, dev):
             step_ms.append(ms)
             metrics.append(m)
         # one step by phase, each phase's peak apart, worst-view selection's inside G's
-        peaks = {"whole steps": torch.cuda.max_memory_allocated() / 1e9}
-        worst_views = step.worst_views
-
-        def worst_views_apart(*args, **kw):
-            peaks["G before worst views"] = torch.cuda.max_memory_allocated() / 1e9
-            torch.cuda.reset_peak_memory_stats()
-            out = worst_views(*args, **kw)
-            peaks["worst views"] = torch.cuda.max_memory_allocated() / 1e9
-            torch.cuda.reset_peak_memory_stats()
-            return out
-
-        step.worst_views = worst_views_apart
-        torch.cuda.reset_peak_memory_stats()
-        (dm, _), d_ms = host_ms(lambda: step.d_phase(state, real, real_pose, rng))
-        peaks["D phase"] = torch.cuda.max_memory_allocated() / 1e9
-        torch.cuda.reset_peak_memory_stats()
-        (gm, _), g_ms = host_ms(lambda: step.g_phase(state, bs, rng))
-        peaks["G after worst views"] = torch.cuda.max_memory_allocated() / 1e9
-        del step.worst_views, worst_views, worst_views_apart  # they hold this run's step
-        state.step += 1
-        metrics.append({**dm, **gm})
+        spans = {"whole steps GB": [torch.cuda.max_memory_allocated() / 1e9]}
+        with phases_timed(spans):
+            (_, m), _ = host_ms(lambda: step(state, real, real_pose, rng))
+        metrics.append(m)
+        d_ms, g_ms = spans.pop("D ms")[0], spans.pop("G ms")[0]
+        peaks = {k[:-3]: v[0] for k, v in spans.items()}
         if label == "preset":  # past the lighting augmentation's start, for this and later runs
             state.step = cfg.train.lighting_start_iter + 500
             torch.cuda.reset_peak_memory_stats()
@@ -2847,7 +2923,7 @@ def preset_training(fr, cfg, rates, card, dev):
     if not err_g <= GRAD_REL:
         raise RuntimeError(f"{cfg.name}: the fused gradient disagrees with the gather renderer's")
     del grads, x
-    corner = bands_mod._corner_rays(cfg.camera, cfg.fov_deg, res, res)
+    corner = bands_mod._corner_rays(cfg.camera, cfg.fov_deg, res, res, device=dev)
     adj_bands = plan_fused(geom.dhw, *corner, res, res)[1][0]
     errs, k = backward_kernels_at(fr, mpi[:mbs].contiguous(), geom.dhw, rays, cot, adj_bands,
                                   rates, card, plain_iters=PLAIN_ITERS)
@@ -2894,6 +2970,101 @@ def write_afhq_dataset(root, n_images, res, seed):
     return folder
 
 
+def prepare_fake_routes(fr, tw, pg, label, cfg, ckpt_dir, routes, tmp, card, dev):
+    """``eval_gmpi_torch.main --task prepare_fake`` of ``PRESET_FAKES`` fakes
+    at ``cfg``'s eval planes from the checkpoint in ``ckpt_dir``, by each of
+    ``routes`` (``"banded"``, the default, and ``"fused"``,
+    ``--fused_renderer``), into ``tmp/<label> <route>``.  Launches are reset
+    before and read after each call: banded, one patch gather a tile-row
+    step; fused, one forward an image; nothing else.  The banded generator's
+    planning (``bands_for_config`` on the card) is timed apart.  On the banded
+    run's own last inputs K7 must equal its plain version and the banded
+    render be within 5e-4 of the gather renderer; with both routes the dumps
+    must be at most 1 level apart.  Returns the record (with each route's
+    dump directory) and the launches by route."""
+    import copy
+    import os
+
+    import eval_gmpi_torch
+    from gmpi_tpu_torch.eval import harness
+
+    common = ["--dataset", cfg.name, "--task", "prepare_fake", "--ckpt", ckpt_dir,
+              "--n_planes", str(cfg.eval_n_planes), "--n_imgs", str(PRESET_FAKES),
+              "--device", str(dev)]
+    kept, row_steps, plan_s = {}, {"n": 0}, []
+    row_step, gather = tw._warp_row_tiles, tw.gather_patches
+    render, plan = harness.FakeImageGenerator.render, harness.bands_for_config
+
+    def counted_row_step(*a, **kw):
+        row_steps["n"] += 1
+        return row_step(*a, **kw)
+
+    def recorded_gather(texf, offs, band_x, band_yc, **kw):
+        kept["gather"] = (texf, offs, band_x, band_yc)
+        return gather(texf, offs, band_x, band_yc, **kw)
+
+    def recorded_render(gen, mpi, yaws, pitches):
+        if not gen.use_fused:
+            kept["render"] = (gen, mpi, yaws, pitches)
+        return render(gen, mpi, yaws, pitches)
+
+    def timed_plan(*a, **kw):
+        t0 = time.perf_counter()
+        bands = plan(*a, **kw)
+        plan_s.append(time.perf_counter() - t0)  # its ints are on the host: the card is done
+        return bands
+
+    tw._warp_row_tiles, tw.gather_patches = counted_row_step, recorded_gather
+    harness.FakeImageGenerator.render, harness.bands_for_config = recorded_render, timed_plan
+    eval_s, launches, dirs = {}, {}, {}
+    try:
+        for route in routes:
+            reset_counts(fr)
+            row_steps["n"] = 0
+            dirs[route] = os.path.join(tmp, f"{label} {route}")
+            t0 = time.perf_counter()
+            eval_gmpi_torch.main(common + (["--fused_renderer"] if route == "fused" else [])
+                                 + ["--out", dirs[route]])
+            eval_s[route] = time.perf_counter() - t0
+            launches[route] = dict(fr.LAUNCHES)
+            want = {**dict.fromkeys(fr.LAUNCHES, 0),
+                    **({"patch_gather": row_steps["n"]} if route == "banded" else
+                       {"fused_fwd": PRESET_FAKES})}
+            if launches[route] != want or (route == "banded" and not row_steps["n"]):
+                raise RuntimeError(f"{label}: {cfg.name} prepare_fake [{route}] launched "
+                                   f"{launches[route]}, expected {want}")
+    finally:
+        tw._warp_row_tiles, tw.gather_patches = row_step, gather
+        harness.FakeImageGenerator.render, harness.bands_for_config = render, plan
+    worst = share = None
+    if len(dirs) == 2:
+        worst, share = _pngs_apart(*(os.path.join(d, "rgb") for d in dirs.values()))
+    texf, offs, band_x, band_yc = kept.pop("gather")
+    same = torch.equal(pg.gather_patches(texf, offs, band_x, band_yc),
+                       pg.gather_patches_ref(texf, offs, band_x, band_yc))
+    gen, mpi, yaws, pitches = kept.pop("render")
+    plain = copy.copy(gen)
+    plain.tiled_bands = None
+    color, depth = gen.render(mpi, yaws, pitches)
+    color_g, depth_g = plain.render(mpi, yaws, pitches)
+    err = max(float((color - color_g).abs().max()), float((depth - depth_g).abs().max()))
+    log(f"{label}: eval_gmpi_torch.main --task prepare_fake on the {cfg.name} checkpoint, "
+        f"{PRESET_FAKES} fakes x {cfg.eval_n_planes} planes: "
+        + ", ".join(f"{route} {sec:.1f} s" for route, sec in eval_s.items())
+        + f" (the banded generator's tile bands {gen.tiled_bands} planned on {dev} in "
+        f"{', '.join('%.2f' % x for x in plan_s)} s); launches {launches}"
+        + (f"; dumps at most {worst} level apart ({share:.3e} of pixel channels differ)"
+           if worst is not None else "")
+        + f"; K7 on the banded run's last inputs {tuple(texf.shape)} equal to its plain "
+        f"version: {same}; its last banded render vs the gather renderer {err:.2e} (gate "
+        f"5e-4) ({card})")
+    if (worst is not None and worst > 1) or not same or not err <= 5e-4:
+        raise RuntimeError(f"{label}: {cfg.name} prepare_fake: the dumps, the patch gather or "
+                           f"the banded render disagree")
+    return {"seconds": eval_s, "plan_s": plan_s, "launches": launches, "max_level_apart": worst,
+            "k7_exact": same, "banded_vs_gather": err, "dirs": dirs}, launches
+
+
 def preset_loop_eval(fr, tw, pg, card, dev, tmp):
     """Phase 13e, through the entry points: ``train_gmpi_torch.main
     --dataset FFHQ1024`` on ``PRESET_IMAGES`` noise PNGs of 1024^2 for
@@ -2908,10 +3079,8 @@ def preset_loop_eval(fr, tw, pg, card, dev, tmp):
     views of one of its MPIs through K1 against the gather renderer.
     Returns the record and the launches of its main paths; writes under
     ``tmp``."""
-    import copy
     import os
 
-    import eval_gmpi_torch
     import train_gmpi_torch
     from gmpi_tpu_torch.config import get_config
     from gmpi_tpu_torch.core.renderer import render_mpi
@@ -2972,71 +3141,9 @@ def preset_loop_eval(fr, tw, pg, card, dev, tmp):
                                "load_s": stats2.load_s, "launches": launches}
 
     # prepare_fake on that checkpoint, banded then fused
-    common = ["--dataset", "FFHQ1024", "--task", "prepare_fake", "--ckpt", ckpt_dir,
-              "--n_planes", str(ffhq.eval_n_planes), "--n_imgs", str(PRESET_FAKES),
-              "--device", str(dev)]
-    kept, row_steps = {}, {"n": 0}
-    row_step, gather = tw._warp_row_tiles, tw.gather_patches
-    render = harness.FakeImageGenerator.render
-
-    def counted_row_step(*a, **kw):
-        row_steps["n"] += 1
-        return row_step(*a, **kw)
-
-    def recorded_gather(texf, offs, band_x, band_yc, **kw):
-        kept["gather"] = (texf, offs, band_x, band_yc)
-        return gather(texf, offs, band_x, band_yc, **kw)
-
-    def recorded_render(gen, mpi, yaws, pitches):
-        if not gen.use_fused:
-            kept["render"] = (gen, mpi, yaws, pitches)
-        return render(gen, mpi, yaws, pitches)
-
-    tw._warp_row_tiles, tw.gather_patches = counted_row_step, recorded_gather
-    harness.FakeImageGenerator.render = recorded_render
-    eval_s, eval_launches = {}, {}
-    try:
-        for route, extra in (("banded", []), ("fused", ["--fused_renderer"])):
-            reset_counts(fr)
-            row_steps["n"] = 0
-            t0 = time.perf_counter()
-            eval_gmpi_torch.main(common + extra + ["--out", os.path.join(tmp, route)])
-            eval_s[route] = time.perf_counter() - t0
-            eval_launches[route] = dict(fr.LAUNCHES)
-            want = {**dict.fromkeys(fr.LAUNCHES, 0),
-                    **({"patch_gather": row_steps["n"]} if route == "banded" else
-                       {"fused_fwd": PRESET_FAKES})}
-            if eval_launches[route] != want or (route == "banded" and not row_steps["n"]):
-                raise RuntimeError(f"prepare_fake [{route}] launched {eval_launches[route]}, "
-                                   f"expected {want}")
-            paths.append(eval_launches[route])
-    finally:
-        tw._warp_row_tiles, tw.gather_patches = row_step, gather
-        harness.FakeImageGenerator.render = render
-    worst, share = _pngs_apart(os.path.join(tmp, "banded", "rgb"), os.path.join(tmp, "fused",
-                                                                                "rgb"))
-    texf, offs, band_x, band_yc = kept["gather"]
-    same = torch.equal(pg.gather_patches(texf, offs, band_x, band_yc),
-                       pg.gather_patches_ref(texf, offs, band_x, band_yc))
-    gen, mpi, yaws, pitches = kept["render"]
-    plain = copy.copy(gen)
-    plain.tiled_bands = None
-    color, depth = gen.render(mpi, yaws, pitches)
-    color_g, depth_g = plain.render(mpi, yaws, pitches)
-    err = max(float((color - color_g).abs().max()), float((depth - depth_g).abs().max()))
-    log(f"13e: eval_gmpi_torch.main --task prepare_fake on the FFHQ1024 checkpoint, "
-        f"{PRESET_FAKES} fakes x {ffhq.eval_n_planes} planes: banded {eval_s['banded']:.1f} s "
-        f"(launches by route below), fused {eval_s['fused']:.1f} s; "
-        f"launches {eval_launches}; dumps at most {worst} level apart ({share:.3e} of pixel "
-        f"channels differ); K7 on the banded run's last inputs {tuple(texf.shape)} equal to its "
-        f"plain version: {same}; its last banded render vs the gather renderer {err:.2e} (gate "
-        f"5e-4) ({card})")
-    if worst > 1 or not same or not err <= 5e-4:
-        raise RuntimeError("FFHQ1024 prepare_fake: the dumps, the patch gather or the banded "
-                           "render disagree")
-    record["ffhq1024_eval"] = {"seconds": eval_s, "launches": eval_launches,
-                               "max_level_apart": worst, "banded_vs_gather": err}
-    del kept, texf, offs, gen, mpi, plain, color, depth, color_g, depth_g
+    record["ffhq1024_eval"], eval_launches = prepare_fake_routes(
+        fr, tw, pg, "13e", ffhq, ckpt_dir, ("banded", "fused"), tmp, card, dev)
+    paths += list(eval_launches.values())
     torch.cuda.empty_cache()
 
     # AFHQCat at 512^2 from a folder with an EG3D dataset.json
@@ -3151,6 +3258,383 @@ def presets_phase(fr, tw, pg, card, rates, dev):
     return record, paths, errs, timings
 
 
+# phase 14: the tile-banded route on the card (widths are the presets')
+BANDED_PRESETS = ("FFHQ256", "FFHQ512", "FFHQ1024", "AFHQCat", "MetFaces")
+BANDED_PLAN_POSES = 64  # sampled poses at which each card plan is held, besides the 9 corners
+BANDED_TRAIN = ("FFHQ256", "FFHQ1024")  # trained through --no_fused_renderer
+FUSED_TRAIN = ("FFHQ512", "MetFaces")  # trained through the fused default
+BANDED_LOOP_STEPS = (2, 3)  # train CLI steps, then resumed to
+FUSED_LOOP_STEPS = 2
+
+
+def write_metfaces_dataset(root, n_images, res, seed):
+    """A MetFaces-style dataset in ``root``: a folder of ``n_images`` seeded
+    noise PNGs of ``res``^2 and a pose folder with a Deep3DFace ``.mat`` file
+    per image under ``coeffs/``.  Returns ``(image folder, pose folder)``."""
+    import os
+
+    import numpy as np
+    import scipy.io as sio
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    folder, pose_dir = os.path.join(root, "metfaces"), os.path.join(root, "metfaces_poses")
+    os.makedirs(folder)
+    os.makedirs(os.path.join(pose_dir, "coeffs"))
+    for i in range(n_images):
+        Image.fromarray(rng.integers(0, 256, (res, res, 3), dtype=np.uint8)).save(
+            os.path.join(folder, f"{i:05d}.png"))
+        sio.savemat(os.path.join(pose_dir, "coeffs", f"{i:05d}.mat"), {
+            "angle": (rng.standard_normal((1, 3)) * 0.2).astype(np.float32),
+            "trans": (rng.standard_normal((1, 3)) * 0.1).astype(np.float32)})
+    return folder, pose_dir
+
+
+def planning_checks(card, dev):
+    """Phase 14a: ``bands_for_config`` at each preset's eval size (its
+    resolution, 96 planes: what the banded ``FakeImageGenerator`` plans) on
+    the card, twice (the first call meets its kernels for the first time),
+    and on the host, each timed; the two plans must be equal tuples, or else
+    the card's plan must still cover.  Either way the card's plan must cover
+    the spans that ``required_spans`` measures on the card at the 9 corner
+    poses and at ``BANDED_PLAN_POSES`` sampled poses (forward bands and the
+    tiled adjoint's output bands; the warp monotone).  Returns the record."""
+    from gmpi_tpu_torch.config import get_config
+    from gmpi_tpu_torch.core import bands as bands_mod
+    from gmpi_tpu_torch.core import poses
+
+    record = {}
+    for name in BANDED_PRESETS:
+        cfg = get_config(name)
+        res, n_l = cfg.resolution, cfg.eval_n_planes
+        card_s = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            plan = bands_mod.bands_for_config(cfg, img_size=res, n_planes=n_l, device=dev)
+            card_s.append(time.perf_counter() - t0)  # its ints are on the host: the card is done
+        t0 = time.perf_counter()
+        host = bands_mod.bands_for_config(cfg, img_size=res, n_planes=n_l, device="cpu")
+        host_s = time.perf_counter() - t0
+        yaws, pitches = poses.sample_yaw_pitch(torch.Generator().manual_seed(60),
+                                               BANDED_PLAN_POSES, cfg.camera, device=dev)
+        geom, sampled = preset_rays(cfg, n_l, yaws, pitches, dev)
+        corners = bands_mod._corner_rays(cfg.camera, cfg.fov_deg, res, res, device=dev)
+        spans = {which: bands_mod.required_spans(geom.dhw, rays, res, res)
+                 for which, rays in (("corners", corners), ("sampled", sampled))}
+        covered = len(plan) == 4 and all(None not in sp and all(a <= b for a, b in zip(sp, plan))
+                                         for sp in spans.values())
+        log(f"14a: {name} tile bands for {n_l} planes at {res}^2 (band_y, band_x, adjoint rows, "
+            f"cols): on the card {plan} in {card_s[0]:.3f} s, again {card_s[1]:.3f} s; on the "
+            f"host {host} in {host_s:.2f} s; equal {plan == host}; spans without margin at the "
+            f"9 corners {spans['corners']}, at {BANDED_PLAN_POSES} sampled poses "
+            f"{spans['sampled']}: covered {covered} ({card})")
+        if not covered:
+            raise RuntimeError(f"{name}: the card's tile bands {plan} do not cover {spans}")
+        if plan != host:
+            log(f"14a: {name}: the card's plan {plan} differs from the host's {host} (a rounding "
+                f"edge); the card's plan covers and is the one the port uses")
+        record[name] = {"card": list(plan), "host": list(host), "card_s": card_s,
+                        "host_s": host_s, "equal": plan == host,
+                        "spans": {k: list(v) for k, v in spans.items()}}
+    return record
+
+
+def banded_training(fr, tw, pg, card, dev, tmp, name):
+    """Phase 14b: ``train_gmpi_torch.main --no_fused_renderer`` on preset
+    ``name`` (its batch, split, planes and views) from ``PRESET_IMAGES``
+    noise PNGs in a zip, ``BANDED_LOOP_STEPS[0]`` steps, resumed to
+    ``BANDED_LOOP_STEPS[1]``, with each step's D and G phases timed and
+    peaks read by span (``phases_timed``).  Launches are reset before and read
+    after both runs: one patch gather a tile-row step of the tiled warp,
+    nothing else.  In each of the step's D phase, worst-view selection and
+    G phase, the first K7 call of each input shape (texture group, offsets,
+    bands) is held exactly against ``gather_patches_ref`` on the same inputs,
+    in the step (a transient copy of that call's patches, once a key).
+    Metrics finite, ``r1 > 0``; every parameter of G and D moved from the
+    CLI's initial weights; then a G micro-batch's ``rgba`` gradient through
+    the step's banded render (K7, the tiled adjoint) against the gather
+    renderer's autograd (1e-3 of max).  Returns the record, the
+    launches, the checkpoint directory and the dataset's ``(data_root,
+    pose_root)``."""
+    import os
+
+    import train_gmpi_torch
+    from gmpi_tpu_torch.config import get_config
+    from gmpi_tpu_torch.core.renderer import render_mpi
+    from gmpi_tpu_torch.train import init_train_state, make_train_step
+    from gmpi_tpu_torch.train.loop import LoopStats
+    from gmpi_tpu_torch.train.step import TrainStep
+
+    cfg = get_config(name)
+    res, bs, split = cfg.resolution, cfg.hparams.batch_size, cfg.hparams.batch_split
+    root = os.path.join(tmp, f"banded {name}")
+    os.makedirs(root)
+    # a batch and more once the fail list leaves one out (FFHQ256's batch is 8)
+    zpath, pose_dir = write_ffhq_dataset(root, max(PRESET_IMAGES, bs + 2), res, seed=12)
+    out = os.path.join(root, "run")
+    args = ["--dataset", name, "--data_root", zpath, "--pose_root", pose_dir, "--output_dir",
+            out, "--seed", "5", "--device", str(dev), "--no_fused_renderer"]
+    first, last = BANDED_LOOP_STEPS
+    spans, row_steps, k7_equal, span = {}, {"n": 0}, {}, {"name": None}
+    row_step, gather = tw._warp_row_tiles, tw.gather_patches
+    step_spans = {k: getattr(TrainStep, k) for k in ("d_phase", "worst_views", "g_phase")}
+
+    def in_span(fn, label):
+        def run(self, *a, **kw):
+            outer, span["name"] = span["name"], label
+            try:
+                return fn(self, *a, **kw)
+            finally:
+                span["name"] = outer
+        return run
+
+    def counted_row_step(*a, **kw):
+        row_steps["n"] += 1
+        return row_step(*a, **kw)
+
+    def checked_gather(texf, offs, band_x, band_yc, **kw):
+        out = gather(texf, offs, band_x, band_yc, **kw)
+        key = (span["name"], tuple(texf.shape), tuple(offs.shape), band_x, band_yc,
+               str(texf.dtype))
+        if key not in k7_equal:
+            k7_equal[key] = torch.equal(out, pg.gather_patches_ref(texf, offs, band_x, band_yc))
+        return out
+
+    tw._warp_row_tiles, tw.gather_patches = counted_row_step, checked_gather
+    reset_counts(fr)
+    try:
+        with phases_timed(spans):
+            for k, label in (("d_phase", "D"), ("worst_views", "worst views"), ("g_phase", "G")):
+                setattr(TrainStep, k, in_span(getattr(TrainStep, k), label))
+            stats1 = LoopStats()
+            state = train_gmpi_torch.main(args + ["--total_iters", str(first)], stats=stats1)
+            if state.step != first:
+                raise RuntimeError(f"{name} banded train CLI ended at step {state.step}")
+            del state
+            torch.cuda.empty_cache()
+            stats2 = LoopStats()
+            state = train_gmpi_torch.main(args + ["--total_iters", str(last)], stats=stats2)
+    finally:
+        tw._warp_row_tiles, tw.gather_patches = row_step, gather
+        for k, fn in step_spans.items():
+            setattr(TrainStep, k, fn)
+    launches = dict(fr.LAUNCHES)
+    want = {**dict.fromkeys(fr.LAUNCHES, 0), "patch_gather": row_steps["n"]}
+    if launches != want or not row_steps["n"]:
+        raise RuntimeError(f"the {name} banded train CLI launched {launches}, expected {want}")
+    k7_shapes = [f"{k[0]}: {k[1]} at {k[2][:2]} offsets -> {k[3]}x{k[4]}" for k in k7_equal]
+    log(f"14b: {name}: K7 in the banded steps vs gather_patches_ref on the same inputs, the "
+        f"first call of each of {len(k7_equal)} spans and input shapes (texture group "
+        f"[N, Wp, Hp*C]): "
+        + "; ".join(f"{sh} equal {ok}" for sh, ok in zip(k7_shapes, k7_equal.values())))
+    missed = {"D", "worst views", "G"} - {k[0] for k in k7_equal}
+    if missed or not all(k7_equal.values()):
+        raise RuntimeError(f"{name}: K7 in the banded step disagrees with its plain version "
+                           f"or was not checked in {missed}")
+    if stats2.start_step != first or state.step != last:
+        raise RuntimeError(f"the resumed {name} banded run went from {stats2.start_step} to "
+                           f"{state.step}, expected {first} to {last}")
+    metrics = stats1.metrics + stats2.metrics
+    for m in metrics:
+        if not all(v == v and abs(v) != float("inf") for v in m.values()) or not m["r1"] > 0:
+            raise RuntimeError(f"{name} banded loop: bad metrics {m}")
+    init = init_train_state(cfg, torch.Generator().manual_seed(5), device=dev)  # the CLI's seed
+    for part in ("G", "D"):
+        still = [k for (k, p), (_, p0) in zip(getattr(state, part).named_parameters(),
+                                               getattr(init, part).named_parameters())
+                 if torch.equal(p.detach(), p0.detach())]
+        if still:
+            raise RuntimeError(f"{name} banded: {len(still)} {part} parameters did not move "
+                               f"from the initial weights: {still[:5]}")
+    del init
+
+    # a G micro-batch's rgba gradient: the step's banded render against the gather's
+    step = make_train_step(dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, use_fused_renderer=False)), device=dev)
+    if step.patch_backend != "cuda" or len(step.tiled_bands) != 4:
+        raise RuntimeError(f"{name}: the banded step took patches by {step.patch_backend!r} "
+                           f"with bands {step.tiled_bands}")
+    rng = torch.Generator().manual_seed(3)
+    mbs = bs // split
+    with torch.no_grad():
+        mpi = step.synth(state.G, torch.randn((mbs, cfg.train.z_dim), generator=rng).to(dev), rng)
+    del state
+    torch.cuda.empty_cache()
+    yv, pv = step.sample_views(rng, mbs)
+    geom, rays = preset_rays(cfg, cfg.planes.n_planes, yv, pv, dev)
+    cot = torch.randn((mbs, 3, res, res), device=dev,
+                      generator=torch.Generator(device=dev).manual_seed(42))
+    x = mpi.clone().requires_grad_()
+    imgs, _, _ = step.render_views(x, yv, pv)
+    grad_b = torch.autograd.grad((imgs * cot).sum(), x)[0]
+    x = mpi.clone().requires_grad_()
+    grad_g = torch.autograd.grad(((render_mpi(x, geom.dhw, *rays).color * 2.0 - 1.0)
+                                  * cot).sum(), x)[0]
+    err_g = rel_err(grad_b, grad_g)
+    del mpi, x, imgs, grad_b, grad_g
+    torch.cuda.empty_cache()
+    peaks = {k[:-3]: max(v) for k, v in spans.items() if k.endswith(" GB")}
+    log(f"14b: train_gmpi_torch.main --dataset {name} --no_fused_renderer (batch {bs}, "
+        f"batch_split {split}, {cfg.planes.n_planes} planes, worst of {cfg.train.n_view_per_z} "
+        f"views, tile bands {step.tiled_bands}): {first} steps, resumed to {last}; step ms "
+        f"{['%.1f' % x for x in stats1.step_ms + stats2.step_ms]}, D ms "
+        f"{['%.1f' % x for x in spans['D ms']]}, G ms {['%.1f' % x for x in spans['G ms']]}; "
+        f"peak GB by span " + ", ".join(f"{k} {v:.2f}" for k, v in peaks.items())
+        + f"; {row_steps['n']} tile-row steps, launches {launches}; a checkpoint of "
+        f"{stats1.save_bytes[-1]} B saved in {stats1.save_s[-1]:.2f} s; G micro-batch rgba "
+        f"gradient, banded vs gather autograd: rel err {err_g:.3e} (gate {GRAD_REL}) ({card})")
+    if not err_g <= GRAD_REL:
+        raise RuntimeError(f"{name}: the banded step's gradient disagrees with the gather's")
+    record = {"bands": list(step.tiled_bands), "step_ms": stats1.step_ms + stats2.step_ms,
+              "d_ms": spans["D ms"], "g_ms": spans["G ms"], "peak_gb_by_span": peaks,
+              "row_steps": row_steps["n"], "launches": launches, "grad_vs_gather": err_g,
+              "k7_exact": dict(zip(k7_shapes, k7_equal.values())),
+              "save_s": stats1.save_s + stats2.save_s, "load_s": stats2.load_s}
+    return record, launches, os.path.join(out, "checkpoints"), (zpath, pose_dir)
+
+
+def fused_training(fr, card, dev, tmp, name):
+    """Phase 14d: ``train_gmpi_torch.main`` on preset ``name`` through the
+    fused default, from ``PRESET_IMAGES`` noise PNGs (a zip with ``.mat``
+    poses for FFHQ512, a folder with a pose folder for MetFaces), for
+    ``FUSED_LOOP_STEPS`` steps: launches as ``step_launches`` works them
+    out, metrics finite, step ms, D and G ms and peak GB by span.  Returns the
+    record, the launches, the checkpoint directory and the dataset's
+    ``(data_root, pose_root)``."""
+    import os
+
+    import train_gmpi_torch
+    from gmpi_tpu_torch.config import get_config
+    from gmpi_tpu_torch.train.loop import LoopStats
+
+    cfg = get_config(name)
+    root = os.path.join(tmp, f"fused {name}")
+    os.makedirs(root)
+    if name == "MetFaces":
+        data_root, pose_root = write_metfaces_dataset(root, PRESET_IMAGES, cfg.resolution, 13)
+    else:
+        data_root, pose_root = write_ffhq_dataset(root, PRESET_IMAGES, cfg.resolution, 13)
+    out = os.path.join(root, "run")
+    spans = {}
+    reset_counts(fr)
+    stats = LoopStats()
+    with phases_timed(spans):
+        state = train_gmpi_torch.main(["--dataset", name, "--data_root", data_root,
+                                       "--pose_root", pose_root, "--output_dir", out, "--seed",
+                                       "6", "--total_iters", str(FUSED_LOOP_STEPS), "--device",
+                                       str(dev)], stats=stats)
+    launches = dict(fr.LAUNCHES)
+    want = {**dict.fromkeys(fr.LAUNCHES, 0), **scaled(step_launches(cfg), FUSED_LOOP_STEPS)}
+    if state.step != FUSED_LOOP_STEPS or launches != want:
+        raise RuntimeError(f"the {name} train CLI ended at step {state.step} with launches "
+                           f"{launches}, expected {FUSED_LOOP_STEPS} steps and {want}")
+    for m in stats.metrics:
+        if not all(v == v and abs(v) != float("inf") for v in m.values()) or not m["r1"] > 0:
+            raise RuntimeError(f"{name} loop: bad metrics {m}")
+    del state
+    torch.cuda.empty_cache()
+    peaks = {k[:-3]: max(v) for k, v in spans.items() if k.endswith(" GB")}
+    log(f"14d: train_gmpi_torch.main --dataset {name} (fused; batch {cfg.hparams.batch_size}, "
+        f"batch_split {cfg.hparams.batch_split}, {cfg.planes.n_planes} planes, "
+        f"{PRESET_IMAGES} PNGs of {cfg.resolution}^2): {FUSED_LOOP_STEPS} steps, step ms "
+        f"{['%.1f' % x for x in stats.step_ms]}, D ms {['%.1f' % x for x in spans['D ms']]}, "
+        f"G ms {['%.1f' % x for x in spans['G ms']]}; peak GB by span "
+        + ", ".join(f"{k} {v:.2f}" for k, v in peaks.items()) + f"; launches {launches} ({card})")
+    record = {"step_ms": stats.step_ms, "d_ms": spans["D ms"], "g_ms": spans["G ms"],
+              "peak_gb_by_span": peaks, "launches": launches}
+    return record, launches, os.path.join(out, "checkpoints"), (data_root, pose_root)
+
+
+def banded_fid_kid(name, data, fake_dir, tmp, card, dev):
+    """The end of 14c: ``eval_gmpi_torch.main --task prepare_real`` of preset
+    ``name``'s training PNGs (``data``: its ``(data_root, pose_root)``), then
+    ``--task fid_kid`` between them and the banded fakes in ``fake_dir``,
+    with random Inception weights (``inception.random_params``; no released
+    weights here).  The three numbers must be finite.  Returns them and the
+    seconds."""
+    import math
+    import os
+
+    import eval_gmpi_torch
+    from gmpi_tpu_torch.eval import inception
+
+    weights = os.path.join(tmp, "inception.pth")
+    if not os.path.exists(weights):
+        torch.save({k: torch.from_numpy(v)
+                    for k, v in inception.random_params(seed=4).items()}, weights)
+    real_dir = os.path.join(tmp, f"14c {name} real")
+    t0 = time.perf_counter()
+    eval_gmpi_torch.main(["--dataset", name, "--task", "prepare_real", "--data_root", data[0],
+                          "--pose_root", data[1], "--n_imgs", str(PRESET_IMAGES), "--out",
+                          real_dir])
+    t1 = time.perf_counter()
+    metrics = eval_gmpi_torch.main(["--dataset", name, "--task", "fid_kid", "--real_dir",
+                                    real_dir, "--fake_dir", os.path.join(fake_dir, "rgb"),
+                                    "--inception_weights", weights, "--device", str(dev),
+                                    "--out", os.path.join(tmp, f"14c {name} fid_kid")])
+    t2 = time.perf_counter()
+    n_real = len(os.listdir(real_dir))
+    log(f"14c {name}: eval_gmpi_torch.main --task prepare_real ({n_real} PNGs) in "
+        f"{t1 - t0:.1f} s, --task fid_kid against the {PRESET_FAKES} banded fakes in "
+        f"{t2 - t1:.1f} s (random Inception weights): "
+        + ", ".join(f"{k} {metrics[k]:.6e}" for k in EVAL_KEYS["fid_kid"]) + f" ({card})")
+    if not n_real or not all(math.isfinite(metrics[k]) for k in EVAL_KEYS["fid_kid"]):
+        raise RuntimeError(f"{name}: fid_kid on the banded fakes gave {metrics} "
+                           f"from {n_real} real PNGs")
+    return {**{k: metrics[k] for k in EVAL_KEYS["fid_kid"]}, "n_real": n_real,
+            "prepare_real_s": t1 - t0, "fid_kid_s": t2 - t1}
+
+
+def banded_phase(fr, tw, pg, card, dev):
+    """Phase 14: the tile-banded route at full width (14a planning on the card
+    against the host for the five presets; 14b FFHQ256 and FFHQ1024 banded
+    train steps through the train CLI; 14c banded ``prepare_fake`` of
+    FFHQ1024 and MetFaces, and ``fid_kid`` on those fakes; 14d FFHQ512 and
+    MetFaces trained fused through the CLI).  Returns ``(record, launches of its main paths)``."""
+    import os
+    import shutil
+    import tempfile
+
+    from gmpi_tpu_torch.config import get_config
+
+    log(f"phase 14 depth (widths are the presets'): {BANDED_LOOP_STEPS} banded CLI steps, "
+        f"{FUSED_LOOP_STEPS} fused CLI steps, {PRESET_IMAGES} PNGs a dataset, {PRESET_FAKES} "
+        f"fakes a prepare_fake")
+    laps, t0 = {}, time.perf_counter()
+
+    def lap(name):
+        laps[name] = time.perf_counter() - t0 - sum(laps.values())
+        log(f"phase {name}: {laps[name]:.1f} s")
+
+    record = {"planning": planning_checks(card, dev), "train": {}, "prepare_fake": {}}
+    lap("14a")
+    paths = []
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_banded_")
+    try:
+        for name in BANDED_TRAIN + FUSED_TRAIN:
+            if name in BANDED_TRAIN:
+                rec, launches, ckpt_dir, data = banded_training(fr, tw, pg, card, dev, tmp, name)
+            else:
+                rec, launches, ckpt_dir, data = fused_training(fr, card, dev, tmp, name)
+            record["train"][name] = rec
+            paths.append(launches)
+            lap(f"14{'b' if name in BANDED_TRAIN else 'd'} {name}")
+            if name in ("FFHQ1024", "MetFaces"):  # 14c: eval's default route on this checkpoint
+                rec, launches = prepare_fake_routes(fr, tw, pg, f"14c {name}", get_config(name),
+                                                    ckpt_dir, ("banded",), tmp, card, dev)
+                rec["fid_kid"] = banded_fid_kid(name, data, rec["dirs"]["banded"], tmp, card, dev)
+                record["prepare_fake"][name] = rec
+                paths.append(launches["banded"])
+                lap(f"14c {name}")
+            shutil.rmtree(os.path.dirname(os.path.dirname(ckpt_dir)), ignore_errors=True)
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    record["seconds"] = laps
+    return record, paths
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs a CUDA card",
@@ -3249,7 +3733,7 @@ def main() -> int:
                                                        (pitches * scales).reshape(-1, 1)), res)
     # the adjoint's windows, planned on the host at the corners of the pose range
     t0 = time.perf_counter()
-    corner_rays = bands_mod._corner_rays(c, cfg.fov_deg, res, res)
+    corner_rays = bands_mod._corner_rays(c, cfg.fov_deg, res, res, device=dev)
     adj_plans = plan_fused(geom_train.dhw, *corner_rays, res, res)
     adj_bands = adj_plans[1][0]
     log(f"adjoint plan at the 9 corner and centre poses, {n_train} planes: {adj_bands} in "
@@ -3285,9 +3769,9 @@ def main() -> int:
 
     # -- 2c. patch gather vs plain version at the banded serving path's shapes ---------
     t0 = time.perf_counter()
-    tiled_bands = bands_mod.bands_for_config(cfg, img_size=res, n_planes=n_planes)
+    tiled_bands = bands_mod.bands_for_config(cfg, img_size=res, n_planes=n_planes, device=dev)
     log(f"tile bands for {n_planes} planes at {res}^2 (band_y, band_x, adjoint rows, cols): "
-        f"{tiled_bands} in {time.perf_counter() - t0:.1f} s (host)")
+        f"{tiled_bands} in {time.perf_counter() - t0:.1f} s (planned on {dev})")
     band_y, band_x = tiled_bands[:2]
     wp, hpc, band_yc = res + 2 * band_x, (res + 2 * band_y) * 4, band_y * 4
     n_tex, n_tiles = 96, res // 8  # one slab of 24 planes in 4 views; a tile per 8 rows
@@ -3581,7 +4065,8 @@ def main() -> int:
     del grid
     expected = {**dict.fromkeys(fr.LAUNCHES, 0), "patch_gather": calls["row_steps"]}
     log(f"banded serving path: {len(seeds)} seeds x {n_views} views x {n_planes} planes in one "
-        f"call each (tile rows in groups under {renderer_mod.TILED_STEP_BYTES / 2 ** 30:.0f} GiB "
+        f"call each (textures and tile rows in steps under "
+        f"{renderer_mod.TILED_STEP_BYTES / 2 ** 30:.0f} GiB "
         f"of hats), then two renders in slabs of 24 planes; {calls['row_steps']} tile-row steps, "
         f"launches {banded_launches}")
     log(f"banded render vs gather renderer: {['%.2e' % e for e in errs_b]}, chunked {err_chunk:.2e} "
@@ -3678,14 +4163,20 @@ def main() -> int:
     for kname, e in preset_errs.items():
         max_err[kname] = worse(max_err[kname], e)
     phase_s["13"] = sum(presets["seconds"].values())
-    log(f"phase 13: {phase_s['13']:.1f} s; seconds by phase "
+    log(f"phase 13: {phase_s['13']:.1f} s; the run so far {time.perf_counter() - t_start:.1f} s")
+
+    # -- 14. the tile-banded route on the card -------------------------------------------------
+    torch.cuda.empty_cache()
+    banded, banded_paths = banded_phase(fr, tw, pg, card, dev)
+    phase_s["14"] = sum(banded["seconds"].values())
+    log(f"phase 14: {phase_s['14']:.1f} s; seconds by phase "
         f"{ {k: round(v, 1) for k, v in phase_s.items()} }; the run so far "
         f"{time.perf_counter() - t_start:.1f} s")
 
     main_paths = (serving_launches, train_launches, adjoint_launches, banded_launches,
                   loop["launches"], evaluation["launches"], viz["launches"],
                   *variants["launches"].values(), bf16["train_launches"], ranks["launches"],
-                  *preset_paths)
+                  *preset_paths, *banded_paths)
 
     def entry(kname, line, ms, plain_ms, b, library_ms, replaces="gmpi_tpu/ops/pallas_warp.py",
               **extra):
@@ -3727,7 +4218,7 @@ def main() -> int:
         "serving_gather_ms": serving_gather_ms, "loop": loop,
         "eval": {**{k: v for k, v in evaluation.items() if k != "tasks"}, "viz": viz},
         "variants": variants, "bf16": bf16, "ranks": ranks, "presets": presets,
-        "phase_s": phase_s}
+        "banded": banded, "phase_s": phase_s}
     log(json.dumps(record))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -80,27 +80,23 @@ def _sample(rgba, grid, align_corners, tiled_bands, patch_backend="torch"):
     # must mirror core/bands.estimate_bands' tile heuristic
     tile = (8 if h % 8 == 0 else 1,
             256 if w % 256 == 0 else 128 if w % 128 == 0 else w)
-    # Loop over groups of tile rows to bound the live hat and patch memory:
-    # for large images as the JAX package does, and besides whenever one step
-    # over all tiles would hold more than TILED_STEP_BYTES of hats and mixed
-    # products (many textures in one call: a served MPI of 96 planes in 4
-    # views holds ~45 GB of them at 256^2), in groups sized to that budget.
+    # tile rows a step as the JAX package takes them (~64 steps at large
+    # sizes); the warp and its adjoint cut the rows and group the textures
+    # further to keep a step's hats and mixed products under TILED_STEP_BYTES
+    # (a served MPI of 96 planes in 4 views holds ~45 GB of them at 256^2)
     nty = h // tile[0]
-    row_bytes = 4 * rgba.shape[0] * tile[0] * w * (band_x + band_y + band_y * rgba.shape[1])
-    if nty > 32:
-        row_scan, rows_per_step = True, max(1, nty // 64)
-    else:
-        row_scan = nty * row_bytes > TILED_STEP_BYTES
-        rows_per_step = max(1, min(nty, TILED_STEP_BYTES // row_bytes))
+    row_scan = nty > 32
+    rows_per_step = max(1, nty // 64) if row_scan else 1
     if len(tiled_bands) == 4:
         fn = make_tiled_warp_with_adjoint(
             band_y, band_x, (tiled_bands[2], tiled_bands[3]), tile=tile,
             align_corners=align_corners, row_scan=row_scan, rows_per_step=rows_per_step,
-            patch_backend=patch_backend, adjoint_step_bytes=TILED_STEP_BYTES)
+            patch_backend=patch_backend, step_bytes=TILED_STEP_BYTES)
         return fn(rgba, grid)
     return grid_sample_tiled(rgba, grid, band_y=band_y, band_x=band_x, tile=tile,
                              align_corners=align_corners, row_scan=row_scan,
-                             rows_per_step=rows_per_step, patch_backend=patch_backend)
+                             rows_per_step=rows_per_step, patch_backend=patch_backend,
+                             step_bytes=TILED_STEP_BYTES)
 
 
 def warp_planes(rgba: torch.Tensor, dhw: torch.Tensor, eye_pos: torch.Tensor,

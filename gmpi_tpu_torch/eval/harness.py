@@ -48,9 +48,10 @@ class FakeImageGenerator:
     ``generator`` is moved to ``device`` (CUDA by default) and put in eval
     mode.  ``use_fused`` renders through the fused warp+composite kernel (on
     the CPU, its plain PyTorch version).  Otherwise the render goes through
-    ``render_mpi`` with the static tile bands of ``bands_for_config`` (the
-    banded path; its patches come through the patch-gather kernel when the
-    device is a CUDA card, through an advanced index on the CPU), or, for
+    ``render_mpi`` with the static tile bands of ``bands_for_config``, planned
+    on ``device`` (the banded path; its patches come through the patch-gather
+    kernel when the device is a CUDA card, through an advanced index on the
+    CPU), or, for
     images under 128 pixels, for which no bands are planned, through the
     per-pixel gather.  Unlike the JAX class, which falls back to the banded
     path where ``img_size`` is not a multiple of 128 (the geometry task's
@@ -81,7 +82,7 @@ class FakeImageGenerator:
         self.use_fused = use_fused and cfg.planes.align_corners
         self.patch_backend = "cuda" if self.device.type == "cuda" else "torch"
         self.tiled_bands = None if self.use_fused else bands_for_config(
-            cfg, img_size=self.img_size, n_planes=self.n_planes)
+            cfg, img_size=self.img_size, n_planes=self.n_planes, device=self.device)
 
     @torch.no_grad()
     def sample_mpi(self, seed: int, batch: int = 1) -> torch.Tensor:

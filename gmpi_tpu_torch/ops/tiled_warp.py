@@ -136,12 +136,30 @@ def _warp_row_tiles(texf, fx_row, fy_row, band_y, band_x, pad_y, pad_x, h, w, c,
         return torch.einsum("ntpy,ntpyc->ntpc", hat_y.float(), mixed)
 
 
+def step_groups(n: int, n_rows: int, rows: int, row_bytes: int, step_bytes: Optional[int]
+                ) -> Tuple[int, int]:
+    """``(tile rows a step, items a step)`` for ``n`` items (textures or
+    planes) of ``n_rows`` tile rows, ``rows`` a step as asked, where one
+    item's tile row holds ``row_bytes`` in a step.  With ``step_bytes``, fewer
+    rows a step (a divisor of ``n_rows``) where one item's rows exceed it,
+    and the items in equal groups whose steps stay under it; at least one row
+    and one item."""
+    if step_bytes is None:
+        return rows, n
+    while rows > 1 and rows * row_bytes > step_bytes:
+        rows -= 1
+        while n_rows % rows:
+            rows -= 1
+    n_groups = -(-n // max(1, step_bytes // (rows * row_bytes)))
+    return rows, -(-n // n_groups)
+
+
 def grid_sample_tiled(tex: torch.Tensor, grid: torch.Tensor, band_y: int = 32,
                       band_x: int = 160, tile: Tuple[int, int] = (8, 128),
                       align_corners: bool = True, row_scan: bool = False,
                       rows_per_step: int = 1, patch_backend: str = "torch",
-                      compute_dtype: Optional[torch.dtype] = None, check: bool = False
-                      ) -> torch.Tensor:
+                      compute_dtype: Optional[torch.dtype] = None, check: bool = False,
+                      step_bytes: Optional[int] = None) -> torch.Tensor:
     """Bilinear sample with zeros padding through tile bands: ``tex [N, C, H,
     W]`` at ``grid [N, Ho, Wo, 2]`` -> ``[N, C, Ho, Wo]`` float32.
 
@@ -153,11 +171,17 @@ def grid_sample_tiled(tex: torch.Tensor, grid: torch.Tensor, band_y: int = 32,
 
     ``row_scan=True`` processes the tile rows in groups of ``rows_per_step``
     in a loop, same results, with the hat matrices of one group alive at a
-    time instead of all ``nty * ntx`` tiles'.  ``patch_backend``: ``"torch"``
-    (an advanced index; differentiable) or ``"cuda"`` (the patch-gather
-    kernel; on CPU tensors its plain version; no gradient).
-    ``compute_dtype=torch.bfloat16`` rounds the texture and the hats to bf16
-    for the first contraction.
+    time instead of all ``nty * ntx`` tiles'.  ``step_bytes`` bounds the hats
+    and mixed products of a step (:func:`step_groups`): the textures go
+    through in equal groups, each with its own padded copy, and where one
+    texture's tile rows of a step exceed it, fewer rows a step (at 512
+    textures of 1024^2, the worst-view candidates of a FFHQ1024 step, one
+    step over all of them would hold ~32 GB of hats and a 19 GB padded copy).
+    Textures and tiles are independent, so the grouping changes no value.
+    ``patch_backend``: ``"torch"`` (an advanced index; differentiable) or
+    ``"cuda"`` (the patch-gather kernel; on CPU tensors its plain version; no
+    gradient).  ``compute_dtype=torch.bfloat16`` rounds the texture and the
+    hats to bf16 for the first contraction.
     """
     if patch_backend not in PATCH_BACKENDS:
         raise ValueError(f"patch_backend: expected one of {PATCH_BACKENDS}, got {patch_backend!r}")
@@ -165,26 +189,17 @@ def grid_sample_tiled(tex: torch.Tensor, grid: torch.Tensor, band_y: int = 32,
     _, ho, wo, _ = grid.shape
     tile_r, tile_c = tile
     fx_t, fy_t, nty, ntx = _tile_coords(tex.shape, grid, align_corners, tile_r, tile_c)
-
-    # generous zero pad: every clamped band start reads real texels or zeros.
-    # x-major fused layout [N, Wp, Hp*C]: patch slices arrive matmul-ready.
-    pad_y, pad_x = band_y, band_x
-    texl = F.pad(tex.permute(0, 3, 2, 1), (0, 0, pad_y, pad_y, pad_x, pad_x)).reshape(
-        n, w + 2 * pad_x, (h + 2 * pad_y) * c)
-    if compute_dtype is not None:
-        texl = texl.to(compute_dtype)
     g = nty
     if row_scan:
         g = max(1, min(rows_per_step, nty))
         while nty % g:
             g -= 1
-    rows = []
-    for r0 in range(0, nty, g):  # one step warps g * ntx tiles
-        fx_g = fx_t[:, r0:r0 + g].reshape(n, g * ntx, tile_r, tile_c)
-        fy_g = fy_t[:, r0:r0 + g].reshape(n, g * ntx, tile_r, tile_c)
-        rows.append(_warp_row_tiles(texl, fx_g, fy_g, band_y, band_x, pad_y, pad_x, h, w, c,
-                                    patch_backend, compute_dtype))
-    out = rows[0] if len(rows) == 1 else torch.cat(rows, dim=1)  # [N, nty*ntx, P, C]
+    # hats and mixed products of one texture's tile row
+    g, n_step = step_groups(n, nty, g, 4 * tile_r * wo * (band_x + band_y + band_y * c),
+                            step_bytes)
+    out = torch.cat([_warp_textures(tex[i:i + n_step], fx_t[i:i + n_step], fy_t[i:i + n_step],
+                                    band_y, band_x, g, patch_backend, compute_dtype)
+                     for i in range(0, n, n_step)])  # [N, nty*ntx, P, C]
     out = out.reshape(n, nty, ntx, tile_r, tile_c, c).permute(0, 5, 1, 3, 2, 4).reshape(
         n, c, ho, wo)
     if check:
@@ -193,12 +208,33 @@ def grid_sample_tiled(tex: torch.Tensor, grid: torch.Tensor, band_y: int = 32,
     return out
 
 
+def _warp_textures(tex, fx_t, fy_t, band_y, band_x, g, patch_backend, compute_dtype):
+    """:func:`grid_sample_tiled` of a group of textures, ``g`` tile rows a
+    step: ``[N, nty*ntx, P, C]``."""
+    n, c, h, w = tex.shape
+    nty, ntx, tile_r, tile_c = fx_t.shape[1:]
+    # generous zero pad: every clamped band start reads real texels or zeros.
+    # x-major fused layout [N, Wp, Hp*C]: patch slices arrive matmul-ready.
+    pad_y, pad_x = band_y, band_x
+    texl = F.pad(tex.permute(0, 3, 2, 1), (0, 0, pad_y, pad_y, pad_x, pad_x)).reshape(
+        n, w + 2 * pad_x, (h + 2 * pad_y) * c)
+    if compute_dtype is not None:
+        texl = texl.to(compute_dtype)
+    rows = []
+    for r0 in range(0, nty, g):  # one step warps g * ntx tiles
+        fx_g = fx_t[:, r0:r0 + g].reshape(n, g * ntx, tile_r, tile_c)
+        fy_g = fy_t[:, r0:r0 + g].reshape(n, g * ntx, tile_r, tile_c)
+        rows.append(_warp_row_tiles(texl, fx_g, fy_g, band_y, band_x, pad_y, pad_x, h, w, c,
+                                    patch_backend, compute_dtype))
+    return rows[0] if len(rows) == 1 else torch.cat(rows, dim=1)
+
+
 def make_tiled_warp_with_adjoint(band_y: int, band_x: int, adjoint_bands: Tuple[int, int],
                                  tile: Tuple[int, int] = (8, 128), align_corners: bool = True,
                                  row_scan: bool = False, rows_per_step: int = 1,
                                  adjoint_tile: Tuple[int, int] = (32, 512),
                                  adjoint_rows_per_step: int = 1, patch_backend: str = "torch",
-                                 adjoint_step_bytes: Optional[int] = None
+                                 step_bytes: Optional[int] = None
                                  ) -> Callable[[torch.Tensor, torch.Tensor], torch.Tensor]:
     """Tiled warp with the exact scatter-free adjoint as its backward.
 
@@ -206,8 +242,7 @@ def make_tiled_warp_with_adjoint(band_y: int, band_x: int, adjoint_bands: Tuple[
     through :func:`gmpi_tpu_torch.ops.tiled_warp_adjoint.grid_sample_tiled_adjoint`
     instead of autograd's scatter-add, and keeps only ``grid`` as residual (the
     hats are recomputed).  The grid is a constant (UV grids carry no gradient).
-    ``adjoint_step_bytes`` bounds the backward's live hats a step (its plane
-    groups).
+    ``step_bytes`` bounds the live hats of a step in both directions.
     """
     from gmpi_tpu_torch.ops.tiled_warp_adjoint import grid_sample_tiled_adjoint
 
@@ -218,8 +253,11 @@ def make_tiled_warp_with_adjoint(band_y: int, band_x: int, adjoint_bands: Tuple[
         def forward(ctx, tex, grid):
             ctx.save_for_backward(grid)
             ctx.tex_shape = tuple(tex.shape)
-            return grid_sample_tiled(tex, grid, band_y, band_x, tile, align_corners, row_scan,
-                                     rows_per_step, patch_backend=patch_backend)
+            # detached: the patch-gather kernel refuses a texture that requires a
+            # gradient, and this Function's backward is the tiled adjoint
+            return grid_sample_tiled(tex.detach(), grid, band_y, band_x, tile, align_corners,
+                                     row_scan, rows_per_step, patch_backend=patch_backend,
+                                     step_bytes=step_bytes)
 
         @staticmethod
         def backward(ctx, cot):
@@ -231,7 +269,7 @@ def make_tiled_warp_with_adjoint(band_y: int, band_x: int, adjoint_bands: Tuple[
             d_tex = grid_sample_tiled_adjoint(cot, grid, ctx.tex_shape, pbr, pbc, tile=atile,
                                               align_corners=align_corners, row_scan=row_scan,
                                               rows_per_step=adjoint_rows_per_step,
-                                              step_bytes=adjoint_step_bytes)
+                                              step_bytes=step_bytes)
             return d_tex, None
 
     return TiledWarp.apply

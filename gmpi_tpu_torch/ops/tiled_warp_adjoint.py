@@ -27,11 +27,11 @@ from __future__ import annotations
 
 from typing import Optional, Tuple
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 
 from gmpi_tpu_torch.ops.grid_sample import _unnormalize
+from gmpi_tpu_torch.ops.tiled_warp import step_groups
 
 _SENTINEL = -1e6
 
@@ -57,24 +57,29 @@ def check_monotone(tex_shape, grid: torch.Tensor, align_corners: bool = True) ->
 def required_output_bands(tex_shape, grid: torch.Tensor, align_corners: bool = True,
                           tile: Tuple[int, int] = (8, 128)) -> Tuple[int, int]:
     """Smallest ``(rows, cols)`` output band covering every texture tile's
-    contributing pixels for this grid (host helper, mirrors
-    ``tiled_warp.required_bands``)."""
-    n, _, th, tw = tex_shape
-    fx, fy = (f.detach().cpu().numpy() for f in _coords(tex_shape, grid, align_corners))
+    contributing pixels for this grid (mirrors ``tiled_warp.required_bands``;
+    reductions on the grid's device, one synchronization)."""
+    _, _, th, tw = tex_shape
+    fx, fy = _coords(tex_shape, grid, align_corners)
     tr, tc = tile
-    max_rows = max_cols = 1
-    fy_max, fy_min = fy.max(axis=2), fy.min(axis=2)
-    fx_max, fx_min = fx.max(axis=1), fx.min(axis=1)
-    for ni in range(n):
-        for t0 in range(0, th, tr):
-            rows = np.where((fy_max[ni] >= t0 - 1) & (fy_min[ni] <= t0 + tr + 1))[0]
-            if rows.size:
-                max_rows = max(max_rows, rows[-1] - rows[0] + 1)
-        for t0 in range(0, tw, tc):
-            cols = np.where((fx_max[ni] >= t0 - 1) & (fx_min[ni] <= t0 + tc + 1))[0]
-            if cols.size:
-                max_cols = max(max_cols, cols[-1] - cols[0] + 1)
-    return int(max_rows) + 2, int(max_cols) + 2
+    rows = _widest_band(fy.amax(dim=2), fy.amin(dim=2), th, tr)
+    cols = _widest_band(fx.amax(dim=1), fx.amin(dim=1), tw, tc)
+    return tuple(int(b) + 2 for b in torch.stack([rows, cols]).tolist())
+
+
+def _widest_band(f_max: torch.Tensor, f_min: torch.Tensor, n_tex: int, size: int
+                 ) -> torch.Tensor:
+    """Largest ``last - first + 1`` over the output lines ``i`` of ``f_max``
+    / ``f_min [N, n_out]`` (the coordinate extrema of each image row or
+    column) that touch a texture tile, ``f_max[n, i] >= t0 - 1`` and
+    ``f_min[n, i] <= t0 + size + 1``, over every plane ``n`` and tile start
+    ``t0``; at least 1."""
+    t0 = torch.arange(0, n_tex, size, device=f_max.device, dtype=f_max.dtype)[:, None]
+    hit = (f_max[:, None] >= t0 - 1) & (f_min[:, None] <= t0 + size + 1)  # [N, n_tiles, n_out]
+    idx = torch.arange(f_max.shape[1], device=f_max.device)
+    first = torch.where(hit, idx, f_max.shape[1]).amin(dim=2)
+    last = torch.where(hit, idx, -1).amax(dim=2)
+    return torch.clamp(last - first + 1, min=1).amax()
 
 
 def grid_sample_tiled_adjoint(cot: torch.Tensor, grid: torch.Tensor,
@@ -89,10 +94,11 @@ def grid_sample_tiled_adjoint(cot: torch.Tensor, grid: torch.Tensor,
 
     ``row_scan`` / ``rows_per_step`` mirror the forward: texture tile rows are
     processed in groups in a loop, to balance live memory against per-step
-    overhead.  ``step_bytes`` also bounds the planes of a step: they go
-    through in groups whose hats and mixed products stay under it (at 96
-    planes of 1024^2, one plane's tile row of them takes ~1.6 GB).  Planes
-    are independent, so the grouping changes no value."""
+    overhead.  ``step_bytes`` bounds the hats and mixed products of a step
+    as in the forward (``tiled_warp.step_groups``): the planes go through in
+    equal groups, and fewer tile rows a step where one plane's exceed it (at
+    96 planes of 1024^2, one plane's tile row of them takes ~1.6 GB).
+    Planes and tiles are independent, so the grouping changes no value."""
     n, c, th, tw = tex_shape
     tr, tc = tile
     if th % tr or tw % tc:
@@ -103,11 +109,9 @@ def grid_sample_tiled_adjoint(cot: torch.Tensor, grid: torch.Tensor,
         g = max(1, min(rows_per_step, n_ty))
         while n_ty % g:
             g -= 1
-    n_step = n
-    if step_bytes is not None:
-        # fx, fy, cot bands, both hats and the mixed product of a plane's g tile rows
-        plane_bytes = 4 * g * n_tx * band_rows * band_cols * (2 + c + tr + tc + tr * c)
-        n_step = max(1, min(n, step_bytes // plane_bytes))
+    # fx, fy, cot bands, both hats and the mixed product of one plane's tile row
+    g, n_step = step_groups(n, n_ty, g, 4 * n_tx * band_rows * band_cols
+                            * (2 + c + tr + tc + tr * c), step_bytes)
     return torch.cat([_adjoint_planes(cot[i:i + n_step], grid[i:i + n_step],
                                       (min(n_step, n - i), c, th, tw), band_rows, band_cols,
                                       tile, align_corners, g)

@@ -1,6 +1,7 @@
 """Profile one FFHQ256 train step of the port on the card.
 
-    python -m gmpi_tpu_torch.tools.profile_step [--preset FFHQ256] [--top 25]
+    python -m gmpi_tpu_torch.tools.profile_step [--preset FFHQ256] [--no_fused_renderer]
+        [--top 25]
 
 Builds the train state from seeded random weights and a seeded random real
 batch, takes two warm-up steps, then one D phase and one G phase under
@@ -10,11 +11,14 @@ views, G forward, G update; a backward's kernels are the ones between its
 neighbours, since the autograd engine launches them from its own thread),
 then the device kernels by
 total device time: the first ``--top`` and, wherever they rank, the port's
-own three render kernels.  Prints the card's name and power limit first.
-Needs a CUDA card; raises without one.
+own render kernels.  ``--no_fused_renderer`` profiles the step's
+tile-banded route instead (the train CLI's flag: patches through the
+patch-gather kernel, the tiled adjoint as the warp's backward).  Prints the
+card's name and power limit first.  Needs a CUDA card; raises without one.
 """
 
 import argparse
+import dataclasses
 import subprocess
 import time
 
@@ -28,7 +32,8 @@ from gmpi_tpu_torch.train import flat_pose_from_c2w, init_train_state, make_trai
 
 
 SPAN = "train_step."  # the step's own profiler spans (train/step.py)
-OWN_KERNELS = ("fused_fwd_kernel", "composite_bwd_kernel", "splat_tile_kernel")
+OWN_KERNELS = ("fused_fwd_kernel", "composite_bwd_kernel", "splat_tile_kernel",
+               "patch_gather_kernel")
 
 
 def _profiled(name, fn, top):
@@ -80,6 +85,8 @@ def _profiled(name, fn, top):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--preset", default="FFHQ256")
+    ap.add_argument("--no_fused_renderer", action="store_true",
+                    help="profile the tile-banded route instead of the fused kernels")
     ap.add_argument("--top", type=int, default=25)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -91,6 +98,9 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = get_config(args.preset)
+    if args.no_fused_renderer:
+        cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train,
+                                                                 use_fused_renderer=False))
     dev = torch.device("cuda")
     state = init_train_state(cfg, torch.Generator().manual_seed(0), device=dev)
     step = make_train_step(cfg, device=dev)

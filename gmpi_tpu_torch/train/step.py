@@ -20,8 +20,10 @@ device the step renders through the fused kernels (forward, composite
 backward, splat).  With ``use_fused_renderer`` off (the CPU's default, when
 the caller asks for the CPU) it renders as the JAX step does without its
 kernels: through ``render_mpi`` with the static tile bands of
-``bands_for_config`` (at 128 pixels and above; 4-field bands make the tiled
-adjoint the warp's backward), in plane slabs through ``render_mpi_chunked``
+``bands_for_config``, planned on the step's device (at 128 pixels and above;
+4-field bands make the tiled adjoint the warp's backward, and on a card the
+forward then takes its patches through the patch-gather kernel), in plane
+slabs through ``render_mpi_chunked``
 when ``renderer_plane_chunk`` is set; ``debug_ray_check`` NaN-poisons a
 render whose rays leave the last plane.  ``fused_compute_dtype="bf16"`` has
 the fused forward read bf16 textures in every fused render of the step (the
@@ -176,6 +178,20 @@ def _grads(module: torch.nn.Module) -> Dict[str, torch.Tensor]:
             if p.grad is not None}
 
 
+def _patch_backend(device: torch.device, tiled_bands: Optional[Tuple[int, ...]]) -> str:
+    """The banded routes' patch gather: the patch-gather kernel on a card, the
+    advanced index on the CPU.  The kernel has no gradient, so on a card the
+    step needs 4-field bands, whose tiled adjoint is the warp's backward;
+    2-field bands (a warp not monotone over the pose range) raise there."""
+    if tiled_bands is None or device.type != "cuda":
+        return "torch"
+    if len(tiled_bands) != 4:
+        raise ValueError(f"tile bands {tiled_bands} carry no tiled adjoint: the banded step on "
+                         f"a card takes its patches through the patch-gather kernel, which has "
+                         f"no gradient, and needs 4-field bands")
+    return "cuda"
+
+
 class TrainStep:
     """The train step of one configuration; build it with
     :func:`make_train_step`.  Plane geometry, conditioning grids and camera
@@ -214,6 +230,17 @@ class TrainStep:
         self.cfg = cfg
         self.device = resolve_device(device)
         self.return_grads = return_grads
+        use_fused = t.use_fused_renderer
+        if use_fused is None:  # the kernels on the card, the gather path on the CPU
+            use_fused = self.device.type == "cuda" and cfg.planes.align_corners
+        if use_fused and not cfg.planes.align_corners:
+            raise ValueError("use_fused_renderer requires planes.align_corners=True "
+                             "(the fused kernels' coordinate convention)")
+        self.use_fused = use_fused
+        # static bands of the tile-banded warp for the non-fused routes (None
+        # under 128 pixels: the per-pixel gather), planned on the step's device
+        self.tiled_bands = None if use_fused else bands_for_config(cfg, device=self.device)
+        self.patch_backend = _patch_backend(self.device, self.tiled_bands)
         self.geom = cfg.plane_geometry(device=self.device)
         self.xyz_dict = cfg.multi_res_xyz(self.geom)
         size = cfg.hparams.img_size
@@ -224,16 +251,6 @@ class TrainStep:
             n_grow_iters=t.lighting_grow_n_iters)
         self.xyz_last_plane = geom_mod.plane_xyz_grid(
             self.geom, cfg.hparams.tex_size, cfg.hparams.tex_size)[-1]
-        use_fused = t.use_fused_renderer
-        if use_fused is None:  # the kernels on the card, the gather path on the CPU
-            use_fused = self.device.type == "cuda" and cfg.planes.align_corners
-        if use_fused and not cfg.planes.align_corners:
-            raise ValueError("use_fused_renderer requires planes.align_corners=True "
-                             "(the fused kernels' coordinate convention)")
-        self.use_fused = use_fused
-        # static bands of the tile-banded warp for the non-fused routes (None
-        # under 128 pixels: the per-pixel gather)
-        self.tiled_bands = None if use_fused else bands_for_config(cfg)
         self.slab_fn = (make_fused_slab_renderer(with_disp=False,
                                                  compute_dtype=self.compute_dtype)
                         if use_fused and self.sharded else None)
@@ -328,10 +345,11 @@ class TrainStep:
         elif t.renderer_plane_chunk:
             out = render_mpi_chunked(mpi, dhw, *rays, plane_chunk=t.renderer_plane_chunk,
                                      align_corners=cfg.planes.align_corners,
-                                     tiled_bands=self.tiled_bands, with_disp=False)
+                                     tiled_bands=self.tiled_bands,
+                                     patch_backend=self.patch_backend, with_disp=False)
         else:
             out = render_mpi(mpi, dhw, *rays, cfg.planes.align_corners,
-                             tiled_bands=self.tiled_bands)
+                             tiled_bands=self.tiled_bands, patch_backend=self.patch_backend)
         color = out.color
         if t.debug_ray_check:
             ray_dir, eye, z_dir = rays

@@ -1,5 +1,9 @@
 """Port parity: static band estimation (``gmpi_tpu_torch/core/bands.py``)
-gives the JAX package's tuples, as equal ints, on a small config."""
+gives the JAX package's tuples, as equal ints: on a small config, and for
+each of the five presets at 128^2 and 256^2 with 8 planes, planned at once
+and in (pose, plane) groups that do not divide the pair count.  Planning
+runs on the caller's device and raises without a card unless asked for the
+CPU."""
 
 import dataclasses
 
@@ -12,6 +16,8 @@ from gmpi_tpu.core import bands as jbands
 from gmpi_tpu_torch.config import get_config
 from gmpi_tpu_torch.core import bands
 
+PRESETS = ("FFHQ256", "FFHQ512", "FFHQ1024", "AFHQCat", "MetFaces")
+
 
 @pytest.fixture(autouse=True, scope="module")
 def one_torch_thread():
@@ -21,15 +27,15 @@ def one_torch_thread():
     torch.set_num_threads(n)
 
 
-def _small(get):
-    cfg = get("FFHQ256")
-    return dataclasses.replace(cfg, planes=dataclasses.replace(cfg.planes, n_planes=3))
+def _small(get, name="FFHQ256", n_planes=3):
+    cfg = get(name)
+    return dataclasses.replace(cfg, planes=dataclasses.replace(cfg.planes, n_planes=n_planes))
 
 
 def test_corner_rays_match_jax():
     cj, ct = _small(jax_get_config), _small(get_config)
     ref = jbands._corner_rays(cj.camera, cj.fov_deg, 32, 32)
-    out = bands._corner_rays(ct.camera, ct.fov_deg, 32, 32)
+    out = bands._corner_rays(ct.camera, ct.fov_deg, 32, 32, device="cpu")
     assert out[0].shape == (9, 3, 32, 32)
     for a, b in zip(out, ref):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=0, atol=1e-6)
@@ -40,7 +46,7 @@ def test_estimate_bands_equal_jax(img, tile):
     cj, ct = _small(jax_get_config), _small(get_config)
     ref = jbands.estimate_bands(cj.plane_geometry(), cj.camera, cj.fov_deg, img, img, tile=tile)
     out = bands.estimate_bands(ct.plane_geometry(device="cpu"), ct.camera, ct.fov_deg, img, img,
-                               tile=tile)
+                               tile=tile, device="cpu")
     assert len(out) == 4 and all(isinstance(b, int) for b in out)
     assert out == tuple(int(b) for b in ref)
 
@@ -48,6 +54,47 @@ def test_estimate_bands_equal_jax(img, tile):
 def test_bands_for_config_equal_jax_and_none_under_128():
     cj, ct = _small(jax_get_config), _small(get_config)
     ref = jbands.bands_for_config(cj, img_size=128, n_planes=2)
-    assert bands.bands_for_config(ct, img_size=128, n_planes=2) == tuple(int(b) for b in ref)
-    assert bands.bands_for_config(ct, img_size=64) is None
+    assert bands.bands_for_config(ct, img_size=128, n_planes=2,
+                                  device="cpu") == tuple(int(b) for b in ref)
+    assert bands.bands_for_config(ct, img_size=64, device="cpu") is None
     assert jbands.bands_for_config(cj, img_size=64) is None
+
+
+@pytest.mark.parametrize("img", [128, 256])
+@pytest.mark.parametrize("name", PRESETS)
+def test_grouped_planning_equals_ungrouped_and_jax(name, img, monkeypatch):
+    """Each preset's camera and planes (8 of them, 9 poses: 72 pairs) in
+    groups of 5 pairs (14 groups and one of 2), then all at once: the same
+    tuple as the JAX package's ``bands_for_config``."""
+    cj, ct = _small(jax_get_config, name, 8), _small(get_config, name, 8)
+    ref = tuple(int(b) for b in jbands.bands_for_config(cj, img_size=img))
+    groups, grid_of = [], bands.homography_grid
+
+    def recorded(dhw, *a, **kw):
+        groups.append(dhw.shape[0])
+        return grid_of(dhw, *a, **kw)
+
+    monkeypatch.setattr(bands, "homography_grid", recorded)
+    pair_bytes = bands._PLAN_FLOATS_PER_PIXEL * 4 * img * img
+    monkeypatch.setattr(bands, "PLAN_STEP_BYTES", 5 * pair_bytes)
+    grouped = bands.bands_for_config(ct, img_size=img, device="cpu")
+    assert groups == [5] * 14 + [2]
+    groups.clear()
+    monkeypatch.setattr(bands, "PLAN_STEP_BYTES", 72 * pair_bytes)
+    whole = bands.bands_for_config(ct, img_size=img, device="cpu")
+    assert groups == [72]
+    assert len(ref) == 4 and grouped == whole == ref
+
+
+def test_planning_needs_a_card_unless_asked_for_the_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    ct = _small(get_config)
+    geom = ct.plane_geometry(device="cpu")
+    with pytest.raises(RuntimeError, match="cuda"):
+        bands.bands_for_config(ct, img_size=128)
+    with pytest.raises(RuntimeError, match="cuda"):
+        bands.estimate_bands(geom, ct.camera, ct.fov_deg, 128, 128)
+    with pytest.raises(RuntimeError, match="cuda"):
+        bands._corner_rays(ct.camera, ct.fov_deg, 128, 128)
+    assert len(bands.bands_for_config(ct, img_size=128, device="cpu")) == 4

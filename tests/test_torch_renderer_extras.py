@@ -106,26 +106,32 @@ def test_render_mpi_chunked_equals_the_unchunked_render_and_checks_its_chunk(sce
 
 def test_banded_render_loops_tile_rows_under_its_step_budget(scene, monkeypatch):
     """With more hats than ``TILED_STEP_BYTES`` in one step, the banded render
-    loops over groups of tile rows sized to the budget: same values, more
-    tile-row steps."""
+    goes through equal texture groups sized to the budget and, where one
+    texture's tile rows exceed it, loops over groups of tile rows: same
+    values, more steps."""
     from gmpi_tpu_torch.ops import tiled_warp as tw
 
     _, cams_t, rgba, _, bands = scene
-    steps = []
+    steps = []  # (textures, tiles) of each tile-row step
     row_step = tw._warp_row_tiles
     monkeypatch.setattr(tw, "_warp_row_tiles",
-                        lambda texf, fx, *a, **k: steps.append(fx.shape[1]) or
+                        lambda texf, fx, *a, **k: steps.append(tuple(fx.shape[:2])) or
                         row_step(texf, fx, *a, **k))
     x = torch.from_numpy(rgba)
     whole = tr.render_mpi(x, *cams_t, tiled_bands=bands)
-    assert steps == [RES // 8]  # all 8 tile rows of the one 64-wide tile column at once
-    row_bytes = 4 * 2 * N_L * 8 * RES * (bands[1] + bands[0] + bands[0] * 4)
-    monkeypatch.setattr(tr, "TILED_STEP_BYTES", 3 * row_bytes)
-    del steps[:]
-    looped = tr.render_mpi(x, *cams_t, tiled_bands=bands)
-    assert steps == [2] * 4  # 3 rows fit the budget; 2 is the largest divisor of 8 under it
-    for a, b in zip(whole, looped):
-        assert torch.equal(a, b)
+    # all 8 tile rows of the one 64-wide tile column of all 8 textures at once
+    assert steps == [(2 * N_L, RES // 8)]
+    row_bytes = 4 * 8 * RES * (bands[1] + bands[0] + bands[0] * 4)  # one texture's tile row
+    for budget, want in (
+            (3 * 8 * row_bytes, [(3, 8), (3, 8), (2, 8)]),  # 3 textures fit: 3 equal groups
+            # 3 rows of one texture fit; 2 is the largest divisor of 8 under it
+            (3 * row_bytes, [(1, 2)] * (4 * 2 * N_L))):
+        monkeypatch.setattr(tr, "TILED_STEP_BYTES", budget)
+        del steps[:]
+        looped = tr.render_mpi(x, *cams_t, tiled_bands=bands)
+        assert steps == want
+        for a, b in zip(whole, looped):
+            assert torch.equal(a, b)
 
 
 def test_render_mpi_tiled_bands_matches_jax_in_value_and_gradient(scene):

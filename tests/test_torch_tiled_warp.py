@@ -93,6 +93,33 @@ def test_check_poisons_a_render_that_leaves_its_bands(scene):
             np.testing.assert_allclose(out, ref, rtol=0, atol=1e-5)
 
 
+@pytest.mark.parametrize("row_scan,rows_per_step", [(False, 1), (True, 2)])
+def test_texture_groups_under_step_bytes_match_jax(scene, row_scan, rows_per_step, monkeypatch):
+    """With ``step_bytes`` under one step of all 6 textures (the bytes of 4:
+    two groups of 3; 1 byte: one texture and one tile row a step) the
+    textures go through in groups, to the JAX package's values and bitwise
+    to the ungrouped warp's."""
+    tex, grid = scene
+    by, bx = jtw.required_bands(tex.shape, jnp.asarray(grid), tile=(8, 64))
+    ref = jtw.grid_sample_tiled(jnp.asarray(tex), jnp.asarray(grid), by, bx, tile=(8, 64),
+                                row_scan=row_scan, rows_per_step=rows_per_step)
+    kw = dict(tile=(8, 64), row_scan=row_scan, rows_per_step=rows_per_step)
+    t, g = torch.from_numpy(tex), torch.from_numpy(grid)
+    whole = tw.grid_sample_tiled(t, g, by, bx, **kw)
+    groups, warp = [], tw._warp_textures
+    monkeypatch.setattr(tw, "_warp_textures",
+                        lambda tx, *a: groups.append((len(tx), a[4])) or warp(tx, *a))
+    rows = 2 if row_scan else 8  # tile rows of a step
+    tex_bytes = 4 * rows * 8 * 64 * (bx + by + by * 4)
+    for step_bytes, sizes in ((4 * tex_bytes, [(3, rows)] * 2), (1, [(1, 1)] * 6),
+                              (6 * tex_bytes, [(6, rows)])):
+        groups.clear()
+        out = tw.grid_sample_tiled(t, g, by, bx, step_bytes=step_bytes, **kw)
+        assert groups == sizes
+        assert torch.equal(out, whole)
+        np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=0, atol=1e-5)
+
+
 def test_bf16_compute_dtype_matches_jax_within_bf16_rounding():
     rng = np.random.default_rng(3)
     tex = rng.random((2, 4, 64, 64)).astype(np.float32)

@@ -1,0 +1,114 @@
+"""The port's banded train step against the JAX step's banded route, on the
+CPU.
+
+With ``use_fused_renderer=False`` at 128^2 both packages plan 4-field tile
+bands (``bands_for_config``: the forward's bands and the tiled adjoint's
+output bands) and render every view of the step through the tile-banded
+warp, whose backward is the scatter-free tiled adjoint
+(``ops/tiled_warp.py``, ``ops/tiled_warp_adjoint.py``).  The port's step is
+handed the JAX step's draws (``tests/_torch_jax_step.py``) and held to its
+whole-step gates.  On a card the step's banded forward takes its patches
+through the patch-gather kernel (``patch_backend="cuda"``), which has no
+gradient: the tiled warp hands it detached textures, and the values and the
+``rgba`` gradient are those of the advanced index, checked here through the
+kernel's plain version.
+"""
+
+import dataclasses
+
+import pytest
+import torch
+
+from gmpi_tpu_torch.ops import tiled_warp as tw
+from tests import _torch_dist_child as child
+from tests import _torch_jax_step as jax_step
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Many small ops: with several test workers on one machine, PyTorch's
+    per-process thread pools oversubscribe the cores and crawl."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _banded_config(**over):
+    """The tiny configuration at 128^2 with 2 planes, batch 2, worst views
+    rendered at full resolution (so every render of the step is banded)."""
+    return child.tiny_config(resolution=128, n_planes=2, batch_size=2, use_fused_renderer=False,
+                             worst_view_render_res=0, **over)
+
+
+def test_banded_step_matches_jax():
+    """One whole step (D phase, worst of 2 views, G phase) through the tile
+    bands in both packages: metrics, every D and G gradient, G's state and
+    EMAs after the update within ``FP32_GATES``."""
+    from gmpi_tpu.core.bands import bands_for_config as jax_bands_for_config
+    from gmpi_tpu_torch.train import make_train_step
+
+    cfg = _banded_config()
+    cfg_j = jax_step.jax_config(cfg)
+    assert cfg_j.train.use_fused_renderer is False
+    step = make_train_step(cfg, device="cpu")
+    assert not step.use_fused and step.patch_backend == "torch"
+    assert len(step.tiled_bands) == 4
+    assert step.tiled_bands == tuple(int(b) for b in jax_bands_for_config(cfg_j))
+    st = jax_step.jax_state(cfg_j)
+    real, pose = child.step_batch(cfg)
+    ref = jax_step.run_jax_step(cfg_j, st, real, pose)
+    state, metrics, grads = child.run_step(cfg, params=jax_step.port_params(st),
+                                           draws=jax_step.jax_draws(cfg_j))
+    jax_step.assert_step_matches(ref, child.step_record(state, metrics, grads),
+                                 **jax_step.FP32_GATES)
+
+
+@pytest.mark.parametrize("plane_chunk", [0, 1], ids=["whole", "slabs"])
+def test_step_tiled_warp_same_with_either_patch_backend(plane_chunk, monkeypatch):
+    """The step's banded render (whole, and in plane slabs) with the kernel's
+    backend, whose CPU form is ``gather_patches_ref`` on the detached
+    textures the tiled warp hands it, against the advanced index: equal
+    images and equal ``rgba`` gradients (a patch copy is exact, and the
+    backward is the tiled adjoint either way)."""
+    from gmpi_tpu_torch.train import make_train_step
+
+    cfg = _banded_config(renderer_plane_chunk=plane_chunk)
+    step = make_train_step(cfg, device="cpu")
+    rng = torch.Generator().manual_seed(0)
+    mpi = torch.rand((2, 2, 4, 128, 128), generator=rng)
+    cot = torch.randn((2, 3, 128, 128), generator=rng)
+    yaws, pitches = torch.tensor([[0.5], [-0.3]]), torch.tensor([[0.2], [-0.1]])
+    gathered, gather = [], tw.gather_patches
+
+    def recorded(texf, *a, **kw):
+        gathered.append(texf.requires_grad)
+        return gather(texf, *a, **kw)
+
+    monkeypatch.setattr(tw, "gather_patches", recorded)
+    out = {}
+    for backend in ("torch", "cuda"):
+        step.patch_backend = backend
+        x = mpi.clone().requires_grad_()
+        imgs, _, _ = step.render_views(x, yaws, pitches)
+        out[backend] = imgs.detach(), torch.autograd.grad((imgs * cot).sum(), x)[0]
+    assert gathered and not any(gathered)
+    assert torch.equal(out["torch"][0], out["cuda"][0])
+    assert torch.equal(out["torch"][1], out["cuda"][1])
+    assert float(out["cuda"][1].abs().max()) > 0
+
+
+def test_two_field_bands_on_a_card_raise(monkeypatch):
+    """Where the planned bands have 2 fields (a warp not monotone over the
+    pose range: no tiled adjoint), a banded step on a card refuses to build,
+    since the patch-gather kernel has no gradient; on the CPU the same bands
+    take the advanced index.  The card and the plan are stood in for."""
+    from gmpi_tpu_torch.train import step as step_mod
+
+    cfg = _banded_config()
+    monkeypatch.setattr(step_mod, "bands_for_config", lambda cfg, device: (32, 160))
+    assert step_mod.TrainStep(cfg, device="cpu").patch_backend == "torch"
+    monkeypatch.setattr(step_mod, "resolve_device", lambda device: torch.device("cuda"))
+    with pytest.raises(ValueError, match="needs 4-field bands"):
+        step_mod.TrainStep(cfg, device="cuda")
+    assert step_mod._patch_backend(torch.device("cuda"), (32, 160, 40, 300)) == "cuda"
