@@ -26,7 +26,12 @@ Phases, each of which raises on failure (nonzero exit, no result line):
    stack with fully opaque mid planes.  (c) The patch gather against its plain
    version at the banded serving path's shapes: f32 and bf16, 16-byte-aligned
    and arbitrary offsets, patches at both corners of the padded texture;
-   exact equality (it is a copy).  (d) The texture-space adjoint, on the
+   exact equality (it is a copy); then at the edges of its design
+   (``K7_EDGES``): bf16 starts 8 bytes off the TMA's 16, any start, starts
+   outside the texture clamped by the kernel (``validate=False``), one patch
+   of a whole texture, a row of three TMA boxes, and the shapes that take the
+   loop path (pitches that are not 16-byte multiples, a texture not on 16
+   bytes), each on the path ``launch_geometry`` names.  (d) The texture-space adjoint, on the
    three stacks' ``d_samp`` of (b), against its plain version and against the
    splat, max error <= 1e-4 x max|plain|, and two launches bitwise equal.
    (e) The forward, the adjoint, the splat and the composite backward at the
@@ -65,7 +70,10 @@ Phases, each of which raises on failure (nonzero exit, no result line):
    taps summed in its texel box, what the path takes at 256^2; every tap into
    ``d_tex``, the path of a box beyond the kernel's shared memory), and
    the adjoint (at phase 7's inputs); the patch gather is timed in phase 6 at
-   that path's inputs;
+   that path's inputs (and in 13b at the 1024^2 route's): in fp32 and on a
+   bf16 copy of the texture, one launch a pair and 10 queued, with the kernel
+   path each took, beside its plain version, the advanced index and its
+   bound;
 6. banded serving path — ``FakeImageGenerator(use_fused=False)`` (on a card
    its patches come through the patch-gather kernel) renders the 96-plane MPIs
    of phase 3's seeds, 4 views each, through
@@ -213,7 +221,7 @@ Phases, each of which raises on failure (nonzero exit, no result line):
    card's plan must cover; either way it must cover the spans measured on
    the card at the 9 corner poses and at 64 sampled poses; (b)
    ``train_gmpi_torch.main --no_fused_renderer`` on FFHQ256 and on FFHQ1024
-   at the presets' settings from noise PNGs in a zip: 2 steps, resumed to 3,
+   at the presets' settings from noise PNGs in a zip: 1 step, resumed to 2,
    each step's D and G phases timed and its peak memory read by span (D
    phase, G before worst views, worst views, G after them); launches reset
    before and read after: one patch gather a tile-row step, nothing else;
@@ -233,7 +241,9 @@ Phases, each of which raises on failure (nonzero exit, no result line):
    steps each: launches as ``step_launches`` works them out, step, D and G
    ms and peak GB by span.
 
-Each phase prints its seconds.
+Each phase prints its seconds.  The patch gather's launches are counted by
+kernel path too, zeroed and read with each main path's launch counts: all of
+the main paths' must take the TMA path (their shapes are all ones it takes).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -808,43 +818,161 @@ def no_grad_forms_at(fr, mpi_d, rays_d, mpi_w, rays_w, rates, card, plain_iters=
     return err, no_grad_forms
 
 
+def k7_path(pg, fn):
+    """``(fn(), the kernel path of the one K7 launch fn makes)``."""
+    before = dict(pg.PATH_LAUNCHES)
+    out = fn()
+    taken = [p for p in pg.PATH_LAUNCHES if pg.PATH_LAUNCHES[p] != before[p]]
+    if len(taken) != 1 or sum(pg.PATH_LAUNCHES.values()) != sum(before.values()) + 1:
+        raise RuntimeError(f"expected one patch_gather launch, paths {before} -> "
+                           f"{pg.PATH_LAUNCHES}")
+    return out, taken[0]
+
+
 def patch_gather_at(pg, texf, offs, band_x, band_yc, rates, card, label):
     """The patch gather at a path's inputs (its last tile-row step's texture
-    and offsets): exactly its plain version, then timed beside its plain
-    version, one PyTorch call for the same copy (the advanced index alone,
-    its indices made beforehand) and its byte bound: each texel that some
-    patch covers read once (patches overlap), the offsets read and the
-    patches written once.  Returns the timings; raises on a difference."""
-    out, ref = pg.gather_patches(texf, offs, band_x, band_yc), pg.gather_patches_ref(
-        texf, offs, band_x, band_yc)
-    torch.cuda.synchronize()
-    if not torch.equal(out, ref):
-        raise RuntimeError(f"patch_gather disagrees with its plain version at {label}")
+    and offsets), in fp32 and on a bf16 copy of the texture: exactly its
+    plain version, then timed (one launch per event pair with the wrapper's
+    host work, and 10 queued) beside its plain version, one PyTorch call for
+    the same copy (the advanced index alone, its indices made beforehand)
+    and its byte bound: each texel that some patch covers read once (patches
+    overlap), the offsets read and the patches written once.  Returns the
+    fp32 timings, with the bf16 ones under ``"bf16"``; raises on a
+    difference."""
     dev = texf.device
     n_idx = torch.arange(texf.shape[0], device=dev).reshape(-1, 1, 1, 1)
     rows_i = (offs[..., 0, None].long() + torch.arange(band_x, device=dev))[..., None]
     cols_i = (offs[..., 1, None].long() + torch.arange(band_yc, device=dev))[:, :, None, :]
-    ms = time_ms(lambda: pg.gather_patches(texf, offs, band_x, band_yc, validate=False))
-    plain_ms = time_ms(lambda: pg.gather_patches_ref(texf, offs, band_x, band_yc))
-    lib_ms = time_ms(lambda: texf[n_idx, rows_i, cols_i])
     covered = torch.zeros(texf.shape, dtype=torch.bool, device=dev)
     covered[n_idx, rows_i, cols_i] = True
-    n_bytes = ((int(covered.sum()) + out.numel()) * out.element_size()
-               + offs.numel() * offs.element_size())
+    n_covered = int(covered.sum())
     del covered
-    b = bound(n_bytes, 0, rates)
-    log(f"patch_gather at {label} ({tuple(out.shape)} {str(texf.dtype).split('.')[1]} from "
-        f"{tuple(texf.shape)}): equal to its plain version; {ms:.4f} ms, plain {plain_ms:.4f} "
-        f"ms, one advanced index {lib_ms:.4f} ms, needs {n_bytes} B; bound {b[0]:.5f} ms "
-        f"({card})")
-    return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": b[0],
-            "bound_by": b[1], "bytes": n_bytes}
+    record = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        tex = texf if texf.dtype == dtype else texf.to(dtype)
+        out, path = k7_path(pg, lambda: pg.gather_patches(tex, offs, band_x, band_yc))
+        ref = pg.gather_patches_ref(tex, offs, band_x, band_yc)
+        torch.cuda.synchronize()
+        if not torch.equal(out, ref):
+            raise RuntimeError(f"patch_gather [{dtype}] disagrees with its plain version at "
+                               f"{label}")
+        run = lambda: pg.gather_patches(tex, offs, band_x, band_yc, validate=False)  # noqa: E731
+        ms, queued_ms = time_ms(run), time_ms(run, queued=10)
+        plain_ms = time_ms(lambda: pg.gather_patches_ref(tex, offs, band_x, band_yc))
+        lib_ms = time_ms(lambda: tex[n_idx, rows_i, cols_i])
+        n_bytes = (n_covered + out.numel()) * out.element_size() + offs.numel() * 4
+        b = bound(n_bytes, 0, rates)
+        name = str(dtype).split(".")[1]
+        t = {"ms": ms, "queued_ms": queued_ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+             "bound_ms": b[0], "bound_by": b[1], "bytes": n_bytes, "path": path,
+             "geometry": pg.launch_geometry(tex.shape[2], band_x, band_yc,
+                                            tex.element_size())._asdict()}
+        log(f"patch_gather at {label} ({tuple(out.shape)} {name} from {tuple(tex.shape)}, "
+            f"{path} path {tuple(t['geometry'].values())[1:]}): equal to its plain version; "
+            f"{ms:.4f} ms, queued {queued_ms:.4f} ms, plain {plain_ms:.4f} ms, one advanced "
+            f"index {lib_ms:.4f} ms, needs {n_bytes} B; bound {b[0]:.5f} ms "
+            f"({b[0] / queued_ms:.0%} of it queued, {b[0] / ms:.0%} one launch a pair) ({card})")
+        record[name] = t
+        del tex, out, ref
+    torch.cuda.empty_cache()
+    return {**record.pop("float32"), **record}
+
+
+# K7 at the edges of its design: (label, n, t, wp, hpc, band_x, band_yc, dtype, start step in
+# elements, tweak).  Starts are drawn on the step; a start 4 elements past 8 is a bf16 start
+# 8 bytes off the TMA's 16; "clamp" hands starts outside the texture with validate=False.
+K7_EDGES = (
+    ("bf16, starts 8 bytes off 16", 3, 7, 90, 1200, 30, 416, "bfloat16", 4, "odd"),
+    ("f32, any start", 3, 17, 72, 640, 24, 128, "float32", 1, None),
+    ("bf16, any start", 3, 7, 90, 1200, 30, 416, "bfloat16", 1, None),
+    ("f32, starts to clamp", 3, 9, 80, 800, 33, 300, "float32", 1, "clamp"),
+    ("bf16, starts to clamp", 3, 9, 80, 800, 33, 304, "bfloat16", 4, "clamp"),
+    ("one patch, the whole texture", 1, 1, 50, 520, 50, 520, "float32", 1, None),
+    ("a row of three TMA boxes", 2, 5, 100, 1200, 37, 600, "float32", 4, None),
+    ("loop: f32 odd pitch", 3, 17, 37, 91, 7, 13, "float32", 1, None),
+    ("loop: bf16 odd padded height", 3, 9, 60, 4 * 35, 21, 4 * 12, "bfloat16", 4, None),
+    ("loop: bf16 odd band", 2, 9, 80, 800, 33, 4 * 51, "bfloat16", 4, None),
+    ("loop: texture not on 16 bytes", 2, 5, 60, 512, 20, 256, "float32", 1, "unaligned"),
+)
+
+
+def patch_gather_edges(pg, dev, g):
+    """Phase 2c's edge cases of K7 (``K7_EDGES``): each held bitwise against
+    its plain version (on the clamped starts where they are out of range),
+    with the path it took, which must be the one ``launch_geometry`` names
+    (the loop for the ``loop:`` cases).  Returns ``{label: path}``."""
+    paths = {}
+    for label, n, t, wp, hpc, band_x, band_yc, dtype, step, tweak in K7_EDGES:
+        dtype = getattr(torch, dtype)
+        size = n * wp * hpc
+        flat = torch.randn((size + 1,), device=dev, generator=g).to(dtype)
+        texf = (flat[1:] if tweak == "unaligned" else flat[:size]).view(n, wp, hpc)
+        offs = torch.stack([
+            torch.randint(0, wp - band_x + 1, (n, t), device=dev, generator=g),
+            torch.randint(0, (hpc - band_yc) // step + 1, (n, t), device=dev, generator=g) * step],
+            dim=-1).to(torch.int32)
+        if tweak == "odd":  # every start 4 elements past a multiple of 8
+            offs[..., 1] = (offs[..., 1] // 8 * 8 + 4).clamp(max=hpc - band_yc)
+        offs[0, 0] = 0
+        offs[-1, -1] = torch.tensor([wp - band_x, (hpc - band_yc) // step * step], device=dev)
+        want = offs.clone()
+        if tweak == "clamp":
+            offs[0, 1] = torch.tensor([wp + 5, -7], device=dev)
+            offs[-1, 0] = torch.tensor([-100, hpc], device=dev)
+            want[..., 0] = offs[..., 0].clamp(0, wp - band_x)
+            want[..., 1] = offs[..., 1].clamp(0, hpc - band_yc)
+        out, path = k7_path(pg, lambda: pg.gather_patches(texf, offs, band_x, band_yc,
+                                                          validate=tweak != "clamp"))
+        named = pg.launch_geometry(hpc, band_x, band_yc, texf.element_size(),
+                                   base_aligned=texf.data_ptr() % 16 == 0)
+        equal = torch.equal(out, pg.gather_patches_ref(texf, want, band_x, band_yc))
+        log(f"patch_gather edge [{label}: {n} x {t} patches of {band_x} x {band_yc} from "
+            f"{(n, wp, hpc)} {str(dtype).split('.')[1]}]: {path} path {tuple(named)[1:]}, "
+            f"equal {equal}")
+        if not equal:
+            raise RuntimeError(f"patch_gather disagrees with its plain version at [{label}]")
+        if path != named.path or (path == "loop") != label.startswith("loop"):
+            raise RuntimeError(f"patch_gather [{label}] took the {path} path, not {named.path}")
+        paths[label] = path
+        del flat, texf, out
+    return paths
+
+
+class Counts(dict):
+    """Launches by kernel since ``reset_counts`` (a dict: compared with and
+    built from plain ones), with K7's launches by kernel path read at the
+    same point, ``k7_paths``.  ``a + b`` adds both."""
+
+    def __init__(self, launches, k7_paths):
+        super().__init__(launches)
+        self.k7_paths = dict(k7_paths)
+
+    def __add__(self, other):
+        return Counts({k: n + other[k] for k, n in self.items()},
+                      {p: n + other.k7_paths[p] for p, n in self.k7_paths.items()})
 
 
 def reset_counts(fr):
-    """Zero the launch counts by kernel."""
-    for key in fr.LAUNCHES:
-        fr.LAUNCHES[key] = 0
+    """Zero the launch counts by kernel, and K7's by kernel path."""
+    from gmpi_tpu_torch.ops import patch_gather as pg
+
+    for table in (fr.LAUNCHES, pg.PATH_LAUNCHES):
+        for key in table:
+            table[key] = 0
+
+
+def read_counts(fr) -> Counts:
+    """The launches since ``reset_counts``, by kernel and K7's by path."""
+    from gmpi_tpu_torch.ops import patch_gather as pg
+
+    return Counts(fr.LAUNCHES, pg.PATH_LAUNCHES)
+
+
+def no_counts(fr) -> Counts:
+    """Counts of no launch, to add to."""
+    from gmpi_tpu_torch.ops import patch_gather as pg
+
+    return Counts(dict.fromkeys(fr.LAUNCHES, 0), dict.fromkeys(pg.PATH_LAUNCHES, 0))
 
 
 def snapshot(tensors):
@@ -1049,7 +1177,7 @@ def training_loop_phase(fr, cfg, card, dev):
             raise RuntimeError("the warm start did not copy G and D exactly")
         del warm
         torch.cuda.empty_cache()
-        launches = dict(fr.LAUNCHES)
+        launches = read_counts(fr)
         decodes = {k: ds_mod.DECODES[k] - decodes0[k] for k in decodes0}
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -1213,7 +1341,7 @@ def eval_phase(fr, tw, pg, cfg, card, dev, tmp):
         current["label"] = label_of(gen, task)
         _, ms = host_ms(lambda: prepare(gen, out_dir, n_imgs, task=task))
         tasks.append({"task": task, "fused": gen.use_fused, "size": gen.img_size,
-                      "n_imgs": n_imgs, "launches": dict(fr.LAUNCHES),
+                      "n_imgs": n_imgs, "launches": read_counts(fr),
                       "row_steps": row_steps["n"], "seconds": ms / 1e3})
 
     def counted_row_step(*args, **kw):
@@ -1283,7 +1411,7 @@ def eval_phase(fr, tw, pg, cfg, card, dev, tmp):
             raise RuntimeError(f"prepare_fake_images [{label}] launched {t['launches']}, "
                                f"expected {want}")
         by_task.setdefault(label, []).append(t)
-    launches = {k: sum(t["launches"][k] for t in tasks) for k in fr.LAUNCHES}
+    launches = sum((t["launches"] for t in tasks), no_counts(fr))
     fps = {label: [t["n_imgs"] / t["seconds"] for t in ts] for label, ts in by_task.items()}
 
     # each banded task at its own inputs (its last call): the patch gather against its plain
@@ -1371,7 +1499,7 @@ def eval_phase(fr, tw, pg, cfg, card, dev, tmp):
                                "--fid_interval", "1", "--fid_n_imgs", str(fid_n_imgs)], cfg=cfg)
     finally:
         loop_mod.compute_training_fid = orig_fid
-    train_launches = dict(fr.LAUNCHES)
+    train_launches = read_counts(fr)
     with open(os.path.join(out, "metrics.jsonl")) as f:
         fids = [json.loads(line)["fid"] for line in f if '"fid"' in line]
     split = cfg.hparams.batch_split
@@ -1385,8 +1513,7 @@ def eval_phase(fr, tw, pg, cfg, card, dev, tmp):
     if train_launches != want:
         raise RuntimeError(f"the train CLI with the FID launched {train_launches}, "
                            f"expected {want}")
-    for k in launches:
-        launches[k] += train_launches[k]
+    launches += train_launches
 
     return {"results": res, "chain_s": [chain_s, chain2_s], "images_per_s": fps,
             "launches": launches, "tasks": tasks, "banded_vs_gather": banded_errs,
@@ -1426,7 +1553,7 @@ def viz_phase(fr, cfg, ckpt_dir, out_dir, card, dev):
     finally:
         for obj, name, orig in originals:
             setattr(obj, name, orig)
-    launches = dict(fr.LAUNCHES)
+    launches = read_counts(fr)
     missing = [n for n in ("rendered.png", "mpi_rgb.png", "mpi_alpha.png", "mpi_rgba.png")
                if not os.path.isfile(os.path.join(out_dir, n))]
     videos = {}
@@ -1515,7 +1642,7 @@ def variants_phase(fr, cfg, card, chip, dev):
 
     res, n_views = cfg.resolution, VARIANT_VIEWS
     zero = dict.fromkeys(fr.LAUNCHES, 0)
-    launches = {"renders": dict(zero), "d_steps": dict(zero), "warm_steps": dict(zero)}
+    launches = {"renders": no_counts(fr), "d_steps": no_counts(fr), "warm_steps": no_counts(fr)}
     k1_err = 0.0
     record = {"renders": {}}
 
@@ -1540,11 +1667,10 @@ def variants_phase(fr, cfg, card, chip, dev):
             mpi_v = mpi.expand(n_views, -1, -1, -1, -1)
             reset_counts(fr)
             (color, depth), ms = host_ms(lambda: fake.render(mpi_v, yv, pv))
-            counts = dict(fr.LAUNCHES)
+            counts = read_counts(fr)
             if counts != {**zero, "fused_fwd": 1}:
                 raise RuntimeError(f"{label}: a render launched {counts}, expected one K1")
-            for k in zero:
-                launches["renders"][k] += counts[k]
+            launches["renders"] += counts
             render_ms.append(ms)
             # colours in [-1, 1] up to fp32 rounding (a saturated tanh gives
             # RGB exactly 1); depths in the plane range where the last plane is
@@ -1703,7 +1829,7 @@ def variants_phase(fr, cfg, card, chip, dev):
             (_, metrics), ms = host_ms(lambda: step(state, real, real_pose, rng))
             step_ms.append(ms)
             all_vals.append({k: float(v) for k, v in metrics.items()})
-        counts = dict(fr.LAUNCHES)
+        counts = read_counts(fr)
         split = cfg.hparams.batch_split
         want = {**zero, "fused_fwd": 3 * D_STEPS, "composite_bwd": split * D_STEPS,
                 "splat": split * D_STEPS}
@@ -1722,8 +1848,7 @@ def variants_phase(fr, cfg, card, chip, dev):
         for v in all_vals:
             if not all(x == x and abs(x) != float("inf") for x in v.values()) or not v["r1"] > 0:
                 raise RuntimeError(f"D {arch}: bad metrics {v}")
-        for k in zero:
-            launches["d_steps"][k] += counts[k]
+        launches["d_steps"] += counts
         record["discriminators"][arch] = {
             "score_err": e_s, "r1_grad_err": e_g, "r1_grad_err_own_branches": e_g_own,
             "r1_grad_l2_err_own_branches": e_g_l2, "branch_flips": flips, "activations": n_act,
@@ -1776,7 +1901,7 @@ def variants_phase(fr, cfg, card, chip, dev):
         reset_counts(fr)
         state = train_gmpi_torch.main(args + ["--output_dir", os.path.join(tmp, "w2"),
                                               "--total_iters", str(WARM_STEPS)], stats=stats)
-        counts = dict(fr.LAUNCHES)
+        counts = read_counts(fr)
         split = cfg.hparams.batch_split
         n_snaps = len(stats.snapshot_steps)
         want = {**zero, "fused_fwd": 3 * WARM_STEPS + 24 * n_snaps,
@@ -2014,7 +2139,7 @@ def bf16_phase(fr, cfg, card, chip, dev, fp32_step):
     (gm, _), g_ms = host_ms(lambda: step.g_phase(state, bs, rng))
     state.step += 1
     metrics.append({**dm, **gm})
-    launches = dict(fr.LAUNCHES)
+    launches = read_counts(fr)
     peak = torch.cuda.max_memory_allocated() / 1e9
     expected = {**dict.fromkeys(fr.LAUNCHES, 0), "fused_fwd": 3 * BF16_STEPS,
                 "composite_bwd": split * BF16_STEPS, "splat": split * BF16_STEPS}
@@ -2147,10 +2272,9 @@ def ranks_phase(fr, card, dev):
                            f"{[r['digest'] for r in cli]}")
     log(f"ranks on the one card: 2 + 4 + 2 + 1 processes in {seconds:.1f} s ({card}; ranks "
         f"share the card: correctness and per-rank cost, not scaling)")
-    launches = dict.fromkeys(fr.LAUNCHES, 0)
-    for r in two + four + cli + nccl:
-        for key, n in r["launches"].items():
-            launches[key] += n
+    # each rank's counts as read at the end of each of its main paths
+    launches = sum((Counts(r["launches"], r["k7_paths"]) for r in two + four + cli + nccl),
+                   no_counts(fr))
     return {"sharded2": two, "render4": four, "cli2": cli, "nccl1": nccl,
             "launches": launches, "seconds": seconds}
 
@@ -2213,9 +2337,8 @@ def _rank_renders(mesh_p, mesh_t, mesh_pt, dev, gates, record, fr):
             out, ms = host_ms(lambda: fn(rgba))
         err = max(float((out.color - ref.color).abs().max()),
                   float((out.depth - ref.depth).abs().max()))
-        record["renders"][name] = {"err": err, "ms": ms, "launches": dict(fr.LAUNCHES)}
-        for key, n in fr.LAUNCHES.items():
-            record["launches"][key] += n
+        record["renders"][name] = {"err": err, "ms": ms, "launches": read_counts(fr)}
+        record["launches"] += record["renders"][name]["launches"]
         if not err <= gates[0]:
             raise RuntimeError(f"{name}: {err} from the single-process render")
     # the rgba gradient of the plane-sharded (or plane x tile) fused render
@@ -2225,8 +2348,7 @@ def _rank_renders(mesh_p, mesh_t, mesh_pt, dev, gates, record, fr):
     for render in (fn, lambda x: render_mpi_fused(x, geom.dhw, *rays, with_disp=False)):
         x = rgba.clone().requires_grad_()
         grads.append(torch.autograd.grad((render(x).color * cot).sum(), x)[0])
-    for key, n in fr.LAUNCHES.items():
-        record["launches"][key] += n
+    record["launches"] += read_counts(fr)
     err_g = rel_err(grads[0], grads[1])
     record["grad"] = {"case": name, "rel_err": err_g}
     if not err_g <= gates[1]:
@@ -2249,7 +2371,7 @@ def _rank_job(job, rank, world, work):
     dev = torch.device(RANK_DEVICE)
     torch.cuda.set_device(dev)
     record = {"rank": rank, "world": world, "renders": {},
-              "launches": dict.fromkeys(fr.LAUNCHES, 0)}
+              "launches": no_counts(fr)}
     gates = (5e-4, GRAD_REL)
     if job == "cli":
         record.update(_rank_cli(rank, world, work, fr))
@@ -2277,6 +2399,7 @@ def _rank_job(job, rank, world, work):
                     raise RuntimeError(f"no NCCL collective was made: {record}")
         finally:
             dist.destroy_process_group()
+    record["k7_paths"] = record["launches"].k7_paths
     with open(os.path.join(work, f"{job}_{rank}.json"), "w") as f:
         json.dump(record, f)
     print(json.dumps({k: v for k, v in record.items() if k != "launches"}), flush=True)
@@ -2321,9 +2444,8 @@ def _rank_train(dev, fr, record):
         out["metrics"].append({k: float(v) for k, v in metrics.items()})
         check_replica_consistency(state_tensors(state), atol=0.0)
         out["replica_checks"] += 1
-    out["train_launches"] = dict(fr.LAUNCHES)
-    for key, n in fr.LAUNCHES.items():
-        record["launches"][key] += n
+    out["train_launches"] = read_counts(fr)
+    record["launches"] += out["train_launches"]
     out["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
     for m in out["metrics"]:
         if not all(x == x and abs(x) != float("inf") for x in m.values()):
@@ -2383,7 +2505,7 @@ def _rank_cli(rank, world, work, fr):
         ["--dataset", "FFHQ256", "--data_root", zpath, "--pose_root", pose_dir,
          "--output_dir", os.path.join(work, "cli_run"), "--multihost", "--device", RANK_DEVICE, "--total_iters", str(RANK_STEPS), "--seed", "5",
          "--sample_interval", "1000", "--model_save_interval", "1000"], stats=stats)
-    launches = dict(fr.LAUNCHES)
+    launches = read_counts(fr)
     dist.init_process_group = real_group
     if backends != ["gloo"]:  # two ranks on one card: NCCL would refuse them
         raise RuntimeError(f"CLI rank {rank}: process groups {backends}, expected gloo")
@@ -2648,7 +2770,7 @@ def full_scale_checks(fr, tw, pg, cfg, rates, card, dev):
                 reset_counts(fr)
                 torch.cuda.reset_peak_memory_stats()
                 (color, grad), ms = host_ms(lambda: color_and_grad(render))
-                launches = dict(fr.LAUNCHES)
+                launches = read_counts(fr)
                 errs = {ref: (rel_err(color, o[0]), rel_err(grad, o[1]))
                         for ref, o in (("fp64", exact), ("fp32", oracle))}
                 gated = "fp32" if name == "banded" else "fp64"
@@ -2714,7 +2836,7 @@ def preset_serving(fr, cfg, rates, card, dev):
             raise RuntimeError(f"{cfg.name} seed {seed}: bad MPI {tuple(mpi.shape)}")
         if color.shape != (PRESET_VIEWS, 3, res, res):
             raise RuntimeError(f"{cfg.name} seed {seed}: bad render shape {tuple(color.shape)}")
-    launches = dict(fr.LAUNCHES)
+    launches = read_counts(fr)
     peak = torch.cuda.max_memory_allocated() / 1e9
     if launches != {**dict.fromkeys(fr.LAUNCHES, 0), "fused_fwd": len(PRESET_SEEDS)}:
         raise RuntimeError(f"{cfg.name} serving launched {launches}, expected one fused_fwd "
@@ -2840,7 +2962,7 @@ def preset_training(fr, cfg, rates, card, dev):
         f"of {cfg.train.n_view_per_z} views; built in {time.perf_counter() - t0:.1f} s")
     before = {"G": snapshot(state.G.parameters()), "D": snapshot(state.D.parameters())}
     rng = torch.Generator().manual_seed(2)
-    runs, all_launches = {}, dict.fromkeys(fr.LAUNCHES, 0)
+    runs, all_launches = {}, no_counts(fr)
     for label, switches in (("preset", {}),) + memory_switches(res):
         run_cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, **switches))
         step = make_train_step(run_cfg, device=dev)
@@ -2869,7 +2991,7 @@ def preset_training(fr, cfg, rates, card, dev):
             peaks["lit step"] = torch.cuda.max_memory_allocated() / 1e9
             step_ms.append(lit_ms)
             metrics.append(m)
-        launches = dict(fr.LAUNCHES)
+        launches = read_counts(fr)
         peak = max(peaks.values())
         want = {**dict.fromkeys(fr.LAUNCHES, 0), **scaled(step_launches(run_cfg), len(metrics))}
         if launches != want:
@@ -2888,8 +3010,7 @@ def preset_training(fr, cfg, rates, card, dev):
             + ", ".join(f"{k} {float(v):.4f}" for k, v in metrics[-1].items()) + f" ({card})")
         runs[label] = {"switches": switches, "step_ms": step_ms, "d_ms": d_ms, "g_ms": g_ms,
                        "peak_gb": peak, "peak_gb_by_span": peaks, "launches": launches}
-        for k in all_launches:
-            all_launches[k] += launches[k]
+        all_launches += launches
         del step
     for part in ("G", "D"):
         module = getattr(state, part)
@@ -3026,7 +3147,7 @@ def prepare_fake_routes(fr, tw, pg, label, cfg, ckpt_dir, routes, tmp, card, dev
             eval_gmpi_torch.main(common + (["--fused_renderer"] if route == "fused" else [])
                                  + ["--out", dirs[route]])
             eval_s[route] = time.perf_counter() - t0
-            launches[route] = dict(fr.LAUNCHES)
+            launches[route] = read_counts(fr)
             want = {**dict.fromkeys(fr.LAUNCHES, 0),
                     **({"patch_gather": row_steps["n"]} if route == "banded" else
                        {"fused_fwd": PRESET_FAKES})}
@@ -3119,7 +3240,7 @@ def preset_loop_eval(fr, tw, pg, card, dev, tmp):
                            f"{state.step}, expected {first} to {last}")
     del state
     torch.cuda.empty_cache()
-    launches = dict(fr.LAUNCHES)
+    launches = read_counts(fr)
     want = {**dict.fromkeys(fr.LAUNCHES, 0), **scaled(step_launches(ffhq), last)}
     if launches != want:
         raise RuntimeError(f"the FFHQ1024 train CLI launched {launches} in {last} steps, "
@@ -3156,7 +3277,7 @@ def preset_loop_eval(fr, tw, pg, card, dev, tmp):
                                    os.path.join(tmp, "afhq_run"), "--seed", "6",
                                    "--total_iters", str(first), "--device", str(dev)],
                                   stats=stats)
-    launches = dict(fr.LAUNCHES)
+    launches = read_counts(fr)
     want = {**dict.fromkeys(fr.LAUNCHES, 0), **scaled(step_launches(afhq), first)}
     if state.step != first or launches != want:
         raise RuntimeError(f"the AFHQCat train CLI ended at step {state.step} with launches "
@@ -3171,7 +3292,7 @@ def preset_loop_eval(fr, tw, pg, card, dev, tmp):
     mpi_v = mpi.expand(PRESET_VIEWS, -1, -1, -1, -1)
     reset_counts(fr)
     color, depth = gen.render(mpi_v, yv, pv)
-    render_launches = dict(fr.LAUNCHES)
+    render_launches = read_counts(fr)
     if render_launches != {**dict.fromkeys(fr.LAUNCHES, 0), "fused_fwd": 1}:
         raise RuntimeError(f"an AFHQCat render launched {render_launches}")
     paths.append(render_launches)
@@ -3263,7 +3384,7 @@ BANDED_PRESETS = ("FFHQ256", "FFHQ512", "FFHQ1024", "AFHQCat", "MetFaces")
 BANDED_PLAN_POSES = 64  # sampled poses at which each card plan is held, besides the 9 corners
 BANDED_TRAIN = ("FFHQ256", "FFHQ1024")  # trained through --no_fused_renderer
 FUSED_TRAIN = ("FFHQ512", "MetFaces")  # trained through the fused default
-BANDED_LOOP_STEPS = (2, 3)  # train CLI steps, then resumed to
+BANDED_LOOP_STEPS = (1, 2)  # train CLI steps, then resumed to (a FFHQ1024 step takes ~53 s)
 FUSED_LOOP_STEPS = 2
 
 
@@ -3419,7 +3540,7 @@ def banded_training(fr, tw, pg, card, dev, tmp, name):
         tw._warp_row_tiles, tw.gather_patches = row_step, gather
         for k, fn in step_spans.items():
             setattr(TrainStep, k, fn)
-    launches = dict(fr.LAUNCHES)
+    launches = read_counts(fr)
     want = {**dict.fromkeys(fr.LAUNCHES, 0), "patch_gather": row_steps["n"]}
     if launches != want or not row_steps["n"]:
         raise RuntimeError(f"the {name} banded train CLI launched {launches}, expected {want}")
@@ -3524,7 +3645,7 @@ def fused_training(fr, card, dev, tmp, name):
                                        "--pose_root", pose_root, "--output_dir", out, "--seed",
                                        "6", "--total_iters", str(FUSED_LOOP_STEPS), "--device",
                                        str(dev)], stats=stats)
-    launches = dict(fr.LAUNCHES)
+    launches = read_counts(fr)
     want = {**dict.fromkeys(fr.LAUNCHES, 0), **scaled(step_launches(cfg), FUSED_LOOP_STEPS)}
     if state.step != FUSED_LOOP_STEPS or launches != want:
         raise RuntimeError(f"the {name} train CLI ended at step {state.step} with launches "
@@ -3636,6 +3757,7 @@ def banded_phase(fr, tw, pg, card, dev):
 
 
 def main() -> int:
+    """The whole run."""
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs a CUDA card",
               file=sys.stderr)
@@ -3655,6 +3777,7 @@ def main() -> int:
     from gmpi_tpu_torch.ops import tiled_warp as tw
     from gmpi_tpu_torch.train import flat_pose_from_c2w, init_train_state, make_train_step
     from gmpi_tpu_torch.utils import roofline
+
 
     # -- 1. setup --------------------------------------------------------------
     phase_s, t_start = {}, time.perf_counter()
@@ -3796,6 +3919,7 @@ def main() -> int:
                 max_err["patch_gather"] = float("inf")
                 raise RuntimeError("patch_gather disagrees with its plain version")
         del texf, out, ref
+    k7_edges = patch_gather_edges(pg, dev, g)
     torch.cuda.empty_cache()
 
     lap("2c")
@@ -3829,7 +3953,7 @@ def main() -> int:
         if depth.min() < lo or depth.max() > hi:
             raise RuntimeError(f"seed {seed}: depth {float(depth.min())}..{float(depth.max())} "
                                f"outside [{lo}, {hi}]")
-    serving_launches = dict(fr.LAUNCHES)
+    serving_launches = read_counts(fr)
     if serving_launches != {**dict.fromkeys(fr.LAUNCHES, 0), "fused_fwd": len(seeds)}:
         raise RuntimeError(f"serving main path launched {serving_launches}, expected one "
                            f"fused_fwd per render call ({len(seeds)}) and no backward")
@@ -3916,7 +4040,7 @@ def main() -> int:
     state.step = cfg.train.lighting_start_iter + 500
     (_, metrics, grads), lit_ms = host_ms(lambda: step_with_grads(state, real, real_pose, rng))
     all_metrics.append(metrics)
-    train_launches = dict(fr.LAUNCHES)
+    train_launches = read_counts(fr)
     n_steps = len(all_metrics)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     expected = {**dict.fromkeys(fr.LAUNCHES, 0), "fused_fwd": 3 * n_steps,
@@ -3979,7 +4103,7 @@ def main() -> int:
                                with_disp=False)
         grads_a.append(torch.autograd.grad((out.color * cot).sum(), x)[0])
     torch.cuda.synchronize()
-    adjoint_launches = dict(fr.LAUNCHES)
+    adjoint_launches = read_counts(fr)
     expected = {**dict.fromkeys(fr.LAUNCHES, 0), "fused_fwd": 2, "composite_bwd": 2, "adjoint": 2}
     if adjoint_launches != expected:
         raise RuntimeError(f"the adjoint route launched {adjoint_launches} in 2 forward+backward "
@@ -4052,7 +4176,7 @@ def main() -> int:
                     mpi_v, geom.dhw, ray_dir, eye, z_dir, plane_chunk=24,
                     tiled_bands=tiled_bands, patch_backend="cuda"))
         peak_chunked = torch.cuda.max_memory_allocated() / 1e9
-        banded_launches = dict(fr.LAUNCHES)
+        banded_launches = read_counts(fr)
     finally:
         tw._warp_row_tiles, tw.gather_patches = warp_row_tiles, gather_patches
     err_chunk = max(float((a - b).abs().max()) for a, b in zip(chunked, gather))
@@ -4177,6 +4301,14 @@ def main() -> int:
                   loop["launches"], evaluation["launches"], viz["launches"],
                   *variants["launches"].values(), bf16["train_launches"], ranks["launches"],
                   *preset_paths, *banded_paths)
+    # K7's launches by kernel path, read with each main path's counts: every one on the TMA path
+    k7_paths = sum(main_paths, no_counts(fr)).k7_paths
+    log(f"patch_gather launches of the main paths by kernel path: {k7_paths}")
+    if (sum(k7_paths.values()) != sum(path["patch_gather"] for path in main_paths)
+            or not k7_paths["tma"] or any(path.k7_paths["loop"] for path in main_paths)):
+        raise RuntimeError(f"the main paths' patch gathers by path {k7_paths}: not all on the "
+                           f"TMA path, or not the {sum(p['patch_gather'] for p in main_paths)} "
+                           f"launches counted by kernel")
 
     def entry(kname, line, ms, plain_ms, b, library_ms, replaces="gmpi_tpu/ops/pallas_warp.py",
               **extra):
@@ -4210,7 +4342,10 @@ def main() -> int:
               queued_ms=k5["adj_queued"], splat_queued_ms=k5["splat_queued"]),
         entry("patch_gather", 33, k7["ms"], k7["plain_ms"], (k7["bound_ms"], k7["bound_by"]),
               k7["library_ms"],
-              replaces="gmpi_tpu/ops/pallas_patch.py", err_scale="exact equality required"),
+              replaces="gmpi_tpu/ops/pallas_patch.py", err_scale="exact equality required",
+              queued_ms=k7["queued_ms"], path=k7["path"], geometry=k7["geometry"],
+              bf16=k7["bfloat16"], launches_by_path=k7_paths,
+              edge_paths=k7_edges),
     ], "train_steps": n_steps, "train_step_ms": statistics.median(timed),
         "banded_render_ms": t_banded, "banded_spans_ms": banded_spans,
         "banded_same_mpi_fused_ms": t_fused_same, "banded_same_mpi_gather_ms": t_gather_same,

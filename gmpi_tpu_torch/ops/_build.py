@@ -113,13 +113,16 @@ def launch(name: str, argtypes: Sequence, dev: torch.device, *args) -> None:
     """Launch the kernel of ``csrc/<name>.cu`` (built at first use) through its
     C entry point ``gmpi_<name>(*args, stream)`` on the current stream of
     ``dev``; ``argtypes`` are the ctypes of ``args`` and the stream.  Raises if
-    the launch is refused, counts it in ``LAUNCHES`` otherwise."""
+    the launch is refused (a cudaError, or minus a CUresult), counts it in
+    ``LAUNCHES`` otherwise."""
     fn = getattr(load(name), "gmpi_" + name)
     if fn.argtypes is None:
         fn.argtypes = list(argtypes)
         fn.restype = ctypes.c_int
     with torch.cuda.device(dev):
         err = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
+    if err > 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
+    if err < 0:  # an entry point that encodes TMA tensor maps returns -CUresult
+        raise RuntimeError(f"{name}: encoding a TMA tensor map failed: CUresult {-err}")
     LAUNCHES[name] += 1

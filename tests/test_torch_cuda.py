@@ -218,41 +218,96 @@ def test_backward_wrappers_reject_what_the_kernels_do_not_take(cuda):
         fused_render.warp_splat(warped, rx, ry, scal[:, :4].contiguous(), 128, 128)
 
 
+# K7's shapes: (n, t, wp, hpc, band_x, band_yc, start steps (x, y) in elements, tweak)
+K7_CASES = {
+    "aligned": (3, 17, 72, 640, 24, 128, (8, 16), None),
+    "unaligned": (3, 17, 37, 91, 7, 13, (1, 1), None),  # odd pitches: the loop path
+    "starts 4 past 8": (3, 7, 90, 1200, 30, 416, (1, 8), "plus4"),  # bf16: 8 bytes off 16
+    "any start": (3, 17, 72, 640, 24, 128, (1, 1), None),
+    "row of three boxes": (2, 5, 100, 1200, 37, 600, (1, 4), None),
+    "one patch": (1, 1, 50, 520, 50, 520, (1, 1), None),
+    "texture off 16 bytes": (2, 5, 60, 512, 20, 256, (1, 1), "offset"),  # the loop path
+}
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("aligned", [True, False], ids=["aligned", "unaligned"])
+@pytest.mark.parametrize("aligned", list(K7_CASES))
 def test_patch_gather_kernel_is_an_exact_copy(cuda, dtype, aligned):
-    """Aligned shapes take the 16-byte path, odd ones the scalar path; patches
-    at both corners of the texture; out-of-range offsets raise on the host and
-    are clamped by the kernel when the host check is off."""
-    n, t = 3, 17
-    wp, hpc, band_x, band_yc = (72, 640, 24, 128) if aligned else (37, 91, 7, 13)
+    """Each shape takes the path ``launch_geometry`` names (the TMA's bulk
+    copies, with the warp's shift for a start off 16 bytes, or the loop for
+    pitches or a texture not on 16 bytes); patches at both corners of the
+    texture; out-of-range offsets raise on the host and are clamped by the
+    kernel when the host check is off."""
+    n, t, wp, hpc, band_x, band_yc, step, tweak = K7_CASES[aligned]
     g = torch.Generator(device=cuda).manual_seed(1)
-    texf = torch.randn((n, wp, hpc), device=cuda, generator=g).to(dtype)
-    step = (8, 16) if aligned else (1, 1)
+    flat = torch.randn((n * wp * hpc + 1,), device=cuda, generator=g).to(dtype)
+    texf = (flat[1:] if tweak == "offset" else flat[:-1]).view(n, wp, hpc)
     offs = torch.stack([
         torch.randint(0, (wp - band_x) // step[0] + 1, (n, t), device=cuda, generator=g) * step[0],
         torch.randint(0, (hpc - band_yc) // step[1] + 1, (n, t), device=cuda, generator=g)
         * step[1]], dim=-1).to(torch.int32)
+    if tweak == "plus4":
+        offs[..., 1] = (offs[..., 1] + 4).clamp(max=hpc - band_yc)
     offs[0, 0] = 0
     offs[-1, -1] = torch.tensor([wp - band_x, hpc - band_yc], device=cuda)
+    geo = patch_gather.launch_geometry(hpc, band_x, band_yc, texf.element_size(),
+                                       base_aligned=texf.data_ptr() % 16 == 0)
+    assert geo.path == ("loop" if aligned in ("unaligned", "texture off 16 bytes") else "tma")
     before = patch_gather.LAUNCHES["patch_gather"]
+    paths = dict(patch_gather.PATH_LAUNCHES)
     out = patch_gather.gather_patches(texf, offs, band_x, band_yc)
     ref = patch_gather.gather_patches_ref(texf, offs, band_x, band_yc)
     torch.cuda.synchronize()
     assert patch_gather.LAUNCHES["patch_gather"] == before + 1
+    assert patch_gather.PATH_LAUNCHES[geo.path] == paths[geo.path] + 1
     assert out.dtype == dtype and torch.equal(out, ref)
     bad = offs.clone()
-    bad[1, 3] = torch.tensor([wp, -5], device=cuda)
+    bad[-1, 0] = torch.tensor([wp, -5], device=cuda)
     with pytest.raises(ValueError, match="leaves the texture"):
         patch_gather.gather_patches(texf, bad, band_x, band_yc)
     clamped = patch_gather.gather_patches(texf, bad, band_x, band_yc, validate=False)
-    bad[1, 3] = torch.tensor([wp - band_x, 0], device=cuda)
+    bad[-1, 0] = torch.tensor([wp - band_x, 0], device=cuda)
     assert torch.equal(clamped, patch_gather.gather_patches_ref(texf, bad, band_x, band_yc))
     with pytest.raises(TypeError):
         patch_gather.gather_patches(texf.double(), offs, band_x, band_yc)
     with pytest.raises(RuntimeError, match="no gradient"):
         patch_gather.gather_patches(texf.float().requires_grad_(), offs, band_x, band_yc)
+
+
+# the TMA path at the limits of its ring and its jobs: (stages, stores in flight past the one
+# waited for, rows a job); None keeps launch_geometry's choice
+K7_GEOMETRIES = {"2 stages, lag 0": (2, 0, None), "8 stages, lag 6": (8, 6, None),
+                 "one row a job": (None, None, 1)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("geometry", list(K7_GEOMETRIES))
+def test_patch_gather_kernel_at_extreme_geometries(cuda, dtype, geometry):
+    """The kernel launched directly at geometries the wrapper does not pick
+    (the fewest and the most stages the kernel takes, the fewest and the
+    most stores left in flight, jobs of one row), on rows of three boxes and
+    any starts (bf16 and fp32 starts off 16 bytes take the warp's shift):
+    an exact copy."""
+    n, t, wp, hpc, band_x, band_yc = 2, 5, 100, 1200, 37, 600
+    g = torch.Generator(device=cuda).manual_seed(2)
+    texf = torch.randn((n, wp, hpc), device=cuda, generator=g).to(dtype)
+    offs = torch.stack([torch.randint(0, wp - band_x + 1, (n, t), device=cuda, generator=g),
+                        torch.randint(0, hpc - band_yc + 1, (n, t), device=cuda, generator=g)],
+                       dim=-1).to(torch.int32)
+    offs[0, 0] = 0
+    offs[-1, -1] = torch.tensor([wp - band_x, hpc - band_yc], device=cuda)
+    geo = patch_gather.launch_geometry(hpc, band_x, band_yc, texf.element_size())
+    stages, lag, rows = K7_GEOMETRIES[geometry]
+    rows = rows or geo.rows
+    geo = geo._replace(rows=rows, chunks=-(-band_x // rows), stages=stages or geo.stages,
+                       lag=geo.lag if lag is None else lag)
+    assert geo.path == "tma" and geo.boxes == 3
+    out = torch.full((n, t, band_x, band_yc), float("nan"), dtype=dtype, device=cuda)
+    patch_gather._launch(texf, offs, out, geo)
+    torch.cuda.synchronize()
+    assert torch.equal(out, patch_gather.gather_patches_ref(texf, offs, band_x, band_yc))
 
 
 @pytest.mark.gpu
