@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from gmpi_tpu_torch.utils.device import resolve_device
+from gmpi_tpu_torch.utils.inspect import profile_scope
 
 
 class SphereCameraConfig(NamedTuple):
@@ -57,21 +58,27 @@ def truncated_normal(generator: Optional[torch.Generator], shape: Tuple[int, ...
 
 def sample_yaw_pitch(generator: Optional[torch.Generator], n: int, cfg: SphereCameraConfig,
                      device="cuda") -> Tuple[torch.Tensor, torch.Tensor]:
-    """``[n, 1]`` yaws and pitches drawn per ``cfg.sample_method``."""
-    dev = resolve_device(device)
-    if cfg.sample_method == "uniform":
-        span = 2 * cfg.n_truncated_stds
-        yaws = (torch.rand((n, 1), generator=generator) - 0.5) * span * cfg.yaw_std + cfg.yaw_mean
-        pitches = (torch.rand((n, 1), generator=generator) - 0.5) * span * cfg.pitch_std + cfg.pitch_mean
-    elif cfg.sample_method in ("normal", "gaussian"):
-        yaws = torch.randn((n, 1), generator=generator) * cfg.yaw_std + cfg.yaw_mean
-        pitches = torch.randn((n, 1), generator=generator) * cfg.pitch_std + cfg.pitch_mean
-    elif cfg.sample_method == "truncated_gaussian":
-        yaws = truncated_normal(generator, (n, 1), cfg.yaw_mean, cfg.yaw_std, cfg.n_truncated_stds)
-        pitches = truncated_normal(generator, (n, 1), cfg.pitch_mean, cfg.pitch_std, cfg.n_truncated_stds)
-    else:
-        raise ValueError(cfg.sample_method)
-    return yaws.to(dev, torch.float32), pitches.to(dev, torch.float32)
+    """``[n, 1]`` yaws and pitches drawn per ``cfg.sample_method`` on the host
+    and copied to ``device`` (a ``host_draw.pose`` span)."""
+    with profile_scope("host_draw.pose"):
+        dev = resolve_device(device)
+        if cfg.sample_method == "uniform":
+            span = 2 * cfg.n_truncated_stds
+            yaws = ((torch.rand((n, 1), generator=generator) - 0.5) * span * cfg.yaw_std
+                    + cfg.yaw_mean)
+            pitches = ((torch.rand((n, 1), generator=generator) - 0.5) * span * cfg.pitch_std
+                       + cfg.pitch_mean)
+        elif cfg.sample_method in ("normal", "gaussian"):
+            yaws = torch.randn((n, 1), generator=generator) * cfg.yaw_std + cfg.yaw_mean
+            pitches = torch.randn((n, 1), generator=generator) * cfg.pitch_std + cfg.pitch_mean
+        elif cfg.sample_method == "truncated_gaussian":
+            yaws = truncated_normal(generator, (n, 1), cfg.yaw_mean, cfg.yaw_std,
+                                    cfg.n_truncated_stds)
+            pitches = truncated_normal(generator, (n, 1), cfg.pitch_mean, cfg.pitch_std,
+                                       cfg.n_truncated_stds)
+        else:
+            raise ValueError(cfg.sample_method)
+        return yaws.to(dev, torch.float32), pitches.to(dev, torch.float32)
 
 
 def _normalize(v: torch.Tensor) -> torch.Tensor:

@@ -23,6 +23,11 @@ All are float32, except that the fused path's forward may read bf16 textures
 reference computes them under ``no_grad``), so gradients reach plane RGBA
 only, on every path, unless :func:`render_mpi` is asked for
 ``stop_pose_grad=False``.
+
+Each render is a ``torch.profiler`` span named for its path:
+``render.fused``, ``render.banded`` or ``render.gather`` (the fused and
+tiled backwards open ``render.backward``); without a profiler they do
+nothing.
 """
 
 from __future__ import annotations
@@ -34,6 +39,7 @@ from torch.utils.checkpoint import checkpoint
 
 from gmpi_tpu_torch.ops import fused_render
 from gmpi_tpu_torch.ops.grid_sample import grid_sample_bilinear
+from gmpi_tpu_torch.utils.inspect import profile_scope
 
 ALIGN_CORNERS_FALSE_NARROW_SCALE = 0.95
 COMPOSITE_EPS = 1e-10
@@ -167,6 +173,12 @@ def _flatten_views(rgba, dhw, ray_dir, eye_pos, z_dir):
     return flat_rgba, flat_dhw, flat_ray.float(), flat_eye.float(), flat_z.float()
 
 
+def _span_of(tiled_bands) -> str:
+    """The span of a render through :func:`render_mpi` or
+    :func:`render_mpi_chunked`: banded with tile bands, else the gather."""
+    return "render.gather" if tiled_bands is None else "render.banded"
+
+
 def render_mpi(rgba: torch.Tensor, dhw: torch.Tensor, ray_dir: torch.Tensor,
                eye_pos: torch.Tensor, z_dir: torch.Tensor, align_corners: bool = True,
                tiled_bands: Optional[Tuple[int, ...]] = None, stop_pose_grad: bool = True,
@@ -182,25 +194,26 @@ def render_mpi(rgba: torch.Tensor, dhw: torch.Tensor, ray_dir: torch.Tensor,
     grid and the per-pixel depth keep their graph to ``dhw`` / ``ray_dir`` /
     ``eye_pos`` / ``z_dir``; it samples through plain autograd (2-field bands
     and the ``"torch"`` backend), since the custom adjoint cuts grid gradients."""
-    v, n_l = rgba.shape[0], rgba.shape[1]
-    h, w = ray_dir.shape[2], ray_dir.shape[3]
-    flat_rgba, flat_dhw, flat_ray, flat_eye, flat_z = _flatten_views(
-        rgba, dhw, ray_dir, eye_pos, z_dir)
-    if stop_pose_grad:
-        with torch.no_grad():
+    with profile_scope(_span_of(tiled_bands)):
+        v, n_l = rgba.shape[0], rgba.shape[1]
+        h, w = ray_dir.shape[2], ray_dir.shape[3]
+        flat_rgba, flat_dhw, flat_ray, flat_eye, flat_z = _flatten_views(
+            rgba, dhw, ray_dir, eye_pos, z_dir)
+        if stop_pose_grad:
+            with torch.no_grad():
+                grid, depth = homography_grid(flat_dhw, flat_eye, flat_ray, flat_z, align_corners)
+            sampled = _sample(flat_rgba, grid, align_corners, tiled_bands, patch_backend)
+        else:
             grid, depth = homography_grid(flat_dhw, flat_eye, flat_ray, flat_z, align_corners)
-        sampled = _sample(flat_rgba, grid, align_corners, tiled_bands, patch_backend)
-    else:
-        grid, depth = homography_grid(flat_dhw, flat_eye, flat_ray, flat_z, align_corners)
-        bands2 = tuple(tiled_bands[:2]) if tiled_bands is not None else None
-        sampled = _sample(flat_rgba, grid, align_corners, bands2)
-    # the reference's fp order: disp = 1/depth, then depth = 1/disp
-    disp = 1.0 / depth
-    depth = 1.0 / disp
-    color, depth_out, disp_out = composite(
-        sampled[:, :3].reshape(v, n_l, 3, h, w), sampled[:, 3:4].reshape(v, n_l, 1, h, w),
-        depth.reshape(v, n_l, 1, h, w), disp.reshape(v, n_l, 1, h, w))
-    return RenderOutput(color=color, depth=depth_out, disp=disp_out)
+            bands2 = tuple(tiled_bands[:2]) if tiled_bands is not None else None
+            sampled = _sample(flat_rgba, grid, align_corners, bands2)
+        # the reference's fp order: disp = 1/depth, then depth = 1/disp
+        disp = 1.0 / depth
+        depth = 1.0 / disp
+        color, depth_out, disp_out = composite(
+            sampled[:, :3].reshape(v, n_l, 3, h, w), sampled[:, 3:4].reshape(v, n_l, 1, h, w),
+            depth.reshape(v, n_l, 1, h, w), disp.reshape(v, n_l, 1, h, w))
+        return RenderOutput(color=color, depth=depth_out, disp=disp_out)
 
 
 def render_slab_partial(rgba, dhw, ray_dir, eye_pos, z_dir, align_corners: bool = True,
@@ -245,20 +258,21 @@ def render_mpi_chunked(rgba: torch.Tensor, dhw: torch.Tensor, ray_dir: torch.Ten
     if per_chunk and len(tiled_bands) != n_chunks:
         raise ValueError(f"{len(tiled_bands)} band tuples for {n_chunks} slabs")
 
-    carry = None
-    for k in range(n_chunks):
-        bands = tuple(tiled_bands[k]) if per_chunk else tiled_bands
+    with profile_scope(_span_of(tiled_bands)):
+        carry = None
+        for k in range(n_chunks):
+            bands = tuple(tiled_bands[k]) if per_chunk else tiled_bands
 
-        def slab(r, d, bands=bands):
-            return render_slab_partial(r, d, ray_dir, eye_pos, z_dir, align_corners, bands,
-                                       patch_backend, with_disp=with_disp)
+            def slab(r, d, bands=bands):
+                return render_slab_partial(r, d, ray_dir, eye_pos, z_dir, align_corners, bands,
+                                           patch_backend, with_disp=with_disp)
 
-        sl = slice(k * plane_chunk, (k + 1) * plane_chunk)
-        if remat:
-            part = checkpoint(slab, rgba[:, sl], dhw[:, sl], use_reentrant=False)
-        else:
-            part = slab(rgba[:, sl], dhw[:, sl])
-        carry = part if carry is None else combine_segments(carry, part)
+            sl = slice(k * plane_chunk, (k + 1) * plane_chunk)
+            if remat:
+                part = checkpoint(slab, rgba[:, sl], dhw[:, sl], use_reentrant=False)
+            else:
+                part = slab(rgba[:, sl], dhw[:, sl])
+            carry = part if carry is None else combine_segments(carry, part)
     return RenderOutput(color=carry[0], depth=carry[1], disp=carry[2] if with_disp else None)
 
 
@@ -373,9 +387,10 @@ def render_mpi_fused(rgba: torch.Tensor, dhw: torch.Tensor, ray_dir: torch.Tenso
     forward needs no plan (a per-pixel CUDA gather has no static bands).
     ``with_disp=False`` leaves ``disp`` None.
     """
-    outs = _fused_partials(rgba, dhw, ray_dir, eye_pos, z_dir, early_out, with_disp,
-                           grad_sparsity=True, adjoint_bands=_adjoint_bands_of(plans),
-                           compute_dtype=compute_dtype)
+    with profile_scope("render.fused"):
+        outs = _fused_partials(rgba, dhw, ray_dir, eye_pos, z_dir, early_out, with_disp,
+                               grad_sparsity=True, adjoint_bands=_adjoint_bands_of(plans),
+                               compute_dtype=compute_dtype)
     return RenderOutput(color=outs[0], depth=outs[1], disp=outs[2] if with_disp else None)
 
 
@@ -414,11 +429,12 @@ def render_mpi_fused_remat(rgba: torch.Tensor, dhw: torch.Tensor, ray_dir: torch
         raise ValueError(f"plane_chunk: expected >= 1, got {plane_chunk}")
     slab = make_fused_slab_renderer(with_disp=with_disp, compute_dtype=compute_dtype)
     carry = None
-    for lo in range(0, rgba.shape[1], plane_chunk):
-        hi = lo + plane_chunk
-        part = checkpoint(slab, rgba[:, lo:hi], dhw[lo:hi], ray_dir, eye_pos, z_dir,
-                          use_reentrant=False)
-        carry = part if carry is None else combine_segments(carry, part)
+    with profile_scope("render.fused"):
+        for lo in range(0, rgba.shape[1], plane_chunk):
+            hi = lo + plane_chunk
+            part = checkpoint(slab, rgba[:, lo:hi], dhw[lo:hi], ray_dir, eye_pos, z_dir,
+                              use_reentrant=False)
+            carry = part if carry is None else combine_segments(carry, part)
     return RenderOutput(color=carry[0], depth=carry[1], disp=carry[2] if with_disp else None)
 
 

@@ -13,7 +13,8 @@ seed (``torch.utils.data.DataLoader``'s sampler orders differently):
   overlaps the device's step.
 
 Batches are tuples of stacked numpy fields; the training loop moves them to
-the card.
+the card.  A batch not ready when the consumer asks for it is waited for in
+a ``loader.wait`` span of ``torch.profiler`` (``utils.inspect.profile_scope``).
 """
 
 from __future__ import annotations
@@ -23,6 +24,8 @@ from concurrent.futures import ThreadPoolExecutor
 from typing import Iterator, Tuple
 
 import numpy as np
+
+from gmpi_tpu_torch.utils.inspect import profile_scope
 
 
 class ShardedLoader:
@@ -70,7 +73,12 @@ class ShardedLoader:
                 futures.put(pool.submit(fetch, submitted))
                 submitted += 1
             for _ in range(n_batches):
-                batch = futures.get().result()
+                future = futures.get()
+                if future.done():
+                    batch = future.result()
+                else:  # the consumer starves: a span as long as the wait
+                    with profile_scope("loader.wait"):
+                        batch = future.result()
                 if submitted < n_batches:
                     futures.put(pool.submit(fetch, submitted))
                     submitted += 1

@@ -40,6 +40,7 @@ from gmpi_tpu_torch.eval.metrics import (angle_error, cosine_similarity, fid_fro
                                          kid_from_features, normalized_depth_error)
 from gmpi_tpu_torch.models.generator import Generator
 from gmpi_tpu_torch.utils.device import resolve_device
+from gmpi_tpu_torch.utils.inspect import profile_scope
 
 
 class FakeImageGenerator:
@@ -86,15 +87,17 @@ class FakeImageGenerator:
 
     @torch.no_grad()
     def sample_mpi(self, seed: int, batch: int = 1) -> torch.Tensor:
-        """MPI ``[batch, L, 4, R, R]`` from the z of ``seed``."""
-        z = torch.randn((batch, self.cfg.train.z_dim),
-                        generator=torch.Generator().manual_seed(seed))
-        mpi = generate_mpi(self.G, z.to(self.device), self.xyz_dict, self.n_planes,
-                           chunk_n_planes=self.chunk, truncation_psi=self.psi,
-                           noise_mode="const")
-        if self.sanity_full_alpha:
-            mpi = torch.cat([mpi[:, :, :3], torch.ones_like(mpi[:, :, 3:4])], dim=2)
-        return mpi
+        """MPI ``[batch, L, 4, R, R]`` from the z of ``seed`` (a
+        ``sampler.mpi`` span: the z draw and the generator)."""
+        with profile_scope("sampler.mpi"):
+            z = torch.randn((batch, self.cfg.train.z_dim),
+                            generator=torch.Generator().manual_seed(seed))
+            mpi = generate_mpi(self.G, z.to(self.device), self.xyz_dict, self.n_planes,
+                               chunk_n_planes=self.chunk, truncation_psi=self.psi,
+                               noise_mode="const")
+            if self.sanity_full_alpha:
+                mpi = torch.cat([mpi[:, :, :3], torch.ones_like(mpi[:, :, 3:4])], dim=2)
+            return mpi
 
     def sample_views(self, seed: int, n_views: int) -> Tuple[torch.Tensor, torch.Tensor]:
         """``[n_views, 1]`` yaws and pitches from the pose distribution."""

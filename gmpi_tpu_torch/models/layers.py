@@ -23,6 +23,7 @@ from gmpi_tpu_torch.ops.bias_act import activation_funcs, bias_act
 from gmpi_tpu_torch.ops.conv2d import conv2d_resample
 from gmpi_tpu_torch.ops.modulated_conv import modulated_conv2d
 from gmpi_tpu_torch.ops.upfirdn2d import setup_filter
+from gmpi_tpu_torch.utils.inspect import profile_scope
 
 FLOATING_EPS = 1e-8
 
@@ -171,9 +172,10 @@ class SynthesisLayer(nn.Module):
             n, share, n_shares = x.shape[0], 0, 1
             if isinstance(generator, BatchShare):
                 share, n_shares, generator = generator.share, generator.n_shares, generator.generator
-            noise = _randn((n * n_shares, 1, self.resolution, self.resolution),
-                           generator)[share * n:(share + 1) * n]
-            noise = noise.to(x.device) * self.noise_strength
+            with profile_scope("host_draw.noise"):
+                noise = _randn((n * n_shares, 1, self.resolution, self.resolution),
+                               generator)[share * n:(share + 1) * n].to(x.device)
+            noise = noise * self.noise_strength
         elif self.use_noise and noise_mode == "const":
             noise = self.noise_const * self.noise_strength
         x = modulated_conv2d(

@@ -54,6 +54,7 @@ from torch.autograd.function import once_differentiable
 
 from gmpi_tpu_torch.ops import _build
 from gmpi_tpu_torch.ops._build import LAUNCHES  # noqa: F401  (launches by kernel; re-exported)
+from gmpi_tpu_torch.utils.inspect import profile_scope
 
 EPS = 1e-10          # composite epsilon (the reference's ``gmpi/core/mpi.py:421``)
 EARLY_OUT_T = 1e-6   # inference: a pixel stops once its transmittance falls below this
@@ -706,9 +707,14 @@ class FusedRender(torch.autograd.Function):
             g_color = torch.zeros((rx.shape[0], 3) + rx.shape[1:], dtype=warped.dtype,
                                   device=warped.device)
         field = lambda g: None if g is None else g[:, 0].to(warped.dtype).contiguous()  # noqa: E731
-        d_samp = composite_bwd(warped, q, scal, g_color.to(warped.dtype).contiguous(),
-                               field(g_depth), field(g_disp), field(g_trans), n_live,
-                               GRAD_TAU if n_live is not None else None)
-        if ctx.adjoint_bands is not None:
-            return (warp_adjoint(d_samp, rx, ry, scal, ctx.adjoint_bands, *ctx.tex_hw),) + none
-        return (warp_splat(d_samp, rx, ry, scal, *ctx.tex_hw, n_live=n_live),) + none
+        # autograd's engine runs this outside the forward's render span (on a card,
+        # in its own thread), so the backward's kernels get a span of their own
+        with profile_scope("render.backward"):
+            d_samp = composite_bwd(warped, q, scal, g_color.to(warped.dtype).contiguous(),
+                                   field(g_depth), field(g_disp), field(g_trans), n_live,
+                                   GRAD_TAU if n_live is not None else None)
+            if ctx.adjoint_bands is not None:
+                d_tex = warp_adjoint(d_samp, rx, ry, scal, ctx.adjoint_bands, *ctx.tex_hw)
+            else:
+                d_tex = warp_splat(d_samp, rx, ry, scal, *ctx.tex_hw, n_live=n_live)
+        return (d_tex,) + none

@@ -43,10 +43,10 @@ from typing import Callable, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
-from torch.profiler import record_function
 
 from gmpi_tpu_torch.ops.grid_sample import _unnormalize
 from gmpi_tpu_torch.ops.patch_gather import gather_patches, gather_patches_ref
+from gmpi_tpu_torch.utils.inspect import profile_scope
 
 PATCH_BACKENDS = ("torch", "cuda")
 
@@ -114,14 +114,14 @@ def _warp_row_tiles(texf, fx_row, fy_row, band_y, band_x, pad_y, pad_x, h, w, c,
     y_lo_c = torch.clamp(y_lo + pad_y, 0, h + 2 * pad_y - band_y)
     x_lo_c = torch.clamp(x_lo + pad_x, 0, w + 2 * pad_x - band_x)
     offs = torch.stack([x_lo_c, y_lo_c * c], dim=-1)  # [N, T, 2] int32, clamped in range
-    with record_function("tiled_warp.patches"):
+    with profile_scope("tiled_warp.patches"):
         if patch_backend == "cuda":
             pm = gather_patches(texf, offs.contiguous(), band_x, band_y * c, validate=False)
         else:
             pm = gather_patches_ref(texf, offs, band_x, band_y * c)
         # [N, T, B_x, B_y*C]
 
-    with record_function("tiled_warp.hats"):
+    with profile_scope("tiled_warp.hats"):
         ty_rel = fy_row.reshape(n, t, p_tile, 1) - (y_lo_c - pad_y).to(fy_row.dtype)[..., None, None]
         tx_rel = fx_row.reshape(n, t, p_tile, 1) - (x_lo_c - pad_x).to(fx_row.dtype)[..., None, None]
         hat_y = _hat(ty_rel, torch.arange(band_y, device=texf.device, dtype=fy_row.dtype))
@@ -130,9 +130,9 @@ def _warp_row_tiles(texf, fx_row, fy_row, band_y, band_x, pad_y, pad_x, h, w, c,
         if compute_dtype is not None:
             # fast mode: operands rounded to compute_dtype (pm already is)
             hat_x, hat_y = hat_x.to(compute_dtype), hat_y.to(compute_dtype)
-    with record_function("tiled_warp.contract_x"):
+    with profile_scope("tiled_warp.contract_x"):
         mixed = torch.matmul(hat_x, pm).float().reshape(n, t, p_tile, band_y, c)
-    with record_function("tiled_warp.contract_y"):
+    with profile_scope("tiled_warp.contract_y"):
         return torch.einsum("ntpy,ntpyc->ntpc", hat_y.float(), mixed)
 
 
@@ -266,10 +266,14 @@ def make_tiled_warp_with_adjoint(band_y: int, band_x: int, adjoint_bands: Tuple[
             atile = (adjoint_tile[0] if th % adjoint_tile[0] == 0 else (8 if th % 8 == 0 else 1),
                      adjoint_tile[1] if tw % adjoint_tile[1] == 0 else
                      (256 if tw % 256 == 0 else 128 if tw % 128 == 0 else tw))
-            d_tex = grid_sample_tiled_adjoint(cot, grid, ctx.tex_shape, pbr, pbc, tile=atile,
-                                              align_corners=align_corners, row_scan=row_scan,
-                                              rows_per_step=adjoint_rows_per_step,
-                                              step_bytes=step_bytes)
+            # autograd's engine runs this outside the forward's render span (on a card,
+            # in its own thread), so the backward's kernels get a span of their own
+            with profile_scope("render.backward"):
+                d_tex = grid_sample_tiled_adjoint(cot, grid, ctx.tex_shape, pbr, pbc,
+                                                  tile=atile, align_corners=align_corners,
+                                                  row_scan=row_scan,
+                                                  rows_per_step=adjoint_rows_per_step,
+                                                  step_bytes=step_bytes)
             return d_tex, None
 
     return TiledWarp.apply

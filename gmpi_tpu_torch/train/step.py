@@ -48,7 +48,9 @@ stay bitwise equal: ``utils.inspect.check_replica_consistency``); metrics
 are averaged likewise.
 
 The parts of a step are named ``train_step.*`` spans of ``torch.profiler``
-(``tools/profile_step.py`` reads them); without a profiler they do nothing.
+(``tools/profile_step.py`` and the benchmark's phase metrics read them), its
+host draws ``host_draw.*`` and its renders ``render.*``
+(``utils.inspect.profile_scope``); without a profiler they do nothing.
 """
 
 from __future__ import annotations
@@ -59,7 +61,6 @@ from typing import Dict, Iterator, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
-from torch.profiler import record_function
 from torch.utils.checkpoint import checkpoint
 
 from gmpi_tpu_torch.config import ExperimentConfig
@@ -79,6 +80,7 @@ from gmpi_tpu_torch.parallel import render as parallel_render
 from gmpi_tpu_torch.train.losses import d_gan_loss, g_gan_loss, r1_penalty
 from gmpi_tpu_torch.utils.device import resolve_device
 from gmpi_tpu_torch.utils.img import edge_aware_smooth_loss
+from gmpi_tpu_torch.utils.inspect import profile_scope
 
 
 @dataclasses.dataclass
@@ -371,10 +373,11 @@ class TrainStep:
         return yaws, pitches
 
     def _sample_z(self, generator: Optional[torch.Generator], n: int) -> torch.Tensor:
-        z = torch.randn((n * self.n_data, self.cfg.train.z_dim), generator=generator)
-        if self.n_data > 1:
-            z = z[self._data_share(n)]
-        return z.to(self.device)
+        with profile_scope("host_draw.z"):
+            z = torch.randn((n * self.n_data, self.cfg.train.z_dim), generator=generator)
+            if self.n_data > 1:
+                z = z[self._data_share(n)]
+            return z.to(self.device)
 
     # -- the two losses -----------------------------------------------------------
 
@@ -408,7 +411,7 @@ class TrainStep:
         mbs = z.shape[0] // split
         for s in range(split):
             sl = slice(s * mbs, (s + 1) * mbs)
-            with record_function("train_step.g_forward"):
+            with profile_scope("train_step.g_forward"):
                 mpi = self.synth(state.G, z[sl], generator, noise_mode)
                 mpi = self.maybe_light(mpi, state.step, generator)
                 imgs, flat_pose, depth = self.render_views(mpi, yaws[sl], pitches[sl])
@@ -439,7 +442,7 @@ class TrainStep:
         d_split = split if (t.d_batch_split and bs % split == 0) else 1
         mbs = bs // d_split
         fakes, fake_poses = [], []
-        with torch.no_grad(), record_function("train_step.d_fakes"):
+        with torch.no_grad(), profile_scope("train_step.d_fakes"):
             for s in range(d_split):
                 sl = slice(s * mbs, (s + 1) * mbs)
                 mpi = self.maybe_light(self.synth(state.G, z[sl], generator), state.step,
@@ -451,18 +454,18 @@ class TrainStep:
         fake_pose = None if fake_poses[0] is None else torch.cat(fake_poses)
 
         state.D.zero_grad(set_to_none=True)
-        with record_function("train_step.d_loss"):
+        with profile_scope("train_step.d_loss"):
             loss_real, loss_fake, r1 = self.d_loss_terms(state, real_imgs, real_pose, fake_imgs,
                                                          fake_pose)
             d_loss = loss_real + loss_fake + r1
-        with record_function("train_step.d_backward"):
+        with profile_scope("train_step.d_backward"):
             d_loss.backward()
             mesh_mod.average_gradients(list(state.D.parameters()), self.world)
         metrics = {"d_loss": d_loss.detach(), "d_loss_real": loss_real.detach(),
                    "d_loss_fake": loss_fake.detach(), "r1": r1.detach()}
         grads = _grads(state.D) if self.return_grads else None
         if t.train_d:  # a frozen D reports its losses and takes no update
-            with record_function("train_step.d_update"):
+            with profile_scope("train_step.d_update"):
                 torch.nn.utils.clip_grad_norm_(state.D.parameters(), t.grad_clip)
                 state.opt_d.step()
         state.D.zero_grad(set_to_none=True)
@@ -489,7 +492,7 @@ class TrainStep:
         t = self.cfg.train
         z = self._sample_z(generator, bs)
         if t.n_view_per_z > 1 and t.select_worst_view:
-            with record_function("train_step.worst_views"):
+            with profile_scope("train_step.worst_views"):
                 yaws, pitches = self.worst_views(state, z, generator)
         else:
             yaws, pitches = self.sample_views(generator, bs)
@@ -499,14 +502,14 @@ class TrainStep:
         try:
             g_loss = 0.0
             for loss in self._g_micro_losses(state, z, yaws, pitches, generator, "random"):
-                with record_function("train_step.g_backward"):
+                with profile_scope("train_step.g_backward"):
                     loss.backward()  # one micro-batch's graph alive at a time
                 g_loss = g_loss + loss.detach()
         finally:
             state.D.requires_grad_(True)
         mesh_mod.average_gradients(list(state.G.parameters()), self.world)
         grads = _grads(state.G) if self.return_grads else None
-        with record_function("train_step.g_update"):
+        with profile_scope("train_step.g_update"):
             for group in state.opt_g.param_groups:  # each group clips by its own norm
                 torch.nn.utils.clip_grad_norm_(group["params"], t.grad_clip)
             state.opt_g.step()

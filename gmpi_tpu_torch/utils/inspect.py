@@ -5,8 +5,7 @@ the reference's ``misc`` toolbox, ``gmpi/models/torch_utils/misc.py``):
 * :func:`param_summary` / :func:`print_param_summary` -- the module table
   (``misc.print_module_summary``, ``misc.py:196-264``);
 * :func:`profile_scope` -- a named ``torch.profiler`` span
-  (``misc.profiled_function``);
-* :func:`trace` -- a ``torch.profiler`` run that writes a Chrome trace;
+  (``misc.profiled_function``), the port's one span helper;
 * :func:`check_replica_consistency` -- replicated tensors equal on every rank
   (``misc.check_ddp_consistency``).
 """
@@ -14,12 +13,12 @@ the reference's ``misc`` toolbox, ``gmpi/models/torch_utils/misc.py``):
 from __future__ import annotations
 
 import contextlib
-import os
 from typing import Mapping, Optional, Sequence, Tuple, Union
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
 import torch.distributed as dist
-from torch.profiler import ProfilerActivity, profile, record_function
+from torch.profiler import record_function
 
 
 def assert_shape(x, shape: Sequence[Optional[int]]) -> None:
@@ -73,25 +72,20 @@ def print_param_summary(tree: Union[torch.nn.Module, Mapping], prefix: str = "",
     return total
 
 
-@contextlib.contextmanager
+# what a span is while no profiler runs: one shared context that does nothing
+_NO_SPAN = contextlib.nullcontext()
+
+
 def profile_scope(name: str):
-    """A span named ``name`` in ``torch.profiler`` traces; without a
-    profiler it does nothing."""
-    with record_function(name):
-        yield
-
-
-@contextlib.contextmanager
-def trace(log_dir: str):
-    """Profile the block (host and, with a card, device activity) and write
-    its Chrome trace to ``log_dir/trace.json``; yields the profiler."""
-    os.makedirs(log_dir, exist_ok=True)
-    activities = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(ProfilerActivity.CUDA)
-    with profile(activities=activities) as prof:
-        yield prof
-    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+    """A span named ``name`` in ``torch.profiler`` traces (a
+    ``record_function``, on the profiler's clock with the device's kernels);
+    while no profiler runs, a shared context that does nothing, so a span
+    costs one flag read (the flag ``torch.autograd.profiler`` keeps for the
+    whole process while a profiler runs, so a span opened on autograd's
+    thread is seen too).  ``with profile_scope("layer.part"): ...``"""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _NO_SPAN
+    return record_function(name)
 
 
 def check_replica_consistency(tensors_or_module: Union[torch.nn.Module, Mapping, Sequence],

@@ -2,9 +2,6 @@
 the toy-MPI builders bitwise, the roofline model exactly, and the registry,
 colour, range and inspection helpers."""
 
-import json
-import os
-
 import numpy as np
 import pytest
 import torch
@@ -130,11 +127,13 @@ def test_assert_shape_and_print_param_summary(capsys):
     assert "1 more entries" in mine
 
 
-def test_profile_scope_and_trace(tmp_path):
-    log_dir = str(tmp_path / "trace")
-    with inspect.trace(log_dir):
+def test_profile_scope_and_trace():
+    """A span in a ``torch.profiler`` trace while a profiler runs; without
+    one, a shared context that does nothing."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
         with inspect.profile_scope("port.test_span"):
             torch.ones(8).sum()
-    with open(os.path.join(log_dir, "trace.json")) as f:
-        events = json.load(f)["traceEvents"]
-    assert any(e.get("name") == "port.test_span" for e in events)
+    assert any(e.name == "port.test_span" for e in prof.events())
+    assert inspect.profile_scope("port.test_span") is inspect.profile_scope("other")
