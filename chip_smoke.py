@@ -73,19 +73,24 @@ Phases, each of which raises on failure (nonzero exit, no result line):
    that path's inputs (and in 13b at the 1024^2 route's): in fp32 and on a
    bf16 copy of the texture, one launch a pair and 10 queued, with the kernel
    path each took, beside its plain version, the advanced index and its
-   bound;
+   bound; so is the tap sampler (K8), against its plain version (1e-4 of
+   max), one launch a pair and 10 queued, beside its plain version, its byte
+   bound and the tile-row step it replaced (K7 and the hat contractions
+   against K7 and K8 on the same inputs);
 6. banded serving path — ``FakeImageGenerator(use_fused=False)`` (on a card
-   its patches come through the patch-gather kernel) renders the 96-plane MPIs
+   its patches come through the patch-gather kernel and its taps through the
+   tap kernel) renders the 96-plane MPIs
    of phase 3's seeds, 4 views each, through
    ``render_mpi(tiled_bands=bands_for_config(...))``: all 384 textures in one
-   call, in texture groups and tile-row steps that keep the live hats under
+   call, in texture groups and tile-row steps that keep the live patches under
    ``renderer.TILED_STEP_BYTES``; then the last MPI through
    ``render_mpi_chunked`` in slabs of 24 planes, twice.  Launch counts are
-   reset just before and read just after: one patch-gather launch per call of
-   the tiled warp's tile-row step, nothing else.  Every render must match the gather
+   reset just before and read just after: one patch-gather and one
+   tap-sampler launch per call of the tiled warp's tile-row step, nothing
+   else.  Every render must match the gather
    renderer within 5e-4 and ``bands_cover`` must hold at the sampled poses.
-   One render is profiled by the tiled warp's spans (patches, hats, the two
-   contractions) beside the fused and gather renders of the same MPI;
+   One render is profiled by the tiled warp's spans (patches, sample) beside
+   the fused and gather renders of the same MPI;
 7. adjoint route at the training shapes (it runs right after phase 4, whose
    MPIs and cotangent it reuses) — ``render_mpi_fused(plans=plan_fused(...
    corner poses))`` forward and backward on the 8 MPIs of 32 planes: one
@@ -116,8 +121,8 @@ Phases, each of which raises on failure (nonzero exit, no result line):
    equal; ``prepare_fake`` once more with ``--fused_renderer``, whose PNGs
    must be within 1 level of the banded run's.  Launch counts are reset
    before and read after each ``prepare_fake_images`` call: fused, one
-   forward launch an image; banded, one patch-gather launch a tile-row step;
-   nothing else.  The Inception features on the card against a CPU copy of
+   forward launch an image; banded, one patch-gather and one tap-sampler
+   launch a tile-row step; nothing else.  The Inception features on the card against a CPU copy of
    the module (8 images, 1e-4 of max|CPU|); then Inception ms an image at
    batch 32 over 2048 random 256^2 images, ``frechet_distance`` seconds at
    2048 features, and ``train_gmpi_torch.main`` for 2 steps with the
@@ -192,8 +197,9 @@ Phases, each of which raises on failure (nonzero exit, no result line):
    ``tests/test_tpu_full_scale.py``: uniform rgba of 96 planes at 1024^2 and
    a normal cotangent at the JAX bench pose and a +2 sigma corner, the fused
    renderer (5e-4 of max|oracle|; bf16 textures 2e-2) and the banded route
-   through K7 (5e-4), forward and ``rgba`` gradient, against
-   ``render_mpi_chunked(plane_chunk=4)``, and K7 at that route's inputs;
+   through K7 and K8 (5e-4), forward and ``rgba`` gradient, against
+   ``render_mpi_chunked(plane_chunk=4)``, and K7 and K8 at that route's
+   inputs;
    (c) ``FakeImageGenerator`` at FFHQ1024: 2 seeds of 96-plane MPIs, 4 views
    each, one K1 a render call, the last render against the gather
    renderer, K1 timed at its inputs; (d) ``make_train_step`` on the FFHQ1024
@@ -224,15 +230,15 @@ Phases, each of which raises on failure (nonzero exit, no result line):
    at the presets' settings from noise PNGs in a zip: 1 step, resumed to 2,
    each step's D and G phases timed and its peak memory read by span (D
    phase, G before worst views, worst views, G after them); launches reset
-   before and read after: one patch gather a tile-row step, nothing else;
-   K7 equal to its plain version on the first inputs of each shape that the
+   before and read after: one patch gather and one tap sampler a tile-row
+   step, nothing else; K7 equal to its plain version on the first inputs of each shape that the
    steps hand it (worst-view groups, D- and G-phase renders); metrics
    finite, every G and D parameter moved from the initial weights, a G
    micro-batch's ``rgba`` gradient through the step's banded render within
    1e-3 of max of the gather renderer's; (c) ``eval_gmpi_torch.main --task
    prepare_fake``, banded (eval's default), on the FFHQ1024 banded
    checkpoint and on the MetFaces checkpoint of (d), 4 fakes each: the
-   planning timed on the card, one patch gather a tile-row step, K7 equal
+   planning timed on the card, one K7 and one K8 a tile-row step, K7 equal
    to its plain version and the render within 5e-4 of the gather renderer
    on the run's own last inputs; then ``--task prepare_real`` of the
    training PNGs and ``--task fid_kid`` between them and the banded fakes
@@ -878,6 +884,77 @@ def patch_gather_at(pg, texf, offs, band_x, band_yc, rates, card, label):
     return {**record.pop("float32"), **record}
 
 
+def patch_sample_at(tw, gather_args, sample_args, rates, card, label):
+    """The tap sampler (K8) at a path's inputs (its last tile-row step's
+    patches, band starts and coordinates): against its plain version (1e-4 of
+    max|plain| over the step's pixels), then timed (one launch per event pair
+    with the wrapper's host work, and 10 queued) beside its plain version and
+    its byte bound: the coordinates read, each tap texel that the step's
+    pixels touch read once, the samples written.  The yardstick is the step
+    it replaced: the tile-row step on the same inputs through K7 and the hat
+    contractions, against K7 and K8, on as many of the step's textures as
+    the contractions' step budget (``renderer.TILED_STEP_BYTES``) held.
+    Returns the record; raises on a difference."""
+    from gmpi_tpu_torch.core import renderer as renderer_mod
+    from gmpi_tpu_torch.ops import patch_sample as ps
+
+    texf, _, band_x, band_yc = gather_args
+    pm, offs, fx, fy, pad, tile, out, first_tile = sample_args
+    n, t = pm.shape[:2]
+    c, ho, wo = out.shape[1:]
+    band_y, (pad_y, pad_x) = band_yc // c, pad
+    oy, ox = ps._tile_pixels(offs, ho, wo, tile, first_tile)
+    rows, cols = oy[:, :, None], ox[:, None, :]
+    buf = torch.zeros_like(out)  # the path's own output may be a view made under no_grad
+    got = ps.sample_patches(pm, offs, fx, fy, pad, tile, torch.zeros_like(out), first_tile)
+    ref = ps.sample_patches_ref(pm, offs, fx, fy, pad, tile, torch.zeros_like(out), first_tile)
+    torch.cuda.synchronize()
+    err = rel_err(got[:, :, rows, cols], ref[:, :, rows, cols])
+    if not err <= TOL:  # also catches NaN
+        raise RuntimeError(f"patch_sample disagrees with its plain version at {label}: {err}")
+
+    # the tap texels the step's pixels touch, each counted once
+    rx = fx[:, rows, cols] - (offs[..., 0].long() - pad_x)[..., None, None]
+    ry = fy[:, rows, cols] - (offs[..., 1].long() // c - pad_y)[..., None, None]
+    j0, i0 = torch.floor(rx).long(), torch.floor(ry).long()
+    patch = torch.arange(n * t, device=pm.device).reshape(n, t, 1, 1)
+    keys = []
+    for dj in (0, 1):
+        for di in (0, 1):
+            j, i = j0 + dj, i0 + di
+            inside = (j >= 0) & (j < band_x) & (i >= 0) & (i < band_y)
+            keys.append(((patch * band_x + j) * band_y + i)[inside])
+    n_taps = int(torch.unique(torch.cat(keys)).numel())
+    pixels = n * t * tile[0] * tile[1]
+    n_bytes = (n_taps * c + pixels * (2 + c)) * 4 + offs.numel() * 4
+    del rx, ry, j0, i0, keys, got, ref
+    b = bound(n_bytes, 0, rates)
+    run = lambda: ps.sample_patches(pm, offs, fx, fy, pad, tile, buf, first_tile)  # noqa: E731
+    ms, queued_ms = time_ms(run), time_ms(run, queued=10)
+    plain_ms = time_ms(lambda: ps.sample_patches_ref(pm, offs, fx, fy, pad, tile, buf,
+                                                     first_tile), iters=5, warmup=1)
+    # the whole step each way, on the textures one step of the contractions held
+    hats_row = 4 * tile[0] * wo * (band_x + band_y + band_y * c)
+    k = max(1, min(n, renderer_mod.TILED_STEP_BYTES // (t // (wo // tile[1]) * hats_row)))
+    h, w = texf.shape[2] // c - 2 * pad_y, texf.shape[1] - 2 * pad_x
+    fx_k, fy_k = fx[:k, rows, cols], fy[:k, rows, cols]
+    step = lambda into: tw._warp_row_tiles(  # noqa: E731
+        texf[:k], fx_k, fy_k, band_y, band_x, pad_y, pad_x, h, w, c, "cuda", None, into)
+    with torch.no_grad():
+        step_ms = time_ms(lambda: step((buf[:k], fx[:k], fy[:k], first_tile)), iters=5)
+        hats_ms = time_ms(lambda: step(None), iters=5, warmup=1)
+    log(f"patch_sample at {label} ({n} x {t} patches of {band_x} x {band_yc}, {pixels} "
+        f"pixels of {c} channels, tile {tuple(tile)}): {err:.2e} of max from its plain "
+        f"version; {ms:.4f} ms, queued {queued_ms:.4f} ms, plain {plain_ms:.3f} ms; needs "
+        f"{n_bytes} B ({n_taps} tap texels); bound {b[0]:.5f} ms ({b[0] / queued_ms:.0%} of it "
+        f"queued, {b[0] / ms:.0%} one launch a pair); the tile-row step on {k} textures: K7 "
+        f"and K8 {step_ms:.3f} ms, K7 and the hat contractions {hats_ms:.3f} ms ({card})")
+    torch.cuda.empty_cache()
+    return {"ms": ms, "queued_ms": queued_ms, "plain_ms": plain_ms, "bound_ms": b[0],
+            "bound_by": b[1], "bytes": n_bytes, "tap_texels": n_taps, "max_rel_err": err,
+            "step_textures": k, "step_ms": step_ms, "hats_step_ms": hats_ms}
+
+
 # K7 at the edges of its design: (label, n, t, wp, hpc, band_x, band_yc, dtype, start step in
 # elements, tweak).  Starts are drawn on the step; a start 4 elements past 8 is a bf16 start
 # 8 bytes off the TMA's 16; "clamp" hands starts outside the texture with validate=False.
@@ -1394,7 +1471,7 @@ def eval_phase(fr, tw, pg, cfg, card, dev, tmp):
     if not all(a == b for a, b in repeat.values()):
         raise RuntimeError(f"the second eval run differs: {repeat}")
 
-    # launches by task: fused, one K1 a render call; banded, one K7 a tile-row step
+    # launches by task: fused, one K1 a render call; banded, one K7 and one K8 a tile-row step
     by_task = {}
     for t in tasks:
         renders = t["n_imgs"]  # one render call an image (its views in one call)
@@ -1402,7 +1479,7 @@ def eval_phase(fr, tw, pg, cfg, card, dev, tmp):
         if t["fused"]:
             want["fused_fwd"] = renders
         else:
-            want["patch_gather"] = t["row_steps"]
+            want["patch_gather"] = want["patch_sample"] = t["row_steps"]
         label = f"{t['task']} {t['size']}^2 {'fused' if t['fused'] else 'banded'}"  # label_of
         log(f"prepare_fake_images [{label}]: {t['n_imgs']} images in {t['seconds']:.2f} s, "
             f"{t['n_imgs'] / t['seconds']:.2f} images/s; {t['row_steps']} tile-row steps, "
@@ -2731,15 +2808,19 @@ def full_scale_checks(fr, tw, pg, cfg, rates, card, dev):
     log(f"tile bands for {n_l} planes at {res}^2: {bands} in {bands_s:.1f} s (planned on "
         f"{dev})")
     kept = {}
-    gather = tw.gather_patches
+    gather, sample = tw.gather_patches, tw.sample_patches
 
     def recorded_gather(texf, offs, band_x, band_yc, **kw):
         kept["gather"] = (texf, offs, band_x, band_yc)
         return gather(texf, offs, band_x, band_yc, **kw)
 
+    def recorded_sample(*args):
+        kept["sample"] = args
+        return sample(*args)
+
     record = {"bands": list(bands), "bands_s": bands_s, "poses": {}}
     gates = {"fused": 5e-4, "fused bf16": FULL_SCALE_BF16_GATE, "banded": 5e-4}
-    tw.gather_patches = recorded_gather
+    tw.gather_patches, tw.sample_patches = recorded_gather, recorded_sample
     try:
         for yaw, pitch in FULL_SCALE_POSES:
             geom, rays = preset_rays(cfg, n_l, torch.tensor([[yaw]]), torch.tensor([[pitch]]),
@@ -2785,7 +2866,8 @@ def full_scale_checks(fr, tw, pg, cfg, rates, card, dev):
                 if not (err_c <= gates[name] and err_g <= gates[name]):  # also catches NaN
                     raise RuntimeError(f"full scale [{name}] disagrees with the chunked gather")
                 want = {**dict.fromkeys(fr.LAUNCHES, 0),
-                        **({"patch_gather": launches["patch_gather"]} if name == "banded" else
+                        **({"patch_gather": launches["patch_gather"],
+                            "patch_sample": launches["patch_gather"]} if name == "banded" else
                            {"fused_fwd": 1, "composite_bwd": 1, "splat": 1})}
                 if launches != want or (name == "banded" and not launches["patch_gather"]):
                     raise RuntimeError(f"full scale [{name}] launched {launches}")
@@ -2795,9 +2877,11 @@ def full_scale_checks(fr, tw, pg, cfg, rates, card, dev):
             del oracle, exact, color, grad
             torch.cuda.empty_cache()
     finally:
-        tw.gather_patches = gather
+        tw.gather_patches, tw.sample_patches = gather, sample
 
-    # K7 at the banded route's own inputs (its last tile-row step)
+    # K8 and K7 at the banded route's own inputs (its last tile-row step)
+    record["patch_sample"] = patch_sample_at(tw, kept["gather"], kept.pop("sample"), rates, card,
+                                             "the full-scale banded route's inputs")
     record["patch_gather"] = patch_gather_at(pg, *kept.pop("gather"), rates, card,
                                              "the full-scale banded route's inputs")
     return record
@@ -3096,8 +3180,8 @@ def prepare_fake_routes(fr, tw, pg, label, cfg, ckpt_dir, routes, tmp, card, dev
     at ``cfg``'s eval planes from the checkpoint in ``ckpt_dir``, by each of
     ``routes`` (``"banded"``, the default, and ``"fused"``,
     ``--fused_renderer``), into ``tmp/<label> <route>``.  Launches are reset
-    before and read after each call: banded, one patch gather a tile-row
-    step; fused, one forward an image; nothing else.  The banded generator's
+    before and read after each call: banded, one patch gather and one tap
+    sampler a tile-row step; fused, one forward an image; nothing else.  The banded generator's
     planning (``bands_for_config`` on the card) is timed apart.  On the banded
     run's own last inputs K7 must equal its plain version and the banded
     render be within 5e-4 of the gather renderer; with both routes the dumps
@@ -3149,8 +3233,8 @@ def prepare_fake_routes(fr, tw, pg, label, cfg, ckpt_dir, routes, tmp, card, dev
             eval_s[route] = time.perf_counter() - t0
             launches[route] = read_counts(fr)
             want = {**dict.fromkeys(fr.LAUNCHES, 0),
-                    **({"patch_gather": row_steps["n"]} if route == "banded" else
-                       {"fused_fwd": PRESET_FAKES})}
+                    **({"patch_gather": row_steps["n"], "patch_sample": row_steps["n"]}
+                       if route == "banded" else {"fused_fwd": PRESET_FAKES})}
             if launches[route] != want or (route == "banded" and not row_steps["n"]):
                 raise RuntimeError(f"{label}: {cfg.name} prepare_fake [{route}] launched "
                                    f"{launches[route]}, expected {want}")
@@ -3371,7 +3455,8 @@ def presets_phase(fr, tw, pg, card, rates, dev):
                "adjoint": {"ms": k["adj"], "queued_ms": k["adj_queued"], "plain_ms": k["adj_plain"],
                            "library_ms": k["splat_lib"], "bound_ms": k["bounds"]["adjoint"][0],
                            "bound_by": k["bounds"]["adjoint"][1]},
-               "patch_gather": full.pop("patch_gather")}
+               "patch_gather": full.pop("patch_gather"),
+               "patch_sample": full.pop("patch_sample")}
     for kname, t in timings.items():
         t["launches"] = sum(path.get(kname, 0) for path in paths)
     record = {"full_scale": full, "serving": serving, "training": training,
@@ -3467,8 +3552,8 @@ def banded_training(fr, tw, pg, card, dev, tmp, name):
     noise PNGs in a zip, ``BANDED_LOOP_STEPS[0]`` steps, resumed to
     ``BANDED_LOOP_STEPS[1]``, with each step's D and G phases timed and
     peaks read by span (``phases_timed``).  Launches are reset before and read
-    after both runs: one patch gather a tile-row step of the tiled warp,
-    nothing else.  In each of the step's D phase, worst-view selection and
+    after both runs: one patch gather and one tap sampler a tile-row step
+    of the tiled warp, nothing else.  In each of the step's D phase, worst-view selection and
     G phase, the first K7 call of each input shape (texture group, offsets,
     bands) is held exactly against ``gather_patches_ref`` on the same inputs,
     in the step (a transient copy of that call's patches, once a key).
@@ -3541,7 +3626,8 @@ def banded_training(fr, tw, pg, card, dev, tmp, name):
         for k, fn in step_spans.items():
             setattr(TrainStep, k, fn)
     launches = read_counts(fr)
-    want = {**dict.fromkeys(fr.LAUNCHES, 0), "patch_gather": row_steps["n"]}
+    want = {**dict.fromkeys(fr.LAUNCHES, 0), "patch_gather": row_steps["n"],
+            "patch_sample": row_steps["n"]}
     if launches != want or not row_steps["n"]:
         raise RuntimeError(f"the {name} banded train CLI launched {launches}, expected {want}")
     k7_shapes = [f"{k[0]}: {k[1]} at {k[2][:2]} offsets -> {k[3]}x{k[4]}" for k in k7_equal]
@@ -4140,8 +4226,9 @@ def main() -> int:
     gen_b = FakeImageGenerator(cfg, gen_module, use_fused=False, device=dev)
     if gen_b.tiled_bands != tiled_bands:
         raise RuntimeError(f"the harness planned {gen_b.tiled_bands}, expected {tiled_bands}")
-    calls = {"row_steps": 0, "gather_args": None}
-    warp_row_tiles, gather_patches = tw._warp_row_tiles, tw.gather_patches
+    calls = {"row_steps": 0, "gather_args": None, "sample_args": None}
+    warp_row_tiles, gather_patches, sample_patches = (tw._warp_row_tiles, tw.gather_patches,
+                                                      tw.sample_patches)
 
     def counted_row_step(*args, **kw):
         calls["row_steps"] += 1
@@ -4151,7 +4238,12 @@ def main() -> int:
         calls["gather_args"] = (texf, offs, band_x, band_yc)
         return gather_patches(texf, offs, band_x, band_yc, **kw)
 
+    def recorded_sample(*args):
+        calls["sample_args"] = args
+        return sample_patches(*args)
+
     tw._warp_row_tiles, tw.gather_patches = counted_row_step, recorded_gather
+    tw.sample_patches = recorded_sample
     banded_ms, errs_b = [], []
     torch.cuda.reset_peak_memory_stats()
     reset_counts(fr)
@@ -4179,6 +4271,7 @@ def main() -> int:
         banded_launches = read_counts(fr)
     finally:
         tw._warp_row_tiles, tw.gather_patches = warp_row_tiles, gather_patches
+        tw.sample_patches = sample_patches
     err_chunk = max(float((a - b).abs().max()) for a, b in zip(chunked, gather))
     per_plane = lambda x: x[:, None].expand(n_views, n_planes, *x.shape[1:]).reshape(  # noqa: E731
         n_views * n_planes, *x.shape[1:])
@@ -4187,11 +4280,12 @@ def main() -> int:
     covered = bool(tw.bands_cover((n_views * n_planes, 4, res, res), grid, band_y, band_x,
                                   tile=(8, res)))
     del grid
-    expected = {**dict.fromkeys(fr.LAUNCHES, 0), "patch_gather": calls["row_steps"]}
+    expected = {**dict.fromkeys(fr.LAUNCHES, 0), "patch_gather": calls["row_steps"],
+                "patch_sample": calls["row_steps"]}
     log(f"banded serving path: {len(seeds)} seeds x {n_views} views x {n_planes} planes in one "
         f"call each (textures and tile rows in steps under "
         f"{renderer_mod.TILED_STEP_BYTES / 2 ** 30:.0f} GiB "
-        f"of hats), then two renders in slabs of 24 planes; {calls['row_steps']} tile-row steps, "
+        f"of patches), then two renders in slabs of 24 planes; {calls['row_steps']} tile-row steps, "
         f"launches {banded_launches}")
     log(f"banded render vs gather renderer: {['%.2e' % e for e in errs_b]}, chunked {err_chunk:.2e} "
         f"(gate 5e-4); bands cover the sampled poses: {covered}")
@@ -4205,8 +4299,11 @@ def main() -> int:
     if not covered:
         raise RuntimeError("the planned bands do not cover the sampled poses")
 
-    # the patch gather at this path's inputs (the last tile-row step's texture and offsets)
+    # the tap sampler and the patch gather at this path's inputs (the last tile-row step's)
+    k8 = patch_sample_at(tw, calls["gather_args"], calls.pop("sample_args"), rates, card,
+                         "the path's inputs")
     k7 = patch_gather_at(pg, *calls.pop("gather_args"), rates, card, "the path's inputs")
+    max_err["patch_sample"] = k8["max_rel_err"]
 
     # where the banded render's time goes: one call under the profiler, by the tiled
     # warp's spans; beside it the fused and the gather render of the same MPI
@@ -4226,7 +4323,7 @@ def main() -> int:
                   if span.time_range.start <= e.time_range.start < span.time_range.end]
         banded_spans[span.name] = banded_spans.get(span.name, 0.0) + busy_ms(inside)
     banded_busy = busy_ms(kernels)
-    banded_spans["other (pad, layout, composite)"] = banded_busy - sum(banded_spans.values())
+    banded_spans["other (pad, band starts, composite)"] = banded_busy - sum(banded_spans.values())
     with torch.no_grad():
         t_banded = time_ms(lambda: gen_b.render(mpi_v, yv, pv), iters=5, warmup=1)
         t_fused_same = time_ms(lambda: render_mpi_fused(mpi_v, geom.dhw, ray_dir, eye, z_dir))
@@ -4286,6 +4383,8 @@ def main() -> int:
     presets, preset_paths, preset_errs, at_1024 = presets_phase(fr, tw, pg, card, rates, dev)
     for kname, e in preset_errs.items():
         max_err[kname] = worse(max_err[kname], e)
+    max_err["patch_sample"] = worse(max_err["patch_sample"],
+                                    at_1024["patch_sample"]["max_rel_err"])
     phase_s["13"] = sum(presets["seconds"].values())
     log(f"phase 13: {phase_s['13']:.1f} s; the run so far {time.perf_counter() - t_start:.1f} s")
 
@@ -4313,7 +4412,7 @@ def main() -> int:
     def entry(kname, line, ms, plain_ms, b, library_ms, replaces="gmpi_tpu/ops/pallas_warp.py",
               **extra):
         return {"name": kname, "route": "cuda", "source": f"gmpi_tpu_torch/csrc/{kname}.cu",
-                "replaces": f"{replaces}:{line}",
+                "replaces": replaces if line is None else f"{replaces}:{line}",
                 "launches": sum(path[kname] for path in main_paths),
                 "max_abs_err": max_err[kname], "err_scale": "max|plain| per field", "ms": ms,
                 "plain_ms": plain_ms, "bound_ms": b[0], "bound_by": b[1],
@@ -4346,6 +4445,10 @@ def main() -> int:
               queued_ms=k7["queued_ms"], path=k7["path"], geometry=k7["geometry"],
               bf16=k7["bfloat16"], launches_by_path=k7_paths,
               edge_paths=k7_edges),
+        entry("patch_sample", None, k8["ms"], k8["plain_ms"], (k8["bound_ms"], k8["bound_by"]),
+              None, replaces="none (the hats and contractions of gmpi_tpu/ops/tiled_warp.py)",
+              queued_ms=k8["queued_ms"], bytes=k8["bytes"], step_ms=k8["step_ms"],
+              hats_step_ms=k8["hats_step_ms"], step_textures=k8["step_textures"]),
     ], "train_steps": n_steps, "train_step_ms": statistics.median(timed),
         "banded_render_ms": t_banded, "banded_spans_ms": banded_spans,
         "banded_same_mpi_fused_ms": t_fused_same, "banded_same_mpi_gather_ms": t_gather_same,

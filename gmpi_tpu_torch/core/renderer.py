@@ -9,8 +9,9 @@ Three paths with the reference renderer's semantics:
 * the banded path, :func:`render_mpi` / :func:`render_mpi_chunked` with
   ``tiled_bands``: the same render with the sampling done by the tile-banded
   warp of ``gmpi_tpu_torch.ops.tiled_warp`` (``patch_backend="cuda"`` takes
-  its patches through the patch-gather kernel); 4-field bands add the
-  scatter-free tiled adjoint as the warp's backward;
+  its patches through the patch-gather kernel and its taps through the tap
+  kernel); 4-field bands add the scatter-free tiled adjoint as the warp's
+  backward;
 * the fused path, :func:`render_mpi_fused`: the warp+composite kernel of
   ``gmpi_tpu_torch.ops.fused_render`` and, under autograd, its backward
   kernels behind ``FusedRender`` (composite backward, then the splat or,
@@ -43,7 +44,9 @@ from gmpi_tpu_torch.utils.inspect import profile_scope
 
 ALIGN_CORNERS_FALSE_NARROW_SCALE = 0.95
 COMPOSITE_EPS = 1e-10
-TILED_STEP_BYTES = 4 * 2 ** 30  # hats and mixed products alive in one step of the banded warp
+# what one step of the banded warp holds: its patches on the tap kernel's route, else its
+# hats and mixed products
+TILED_STEP_BYTES = 4 * 2 ** 30
 
 
 class RenderOutput(NamedTuple):
@@ -88,8 +91,9 @@ def _sample(rgba, grid, align_corners, tiled_bands, patch_backend="torch"):
             256 if w % 256 == 0 else 128 if w % 128 == 0 else w)
     # tile rows a step as the JAX package takes them (~64 steps at large
     # sizes); the warp and its adjoint cut the rows and group the textures
-    # further to keep a step's hats and mixed products under TILED_STEP_BYTES
-    # (a served MPI of 96 planes in 4 views holds ~45 GB of them at 256^2)
+    # further to keep what a step holds under TILED_STEP_BYTES (a served MPI of
+    # 96 planes in 4 views holds ~45 GB of hats and mixed products at 256^2,
+    # 7 GB of patches)
     nty = h // tile[0]
     row_scan = nty > 32
     rows_per_step = max(1, nty // 64) if row_scan else 1

@@ -30,7 +30,8 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "gmpi_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # kernel launches by kernel (the stem of its csrc/<name>.cu)
-LAUNCHES = {"fused_fwd": 0, "composite_bwd": 0, "splat": 0, "adjoint": 0, "patch_gather": 0}
+LAUNCHES = {"fused_fwd": 0, "composite_bwd": 0, "splat": 0, "adjoint": 0, "patch_gather": 0,
+            "patch_sample": 0}
 
 
 class Built(NamedTuple):

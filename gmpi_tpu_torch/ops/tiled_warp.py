@@ -1,4 +1,4 @@
-"""Tile-banded warp: bilinear grid sampling as dense algebra (port of
+"""Tile-banded warp: bilinear grid sampling through texture bands (port of
 ``gmpi_tpu/ops/tiled_warp.py``).
 
 The formulation exploits the smoothness of homography warps: within an output
@@ -7,34 +7,33 @@ texture band.  Per tile:
 
 1. slice one contiguous texture patch ``[B_x, B_y * C]`` (the patch gather:
    ``patch_backend="torch"`` is one advanced index, ``"cuda"`` the
-   hand-written kernel of ``ops/patch_gather.py``);
-2. build bilinear *hat* weights against the patch grid,
-   ``hat_x[p, j] = relu(1 - |tx_p - (x_lo + j)|)`` (two nonzeros per row, and
-   exactly zero for out-of-patch taps, which reproduces
-   ``padding_mode="zeros"`` on the zero-padded texture);
-3. interpolate with two contractions: ``M[p, (y, c)] = hat_x[p, :] @
-   patch[:, (y, c)]``, then ``out[p, c] = sum_y hat_y[p, y] M[p, y, c]``.
+   hand-written kernel of ``ops/patch_gather.py``, K7);
+2. interpolate each pixel from the patch.  ``patch_backend="cuda"`` reads
+   the pixel's four taps straight from the patch (the hand-written kernel of
+   ``ops/patch_sample.py``, K8).  ``"torch"``, the differentiable plain
+   route the JAX package takes, builds bilinear *hat* weights against the
+   patch grid, ``hat_x[p, j] = relu(1 - |tx_p - (x_lo + j)|)`` (two nonzeros
+   per row), and contracts them: ``M[p, (y, c)] = hat_x[p, :] @ patch[:, (y,
+   c)]``, then ``out[p, c] = sum_y hat_y[p, y] M[p, y, c]``.
 
-``sum_y hat_y (sum_x hat_x T)`` is exactly separable bilinear interpolation,
-so results match ``grid_sample_bilinear`` to fp32 reassociation.  The two
-contractions are plain matrix products outside any hand-written kernel, here
-as in the JAX package; callers on a CUDA device keep TF32 off for them
-(``torch.backends.cuda.matmul.allow_tf32 = False``, PyTorch's default).
+Both give exactly zero for out-of-patch taps, which reproduces
+``padding_mode="zeros"`` on the zero-padded texture, and both are separable
+bilinear interpolation, so results match ``grid_sample_bilinear`` to fp32
+reassociation.  The contractions are plain matrix products outside any
+hand-written kernel, as in the JAX package; callers on a CUDA device keep
+TF32 off for them (``torch.backends.cuda.matmul.allow_tf32 = False``,
+PyTorch's default).  ``compute_dtype=torch.bfloat16`` rounds the hats, which
+the tap kernel never forms, so that mode always takes the contractions.
 
 Band sizes are static and must cover every tile's coordinate span;
 :func:`required_bands` measures the true spans of a grid, :func:`bands_cover`
 checks a configuration at run time, and ``check=True`` NaN-poisons the output
 of a render whose poses leave the planned bands.
 
-This is a workaround for hardware whose per-pixel gathers are slow.  A CUDA
-card gathers well, so here the path exists for parity with the JAX package
-and as the home of the patch-gather kernel, not because it is the fast way to
-sample.
-
 The port does not round the patch starts down to tile boundaries on its
 kernel backend (the JAX package does on its Pallas backend, and widens the
 bands for it): the CUDA kernel copies from any offset, so both backends read
-the same patches and give the same values bit for bit.
+the same patches.
 """
 
 from __future__ import annotations
@@ -46,6 +45,7 @@ import torch.nn.functional as F
 
 from gmpi_tpu_torch.ops.grid_sample import _unnormalize
 from gmpi_tpu_torch.ops.patch_gather import gather_patches, gather_patches_ref
+from gmpi_tpu_torch.ops.patch_sample import sample_patches
 from gmpi_tpu_torch.utils.inspect import profile_scope
 
 PATCH_BACKENDS = ("torch", "cuda")
@@ -102,11 +102,14 @@ def _hat(rel: torch.Tensor, taps: torch.Tensor) -> torch.Tensor:
 
 
 def _warp_row_tiles(texf, fx_row, fy_row, band_y, band_x, pad_y, pad_x, h, w, c,
-                    patch_backend="torch", compute_dtype=None):
+                    patch_backend="torch", compute_dtype=None, into=None):
     """Warp a batch of tiles: fx/fy ``[N, T, tile_r, tile_c]`` -> ``[N, T, P, C]``.
 
     ``texf`` is the x-major fused texture ``[N, Wp, Hp*C]``, so patches slice
-    out as ready ``[B_x, B_y*C]`` matrix operands."""
+    out as ready ``[B_x, B_y*C]`` matrix operands.  With ``into = (out, fx,
+    fy, first_tile)`` (the ``"cuda"`` backend in fp32) the tap kernel writes
+    the samples of tiles ``first_tile ..`` into ``out [N, C, Ho, Wo]`` from the
+    coordinates ``fx, fy [N, Ho, Wo]`` instead, and nothing is returned."""
     n, t = fx_row.shape[0], fx_row.shape[1]
     p_tile = fx_row.shape[2] * fx_row.shape[3]
     y_lo = torch.floor(fy_row.amin(dim=(2, 3))).to(torch.int32) - 1  # [N, T]
@@ -116,10 +119,15 @@ def _warp_row_tiles(texf, fx_row, fy_row, band_y, band_x, pad_y, pad_x, h, w, c,
     offs = torch.stack([x_lo_c, y_lo_c * c], dim=-1)  # [N, T, 2] int32, clamped in range
     with profile_scope("tiled_warp.patches"):
         if patch_backend == "cuda":
-            pm = gather_patches(texf, offs.contiguous(), band_x, band_y * c, validate=False)
+            pm = gather_patches(texf, offs, band_x, band_y * c, validate=False)
         else:
             pm = gather_patches_ref(texf, offs, band_x, band_y * c)
         # [N, T, B_x, B_y*C]
+    if into is not None:
+        out, fx, fy, first_tile = into
+        with profile_scope("tiled_warp.sample"):
+            sample_patches(pm, offs, fx, fy, (pad_y, pad_x), fx_row.shape[2:], out, first_tile)
+        return None
 
     with profile_scope("tiled_warp.hats"):
         ty_rel = fy_row.reshape(n, t, p_tile, 1) - (y_lo_c - pad_y).to(fy_row.dtype)[..., None, None]
@@ -136,21 +144,22 @@ def _warp_row_tiles(texf, fx_row, fy_row, band_y, band_x, pad_y, pad_x, h, w, c,
         return torch.einsum("ntpy,ntpyc->ntpc", hat_y.float(), mixed)
 
 
-def step_groups(n: int, n_rows: int, rows: int, row_bytes: int, step_bytes: Optional[int]
-                ) -> Tuple[int, int]:
+def step_groups(n: int, n_rows: int, rows: int, row_bytes: int, step_bytes: Optional[int],
+                item_bytes: int = 0) -> Tuple[int, int]:
     """``(tile rows a step, items a step)`` for ``n`` items (textures or
     planes) of ``n_rows`` tile rows, ``rows`` a step as asked, where one
-    item's tile row holds ``row_bytes`` in a step.  With ``step_bytes``, fewer
-    rows a step (a divisor of ``n_rows``) where one item's rows exceed it,
-    and the items in equal groups whose steps stay under it; at least one row
-    and one item."""
+    item's tile row holds ``row_bytes`` in a step and the item itself
+    ``item_bytes`` whatever its rows.  With ``step_bytes``, fewer rows a step
+    (a divisor of ``n_rows``) where one item's rows exceed it, and the items
+    in equal groups whose steps stay under it; at least one row and one
+    item."""
     if step_bytes is None:
         return rows, n
     while rows > 1 and rows * row_bytes > step_bytes:
         rows -= 1
         while n_rows % rows:
             rows -= 1
-    n_groups = -(-n // max(1, step_bytes // (rows * row_bytes)))
+    n_groups = -(-n // max(1, step_bytes // (rows * row_bytes + item_bytes)))
     return rows, -(-n // n_groups)
 
 
@@ -170,18 +179,21 @@ def grid_sample_tiled(tex: torch.Tensor, grid: torch.Tensor, band_y: int = 32,
     instead of silently dropping taps.
 
     ``row_scan=True`` processes the tile rows in groups of ``rows_per_step``
-    in a loop, same results, with the hat matrices of one group alive at a
-    time instead of all ``nty * ntx`` tiles'.  ``step_bytes`` bounds the hats
-    and mixed products of a step (:func:`step_groups`): the textures go
-    through in equal groups, each with its own padded copy, and where one
-    texture's tile rows of a step exceed it, fewer rows a step (at 512
-    textures of 1024^2, the worst-view candidates of a FFHQ1024 step, one
-    step over all of them would hold ~32 GB of hats and a 19 GB padded copy).
-    Textures and tiles are independent, so the grouping changes no value.
-    ``patch_backend``: ``"torch"`` (an advanced index; differentiable) or
-    ``"cuda"`` (the patch-gather kernel; on CPU tensors its plain version; no
-    gradient).  ``compute_dtype=torch.bfloat16`` rounds the texture and the
-    hats to bf16 for the first contraction.
+    in a loop, same results, with the patches (and hat matrices) of one group
+    alive at a time instead of all ``nty * ntx`` tiles'.  ``step_bytes``
+    bounds what a step holds (:func:`step_groups`): on the tap kernel's route
+    its patches and padded textures, else its hats and mixed products.  The
+    textures go through in equal groups, each with its own padded copy, and
+    where one texture's tile rows of a step exceed the budget, fewer rows a
+    step (at 512 textures of 1024^2, the worst-view candidates of a FFHQ1024
+    step, one step over all of them would hold ~32 GB of hats, or 3 GB of
+    patches, and a 19 GB padded copy).  Textures and tiles are independent,
+    so the grouping changes no value.
+    ``patch_backend``: ``"torch"`` (an advanced index and the hat
+    contractions; differentiable) or ``"cuda"`` (the patch-gather kernel and
+    the tap kernel; on CPU tensors their plain versions; no gradient).
+    ``compute_dtype=torch.bfloat16`` rounds the texture and the hats to bf16
+    for the first contraction (on either backend).
     """
     if patch_backend not in PATCH_BACKENDS:
         raise ValueError(f"patch_backend: expected one of {PATCH_BACKENDS}, got {patch_backend!r}")
@@ -194,23 +206,34 @@ def grid_sample_tiled(tex: torch.Tensor, grid: torch.Tensor, band_y: int = 32,
         g = max(1, min(rows_per_step, nty))
         while nty % g:
             g -= 1
-    # hats and mixed products of one texture's tile row
-    g, n_step = step_groups(n, nty, g, 4 * tile_r * wo * (band_x + band_y + band_y * c),
-                            step_bytes)
-    out = torch.cat([_warp_textures(tex[i:i + n_step], fx_t[i:i + n_step], fy_t[i:i + n_step],
-                                    band_y, band_x, g, patch_backend, compute_dtype)
-                     for i in range(0, n, n_step)])  # [N, nty*ntx, P, C]
-    out = out.reshape(n, nty, ntx, tile_r, tile_c, c).permute(0, 5, 1, 3, 2, 4).reshape(
-        n, c, ho, wo)
+    if patch_backend == "cuda" and compute_dtype is None:
+        # the tap kernel: a step holds a texture's padded copy, and its patches a tile row
+        g, n_step = step_groups(n, nty, g, 4 * ntx * band_x * band_y * c, step_bytes,
+                                4 * (w + 2 * band_x) * (h + 2 * band_y) * c)
+        out = torch.empty((n, c, ho, wo), dtype=torch.float32, device=tex.device)
+        for i in range(0, n, n_step):
+            _warp_textures(tex[i:i + n_step], fx_t[i:i + n_step], fy_t[i:i + n_step], band_y,
+                           band_x, g, patch_backend, None, out[i:i + n_step])
+    else:
+        # the contractions: a step holds a texture's hats and mixed products a tile row
+        g, n_step = step_groups(n, nty, g, 4 * tile_r * wo * (band_x + band_y + band_y * c),
+                                step_bytes)
+        out = torch.cat([_warp_textures(tex[i:i + n_step], fx_t[i:i + n_step],
+                                        fy_t[i:i + n_step], band_y, band_x, g, patch_backend,
+                                        compute_dtype)
+                         for i in range(0, n, n_step)])  # [N, nty*ntx, P, C]
+        out = out.reshape(n, nty, ntx, tile_r, tile_c, c).permute(0, 5, 1, 3, 2, 4).reshape(
+            n, c, ho, wo)
     if check:
         ok = bands_cover(tex.shape, grid, band_y, band_x, align_corners, tile)
         out = torch.where(ok, out, float("nan"))
     return out
 
 
-def _warp_textures(tex, fx_t, fy_t, band_y, band_x, g, patch_backend, compute_dtype):
+def _warp_textures(tex, fx_t, fy_t, band_y, band_x, g, patch_backend, compute_dtype, out=None):
     """:func:`grid_sample_tiled` of a group of textures, ``g`` tile rows a
-    step: ``[N, nty*ntx, P, C]``."""
+    step: ``[N, nty*ntx, P, C]``, or with ``out [N, C, Ho, Wo]`` the tap
+    kernel's samples written into it."""
     n, c, h, w = tex.shape
     nty, ntx, tile_r, tile_c = fx_t.shape[1:]
     # generous zero pad: every clamped band start reads real texels or zeros.
@@ -220,12 +243,17 @@ def _warp_textures(tex, fx_t, fy_t, band_y, band_x, g, patch_backend, compute_dt
         n, w + 2 * pad_x, (h + 2 * pad_y) * c)
     if compute_dtype is not None:
         texl = texl.to(compute_dtype)
+    # the coordinates [N, Ho, Wo] in their own layout (a view of the tile views')
+    fx, fy = (f.transpose(2, 3).reshape(n, nty * tile_r, ntx * tile_c) for f in (fx_t, fy_t))
     rows = []
     for r0 in range(0, nty, g):  # one step warps g * ntx tiles
         fx_g = fx_t[:, r0:r0 + g].reshape(n, g * ntx, tile_r, tile_c)
         fy_g = fy_t[:, r0:r0 + g].reshape(n, g * ntx, tile_r, tile_c)
         rows.append(_warp_row_tiles(texl, fx_g, fy_g, band_y, band_x, pad_y, pad_x, h, w, c,
-                                    patch_backend, compute_dtype))
+                                    patch_backend, compute_dtype,
+                                    None if out is None else (out, fx, fy, r0 * ntx)))
+    if out is not None:
+        return out
     return rows[0] if len(rows) == 1 else torch.cat(rows, dim=1)
 
 

@@ -32,7 +32,7 @@ upstream of it, is complete and the same on every rank.
 ``slab_fn`` / ``render_fn`` plug in the fused renderer (``core.renderer.
 make_fused_slab_renderer`` / ``render_mpi_fused``); the default route is
 ``render_slab_partial`` / ``render_mpi`` with ``tiled_bands`` and its
-``patch_backend`` (``"cuda"``: the patch-gather kernel), as in JAX.
+``patch_backend`` (``"cuda"``: the patch-gather and tap kernels), as in JAX.
 """
 
 from __future__ import annotations

@@ -13,7 +13,8 @@ then the device kernels by
 total device time: the first ``--top`` and, wherever they rank, the port's
 own render kernels.  ``--no_fused_renderer`` profiles the step's
 tile-banded route instead (the train CLI's flag: patches through the
-patch-gather kernel, the tiled adjoint as the warp's backward).  Prints the
+patch-gather kernel, taps through the tap kernel, the tiled adjoint as the
+warp's backward).  Prints the
 card's name and power limit first.  Needs a CUDA card; raises without one.
 """
 

@@ -22,7 +22,8 @@ the caller asks for the CPU) it renders as the JAX step does without its
 kernels: through ``render_mpi`` with the static tile bands of
 ``bands_for_config``, planned on the step's device (at 128 pixels and above;
 4-field bands make the tiled adjoint the warp's backward, and on a card the
-forward then takes its patches through the patch-gather kernel), in plane
+forward then takes its patches through the patch-gather kernel and its taps
+through the tap kernel), in plane
 slabs through ``render_mpi_chunked``
 when ``renderer_plane_chunk`` is set; ``debug_ray_check`` NaN-poisons a
 render whose rays leave the last plane.  ``fused_compute_dtype="bf16"`` has
@@ -181,8 +182,9 @@ def _grads(module: torch.nn.Module) -> Dict[str, torch.Tensor]:
 
 
 def _patch_backend(device: torch.device, tiled_bands: Optional[Tuple[int, ...]]) -> str:
-    """The banded routes' patch gather: the patch-gather kernel on a card, the
-    advanced index on the CPU.  The kernel has no gradient, so on a card the
+    """The banded routes' patch backend: the patch-gather and tap kernels on a
+    card, the advanced index and the hats on the CPU.  The kernels have no
+    gradient, so on a card the
     step needs 4-field bands, whose tiled adjoint is the warp's backward;
     2-field bands (a warp not monotone over the pose range) raise there."""
     if tiled_bands is None or device.type != "cuda":

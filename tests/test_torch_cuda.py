@@ -197,7 +197,8 @@ def test_function_gradient_matches_gather_autograd_on_the_card(cuda, opaque):
             out = render(spread(x), geom.dhw, ray_dir, eye, z_dir)
             grads.append(torch.autograd.grad(sum((o * c).sum() for o, c in zip(out, cot)), x)[0])
         assert {k: v - before[k] for k, v in fused_render.LAUNCHES.items()} == {
-            "fused_fwd": 1, "composite_bwd": 1, "splat": 1, "adjoint": 0, "patch_gather": 0}
+            "fused_fwd": 1, "composite_bwd": 1, "splat": 1, "adjoint": 0, "patch_gather": 0,
+            "patch_sample": 0}
         assert torch.isfinite(grads[0]).all()
         assert _rel(grads[0], grads[1]) <= 1e-3
 
@@ -319,17 +320,19 @@ def test_banded_render_with_kernel_patches_matches_gather_on_the_card(cuda):
     mpi = torch.rand((3, 6, 4, 128, 128), device=cuda,
                      generator=torch.Generator(device=cuda).manual_seed(3))
     gather = render_mpi(mpi, geom.dhw, ray_dir, eye, z_dir)
-    before = fused_render.LAUNCHES["patch_gather"]
+    before = dict(fused_render.LAUNCHES)
     banded = render_mpi(mpi, geom.dhw, ray_dir, eye, z_dir, tiled_bands=bands,
                         patch_backend="cuda")
     chunked = render_mpi_chunked(mpi, geom.dhw, ray_dir, eye, z_dir, 2, tiled_bands=bands,
                                  patch_backend="cuda")
-    assert fused_render.LAUNCHES["patch_gather"] == before + 1 + 3
+    for kname in ("patch_gather", "patch_sample"):  # one of each a tile-row step
+        assert fused_render.LAUNCHES[kname] == before[kname] + 1 + 3
     plain = render_mpi(mpi, geom.dhw, ray_dir, eye, z_dir, tiled_bands=bands)
     for a, b, c, d in zip(gather, banded, chunked, plain):
         assert float((a - b).abs().max()) <= 5e-4
         assert float((a - c).abs().max()) <= 5e-4
-        assert torch.equal(b, d)  # both backends read the same patches
+        # the same patches; the tap kernel and the hat contractions sum in another order
+        assert float((b - d).abs().max()) <= 1e-5
     # under autograd the 4-field bands carry the kernel backend (tiled adjoint backward)
     x = mpi.clone().requires_grad_()
     y = mpi.clone().requires_grad_()
@@ -339,6 +342,62 @@ def test_banded_render_with_kernel_patches_matches_gather_on_the_card(cuda):
     g_g = torch.autograd.grad((render_mpi(y, geom.dhw, ray_dir, eye, z_dir).color * cot).sum(),
                               y)[0]
     assert _rel(g_b, g_g) <= 1e-3
+
+
+# K8 at the banded route's shapes: (preset, planes, resolution, bands (y, x) or None for the
+# grid's own, tile); the first two are the serving cell's and FFHQ1024 eval's
+K8_CASES = {"ffhq256": ("FFHQ256", 96, 256, (96, 376), (8, 256)),
+            "ffhq1024": ("FFHQ1024", 96, 1024, (104, 424), (8, 256)),
+            "tile 1xW": ("FFHQ256", 8, 228, None, (1, 228))}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", K8_CASES)
+def test_patch_sample_kernel_matches_plain_version(cuda, monkeypatch, case):
+    """The tap sampler (K8) inside the tiled warp, at a +2 sigma corner pose:
+    one K8 launch a tile-row step with K7's; the first and last steps'
+    launches against the plain version on the same inputs (1e-4 of
+    max|plain|); the whole warp within 5e-4 of ``F.grid_sample``."""
+    from gmpi_tpu_torch.core.renderer import TILED_STEP_BYTES, homography_grid
+    from gmpi_tpu_torch.ops import grid_sample, patch_sample, tiled_warp
+
+    preset, n_planes, res, bands, tile = K8_CASES[case]
+    cfg = get_config(preset)
+    cfg = dataclasses.replace(cfg, planes=dataclasses.replace(cfg.planes, n_planes=n_planes))
+    k = cfg.camera.n_truncated_stds
+    c2w, _, _ = poses.sample_sphere_poses(None, 1, cfg.camera, given_yaws=[[k * 0.289]],
+                                          given_pitches=[[k * 0.127]], device=cuda)
+    ray_dir, eye, z_dir = cam.generate_rays(cam.intrinsics_from_fov(cfg.fov_deg, res, res), c2w)
+    grid, _ = homography_grid(cfg.plane_geometry(device=cuda).dhw, eye.expand(n_planes, 3),
+                              ray_dir.expand(n_planes, -1, -1, -1), z_dir.expand(n_planes, 3))
+    tex = torch.rand((n_planes, 4, res, res), device=cuda,
+                     generator=torch.Generator(device=cuda).manual_seed(8))
+    bands = bands or tuple(b + 2 for b in tiled_warp.required_bands(tex.shape, grid, tile=tile))
+    assert bool(tiled_warp.bands_cover(tex.shape, grid, *bands, tile=tile))
+    kept, sample = [], tiled_warp.sample_patches
+
+    def keep(*args):  # the first and the last step's inputs
+        kept[min(len(kept), 1):] = [args]
+        return sample(*args)
+
+    monkeypatch.setattr(tiled_warp, "sample_patches", keep)
+    nty = res // tile[0]
+    before = dict(fused_render.LAUNCHES)
+    out = tiled_warp.grid_sample_tiled(tex, grid, *bands, tile=tile, row_scan=nty > 32,
+                                       rows_per_step=max(1, nty // 64), patch_backend="cuda",
+                                       step_bytes=TILED_STEP_BYTES)
+    torch.cuda.synchronize()
+    steps = fused_render.LAUNCHES["patch_sample"] - before["patch_sample"]
+    assert steps >= 1 and fused_render.LAUNCHES["patch_gather"] - before["patch_gather"] == steps
+    for pm, offs, fx, fy, pad, tl, _, first in kept:
+        oy, ox = patch_sample._tile_pixels(offs, res, res, tl, first)
+        at = (slice(None), slice(None), oy[:, :, None], ox[:, None, :])
+        got = patch_sample.sample_patches(pm, offs, fx, fy, pad, tl, torch.zeros_like(out), first)
+        ref = patch_sample.sample_patches_ref(pm, offs, fx, fy, pad, tl, torch.zeros_like(out),
+                                              first)
+        assert float((got[at] - ref[at]).abs().max()) <= TOL * float(ref[at].abs().max())
+    gather = grid_sample.grid_sample_bilinear(tex, grid)
+    assert float((out - gather).abs().max()) <= 5e-4
 
 
 @pytest.mark.gpu

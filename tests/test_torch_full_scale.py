@@ -21,8 +21,9 @@ a card every test skips.  Covered, in the JAX file's order:
   ``HIGHEST`` MXU mode (the port has no precision modes), the bf16-texture
   form at the JAX package's bf16 gate, 2e-2;
 * the banded route (``render_mpi(tiled_bands=bands_for_config(...))``, its
-  patches through the patch-gather kernel) against ``render_mpi_chunked(
-  plane_chunk=4)`` itself, whose float32 coordinates it shares, 5e-4;
+  patches through the patch-gather kernel and its taps through the tap
+  kernel) against ``render_mpi_chunked(plane_chunk=4)`` itself, whose float32
+  coordinates it shares, 5e-4;
 * the G phase's renderer gradient with a pose-conditioned D, fused against
   the gather renderer: the loss, and the renderer's vector-Jacobian product
   of D's cotangent, 5e-4.
@@ -104,7 +105,8 @@ def test_fused_full_scale_fwd_and_grad_allclose(cuda, yaw, pitch, compute_dtype,
         x, geom.dhw, *rays, with_disp=False, compute_dtype=compute_dtype), rgba, cot)
     torch.cuda.synchronize()
     assert {k: fused_render.LAUNCHES[k] - before[k] for k in before} == {
-        "fused_fwd": 1, "composite_bwd": 1, "splat": 1, "adjoint": 0, "patch_gather": 0}
+        "fused_fwd": 1, "composite_bwd": 1, "splat": 1, "adjoint": 0, "patch_gather": 0,
+        "patch_sample": 0}
     color_o, grad_o = (t.float() for t in _color_and_grad(
         lambda x: types.SimpleNamespace(color=chunked_gather_fp64(x, geom.dhw, *rays)), rgba,
         cot))
@@ -116,11 +118,12 @@ def test_fused_full_scale_fwd_and_grad_allclose(cuda, yaw, pitch, compute_dtype,
 def test_banded_full_scale_matches_oracle(cuda, yaw, pitch):
     cfg, geom, rgba, rays, cot = _setup(cuda, yaw, pitch)
     bands = bands_for_config(cfg, img_size=RES, n_planes=N_PLANES)
-    before = fused_render.LAUNCHES["patch_gather"]
+    before = dict(fused_render.LAUNCHES)
     color, grad = _color_and_grad(lambda x: render_mpi(
         x, geom.dhw, *rays, tiled_bands=bands, patch_backend="cuda"), rgba, cot)
     torch.cuda.synchronize()
-    assert fused_render.LAUNCHES["patch_gather"] > before
+    steps = fused_render.LAUNCHES["patch_gather"] - before["patch_gather"]
+    assert steps > 0 and fused_render.LAUNCHES["patch_sample"] - before["patch_sample"] == steps
     color_o, grad_o = _color_and_grad(
         lambda x: render_mpi_chunked(x, geom.dhw, *rays, plane_chunk=4), rgba, cot)
     assert _rel(color, color_o) <= TOL

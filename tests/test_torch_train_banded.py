@@ -66,10 +66,11 @@ def test_banded_step_matches_jax():
 
 @pytest.mark.parametrize("plane_chunk", [0, 1], ids=["whole", "slabs"])
 def test_step_tiled_warp_same_with_either_patch_backend(plane_chunk, monkeypatch):
-    """The step's banded render (whole, and in plane slabs) with the kernel's
+    """The step's banded render (whole, and in plane slabs) with the kernels'
     backend, whose CPU form is ``gather_patches_ref`` on the detached
-    textures the tiled warp hands it, against the advanced index: equal
-    images and equal ``rgba`` gradients (a patch copy is exact, and the
+    textures the tiled warp hands it and the plain tap sampler, against the
+    advanced index and the hats: images and ``rgba`` gradients within 1e-6
+    of max (the same patches and the same bilinear sum in another order; the
     backward is the tiled adjoint either way)."""
     from gmpi_tpu_torch.train import make_train_step
 
@@ -93,8 +94,8 @@ def test_step_tiled_warp_same_with_either_patch_backend(plane_chunk, monkeypatch
         imgs, _, _ = step.render_views(x, yaws, pitches)
         out[backend] = imgs.detach(), torch.autograd.grad((imgs * cot).sum(), x)[0]
     assert gathered and not any(gathered)
-    assert torch.equal(out["torch"][0], out["cuda"][0])
-    assert torch.equal(out["torch"][1], out["cuda"][1])
+    for hats, taps in zip(out["torch"], out["cuda"]):
+        assert float((hats - taps).abs().max()) <= 1e-6 * float(hats.abs().max())
     assert float(out["cuda"][1].abs().max()) > 0
 
 
