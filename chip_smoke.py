@@ -243,9 +243,14 @@ Phases, each of which raises on failure (nonzero exit, no result line):
    on the run's own last inputs; then ``--task prepare_real`` of the
    training PNGs and ``--task fid_kid`` between them and the banded fakes
    (random Inception weights), finite; (d) ``train_gmpi_torch.main`` (fused) on
-   FFHQ512 (a zip) and MetFaces (a folder of PNGs with a pose folder), 2
-   steps each: launches as ``step_launches`` works them out, step, D and G
-   ms and peak GB by span.
+   FFHQ512 (a zip), AFHQCat (a folder of PNGs with an EG3D ``dataset.json``)
+   and MetFaces (a folder of PNGs with a pose folder), 2 steps each:
+   launches as ``step_launches`` works them out, step, D and G ms and peak
+   GB by span; (e) as (c) on the FFHQ512 and AFHQCat checkpoints of (d) at
+   512^2, banded and ``--fused_renderer`` (dumps at most 1 level apart, one
+   K1 an image fused), with K7's and K8's device ms an image read by
+   ``torch.profiler`` over the banded call, then ``fid_kid`` on the banded
+   fakes.
 
 Each phase prints its seconds.  The patch gather's launches are counted by
 kernel path too, zeroed and read with each main path's launch counts: all of
@@ -3185,8 +3190,10 @@ def prepare_fake_routes(fr, tw, pg, label, cfg, ckpt_dir, routes, tmp, card, dev
     planning (``bands_for_config`` on the card) is timed apart.  On the banded
     run's own last inputs K7 must equal its plain version and the banded
     render be within 5e-4 of the gather renderer; with both routes the dumps
-    must be at most 1 level apart.  Returns the record (with each route's
-    dump directory) and the launches by route."""
+    must be at most 1 level apart.  The banded call runs under
+    ``torch.profiler``: K7's and K8's device ms an image (their kernels'
+    summed durations over the fakes) go into the record.  Returns the record
+    (with each route's dump directory) and the launches by route."""
     import copy
     import os
 
@@ -3227,9 +3234,14 @@ def prepare_fake_routes(fr, tw, pg, label, cfg, ckpt_dir, routes, tmp, card, dev
             reset_counts(fr)
             row_steps["n"] = 0
             dirs[route] = os.path.join(tmp, f"{label} {route}")
+            argv = common + (["--fused_renderer"] if route == "fused" else []) + [
+                "--out", dirs[route]]
             t0 = time.perf_counter()
-            eval_gmpi_torch.main(common + (["--fused_renderer"] if route == "fused" else [])
-                                 + ["--out", dirs[route]])
+            if route == "banded":
+                per_image = kernel_ms_per_image(lambda: eval_gmpi_torch.main(argv),
+                                                ("patch_gather", "patch_sample"), PRESET_FAKES)
+            else:
+                eval_gmpi_torch.main(argv)
             eval_s[route] = time.perf_counter() - t0
             launches[route] = read_counts(fr)
             want = {**dict.fromkeys(fr.LAUNCHES, 0),
@@ -3260,6 +3272,8 @@ def prepare_fake_routes(fr, tw, pg, label, cfg, ckpt_dir, routes, tmp, card, dev
         f"{', '.join('%.2f' % x for x in plan_s)} s); launches {launches}"
         + (f"; dumps at most {worst} level apart ({share:.3e} of pixel channels differ)"
            if worst is not None else "")
+        + f"; device ms an image under the profiler: K7 {per_image['patch_gather']:.4f}, "
+        f"K8 {per_image['patch_sample']:.4f}"
         + f"; K7 on the banded run's last inputs {tuple(texf.shape)} equal to its plain "
         f"version: {same}; its last banded render vs the gather renderer {err:.2e} (gate "
         f"5e-4) ({card})")
@@ -3267,7 +3281,24 @@ def prepare_fake_routes(fr, tw, pg, label, cfg, ckpt_dir, routes, tmp, card, dev
         raise RuntimeError(f"{label}: {cfg.name} prepare_fake: the dumps, the patch gather or "
                            f"the banded render disagree")
     return {"seconds": eval_s, "plan_s": plan_s, "launches": launches, "max_level_apart": worst,
-            "k7_exact": same, "banded_vs_gather": err, "dirs": dirs}, launches
+            "k7_exact": same, "banded_vs_gather": err, "dirs": dirs,
+            "kernel_ms_per_image": per_image}, launches
+
+
+def kernel_ms_per_image(fn, names, n_images):
+    """``fn()`` under ``torch.profiler`` (CPU and CUDA): for each of
+    ``names``, the summed device ms of the kernels whose names hold it, over
+    ``n_images``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    device = [e for e in prof.events()
+              if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+    return {name: sum(e.time_range.elapsed_us() for e in device if name in e.name) / 1e3
+            / n_images for name in names}
 
 
 def preset_loop_eval(fr, tw, pg, card, dev, tmp):
@@ -3468,7 +3499,9 @@ def presets_phase(fr, tw, pg, card, rates, dev):
 BANDED_PRESETS = ("FFHQ256", "FFHQ512", "FFHQ1024", "AFHQCat", "MetFaces")
 BANDED_PLAN_POSES = 64  # sampled poses at which each card plan is held, besides the 9 corners
 BANDED_TRAIN = ("FFHQ256", "FFHQ1024")  # trained through --no_fused_renderer
-FUSED_TRAIN = ("FFHQ512", "MetFaces")  # trained through the fused default
+FUSED_TRAIN = ("FFHQ512", "AFHQCat", "MetFaces")  # trained through the fused default
+EVAL_BANDED = ("FFHQ1024", "MetFaces")  # 14c: prepare_fake on eval's default route
+EVAL_512 = ("FFHQ512", "AFHQCat")  # 14e: prepare_fake on both routes at 512^2
 BANDED_LOOP_STEPS = (1, 2)  # train CLI steps, then resumed to (a FFHQ1024 step takes ~53 s)
 FUSED_LOOP_STEPS = 2
 
@@ -3704,7 +3737,8 @@ def banded_training(fr, tw, pg, card, dev, tmp, name):
 def fused_training(fr, card, dev, tmp, name):
     """Phase 14d: ``train_gmpi_torch.main`` on preset ``name`` through the
     fused default, from ``PRESET_IMAGES`` noise PNGs (a zip with ``.mat``
-    poses for FFHQ512, a folder with a pose folder for MetFaces), for
+    poses for FFHQ512, a folder with an EG3D ``dataset.json`` for AFHQCat, a
+    folder with a pose folder for MetFaces), for
     ``FUSED_LOOP_STEPS`` steps: launches as ``step_launches`` works them
     out, metrics finite, step ms, D and G ms and peak GB by span.  Returns the
     record, the launches, the checkpoint directory and the dataset's
@@ -3720,6 +3754,8 @@ def fused_training(fr, card, dev, tmp, name):
     os.makedirs(root)
     if name == "MetFaces":
         data_root, pose_root = write_metfaces_dataset(root, PRESET_IMAGES, cfg.resolution, 13)
+    elif name == "AFHQCat":
+        data_root = pose_root = write_afhq_dataset(root, PRESET_IMAGES, cfg.resolution, 13)
     else:
         data_root, pose_root = write_ffhq_dataset(root, PRESET_IMAGES, cfg.resolution, 13)
     out = os.path.join(root, "run")
@@ -3753,7 +3789,7 @@ def fused_training(fr, card, dev, tmp, name):
     return record, launches, os.path.join(out, "checkpoints"), (data_root, pose_root)
 
 
-def banded_fid_kid(name, data, fake_dir, tmp, card, dev):
+def banded_fid_kid(name, data, fake_dir, tmp, card, dev, label="14c"):
     """The end of 14c: ``eval_gmpi_torch.main --task prepare_real`` of preset
     ``name``'s training PNGs (``data``: its ``(data_root, pose_root)``), then
     ``--task fid_kid`` between them and the banded fakes in ``fake_dir``,
@@ -3770,7 +3806,7 @@ def banded_fid_kid(name, data, fake_dir, tmp, card, dev):
     if not os.path.exists(weights):
         torch.save({k: torch.from_numpy(v)
                     for k, v in inception.random_params(seed=4).items()}, weights)
-    real_dir = os.path.join(tmp, f"14c {name} real")
+    real_dir = os.path.join(tmp, f"{label} {name} real")
     t0 = time.perf_counter()
     eval_gmpi_torch.main(["--dataset", name, "--task", "prepare_real", "--data_root", data[0],
                           "--pose_root", data[1], "--n_imgs", str(PRESET_IMAGES), "--out",
@@ -3779,10 +3815,10 @@ def banded_fid_kid(name, data, fake_dir, tmp, card, dev):
     metrics = eval_gmpi_torch.main(["--dataset", name, "--task", "fid_kid", "--real_dir",
                                     real_dir, "--fake_dir", os.path.join(fake_dir, "rgb"),
                                     "--inception_weights", weights, "--device", str(dev),
-                                    "--out", os.path.join(tmp, f"14c {name} fid_kid")])
+                                    "--out", os.path.join(tmp, f"{label} {name} fid_kid")])
     t2 = time.perf_counter()
     n_real = len(os.listdir(real_dir))
-    log(f"14c {name}: eval_gmpi_torch.main --task prepare_real ({n_real} PNGs) in "
+    log(f"{label} {name}: eval_gmpi_torch.main --task prepare_real ({n_real} PNGs) in "
         f"{t1 - t0:.1f} s, --task fid_kid against the {PRESET_FAKES} banded fakes in "
         f"{t2 - t1:.1f} s (random Inception weights): "
         + ", ".join(f"{k} {metrics[k]:.6e}" for k in EVAL_KEYS["fid_kid"]) + f" ({card})")
@@ -3797,8 +3833,11 @@ def banded_phase(fr, tw, pg, card, dev):
     """Phase 14: the tile-banded route at full width (14a planning on the card
     against the host for the five presets; 14b FFHQ256 and FFHQ1024 banded
     train steps through the train CLI; 14c banded ``prepare_fake`` of
-    FFHQ1024 and MetFaces, and ``fid_kid`` on those fakes; 14d FFHQ512 and
-    MetFaces trained fused through the CLI).  Returns ``(record, launches of its main paths)``."""
+    FFHQ1024 and MetFaces, and ``fid_kid`` on those fakes; 14d FFHQ512,
+    AFHQCat and MetFaces trained fused through the CLI; 14e ``prepare_fake``
+    of FFHQ512 and AFHQCat at 512^2, banded and fused, K7's and K8's device
+    ms an image, and ``fid_kid`` on the banded fakes).  Returns ``(record,
+    launches of its main paths)``."""
     import os
     import shutil
     import tempfile
@@ -3827,13 +3866,17 @@ def banded_phase(fr, tw, pg, card, dev):
             record["train"][name] = rec
             paths.append(launches)
             lap(f"14{'b' if name in BANDED_TRAIN else 'd'} {name}")
-            if name in ("FFHQ1024", "MetFaces"):  # 14c: eval's default route on this checkpoint
-                rec, launches = prepare_fake_routes(fr, tw, pg, f"14c {name}", get_config(name),
-                                                    ckpt_dir, ("banded",), tmp, card, dev)
-                rec["fid_kid"] = banded_fid_kid(name, data, rec["dirs"]["banded"], tmp, card, dev)
+            if name in EVAL_BANDED + EVAL_512:  # eval's routes on this checkpoint
+                part = "14c" if name in EVAL_BANDED else "14e"
+                routes = ("banded",) if name in EVAL_BANDED else ("banded", "fused")
+                rec, launches = prepare_fake_routes(fr, tw, pg, f"{part} {name}",
+                                                    get_config(name), ckpt_dir, routes, tmp,
+                                                    card, dev)
+                rec["fid_kid"] = banded_fid_kid(name, data, rec["dirs"]["banded"], tmp, card, dev,
+                                                part)
                 record["prepare_fake"][name] = rec
-                paths.append(launches["banded"])
-                lap(f"14c {name}")
+                paths += [launches[route] for route in routes]
+                lap(f"{part} {name}")
             shutil.rmtree(os.path.dirname(os.path.dirname(ckpt_dir)), ignore_errors=True)
             torch.cuda.empty_cache()
     finally:

@@ -7,11 +7,14 @@ float32, flat_w2c (9|16), yaw, pitch)`` in numpy, and pose conversion happens
 inside the dataset as the reference does (``gmpi/datasets.py:121-123,
 224-226``).  PNGs decode through the native decoder (``data/fastpng.py``),
 or through PIL where it is unavailable or the file is of another kind;
-``DECODES`` counts the decodes by decoder.
+``DECODES`` counts the decodes by decoder.  Each item (its decode and pose
+conversion, on the loader's threads) is one ``loader.item`` span
+(``utils.inspect.thread_scope``).
 """
 
 from __future__ import annotations
 
+import functools
 import io
 import json
 import os
@@ -27,6 +30,7 @@ from gmpi_tpu_torch.core.poses import yaw_pitch_from_w2c
 from gmpi_tpu_torch.data import fastpng
 from gmpi_tpu_torch.data.pose_convert import (deep3dface_yaw_pitch, w2c_from_deep3dface,
                                               w2c_from_pnp_c2w)
+from gmpi_tpu_torch.utils.inspect import thread_scope
 
 IMG_EXTS = (".png", ".jpg", ".jpeg")
 # PNG decodes by decoder, over every dataset of the process
@@ -51,6 +55,17 @@ def _open_png(data: bytes) -> Image.Image:
     img = Image.open(io.BytesIO(data))
     img.load()
     return img
+
+
+def _item_span(getitem):
+    """A dataset's ``__getitem__`` inside one ``loader.item`` span."""
+
+    @functools.wraps(getitem)
+    def traced(self, index: int):
+        with thread_scope("loader.item"):
+            return getitem(self, index)
+
+    return traced
 
 
 def _load_fail_list(pose_data_path: str) -> List[str]:
@@ -124,6 +139,7 @@ class FFHQ:
     def __len__(self):
         return len(self.data)
 
+    @_item_span
     def __getitem__(self, index: int):
         if self._zip is None:  # lazily opened per worker thread/process
             self._zip = zipfile.ZipFile(self.zip_path)
@@ -155,6 +171,7 @@ class AFHQCat:
     def __len__(self):
         return len(self.all_data)
 
+    @_item_span
     def __getitem__(self, index: int):
         img_fname, pose_info = self.all_data[index]
         img = Image.open(os.path.join(self.dataset_path, img_fname))
@@ -193,6 +210,7 @@ class MetFaces:
     def __len__(self):
         return len(self.data)
 
+    @_item_span
     def __getitem__(self, index: int):
         img_f, pose_f = self.data[index]
         with open(img_f, "rb") as f:

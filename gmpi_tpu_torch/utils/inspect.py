@@ -5,14 +5,18 @@ the reference's ``misc`` toolbox, ``gmpi/models/torch_utils/misc.py``):
 * :func:`param_summary` / :func:`print_param_summary` -- the module table
   (``misc.print_module_summary``, ``misc.py:196-264``);
 * :func:`profile_scope` -- a named ``torch.profiler`` span
-  (``misc.profiled_function``), the port's one span helper;
+  (``misc.profiled_function``), the port's one span helper, and
+  :func:`thread_scope`, the same for worker threads;
 * :func:`check_replica_consistency` -- replicated tensors equal on every rank
   (``misc.check_ddp_consistency``).
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
+import threading
+import time
 from typing import Mapping, Optional, Sequence, Tuple, Union
 
 import torch
@@ -86,6 +90,42 @@ def profile_scope(name: str):
     if not _autograd_profiler._is_profiler_enabled:
         return _NO_SPAN
     return record_function(name)
+
+
+# spans of worker threads, kept while a profiler runs: ``(name, start_ns,
+# end_ns, thread id)`` on ``time.time_ns``, the profiler's clock
+KEPT_SPANS: collections.deque = collections.deque(maxlen=1 << 16)
+
+
+class _KeptSpan:
+    __slots__ = ("name", "inner", "t0")
+
+    def __init__(self, name: str):
+        self.name = name
+        self.inner = record_function(name)
+
+    def __enter__(self):
+        self.inner.__enter__()
+        self.t0 = time.time_ns()
+        return self
+
+    def __exit__(self, *exc):
+        t1 = time.time_ns()
+        self.inner.__exit__(*exc)
+        KEPT_SPANS.append((self.name, self.t0, t1, threading.get_ident()))
+        return False
+
+
+def thread_scope(name: str):
+    """:func:`profile_scope` for code that runs on worker threads (the
+    loader's).  ``torch.profiler`` records the spans of the thread that
+    started it, and of the threads PyTorch hands that thread's state to
+    (autograd's), but not those of a thread pool of Python's; so while a
+    profiler runs the span is also appended to :data:`KEPT_SPANS`.  Without
+    a profiler it is the same shared no-op."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _NO_SPAN
+    return _KeptSpan(name)
 
 
 def check_replica_consistency(tensors_or_module: Union[torch.nn.Module, Mapping, Sequence],
