@@ -50,7 +50,11 @@ Phases, each of which raises on failure (nonzero exit, no result line):
    seeded random weights and the fused renderer: for 4 seeds, ``sample_mpi``
    then ``render`` of 4 views.  Kernel launch counts are reset just before and
    read just after; outputs must be finite, colors in [-1, 1], depths inside
-   the plane range, and the last render must match the gather renderer;
+   the plane range, and the last render must match the gather renderer.
+   Then ``sample_mpi`` (on the card a replayed CUDA graph of the generator)
+   against eager ``generate_mpi`` on the same seeds' z, in turns: host ms a
+   request, launch calls a request (``torch.profiler``), ``SAMPLER_GRAPH``'s
+   counts, and the MPIs within 1e-6 of max|eager|;
 4. training main path — ``init_train_state`` + ``make_train_step`` on the full
    FFHQ256 preset (batch 8, 32 planes, worst of 4 views per z) with seeded
    random weights and a seeded random real batch: 2 warm-up and 3 timed steps,
@@ -79,7 +83,9 @@ Phases, each of which raises on failure (nonzero exit, no result line):
    against K7 and K8 on the same inputs);
 6. banded serving path — ``FakeImageGenerator(use_fused=False)`` (on a card
    its patches come through the patch-gather kernel and its taps through the
-   tap kernel) renders the 96-plane MPIs
+   tap kernel) samples the last seed through a graph of its own (one
+   capture, bitwise phase 3's MPI; its launch calls a request printed), then
+   renders the 96-plane MPIs
    of phase 3's seeds, 4 views each, through
    ``render_mpi(tiled_bands=bands_for_config(...))``: all 384 textures in one
    call, in texture groups and tile-row steps that keep the live patches under
@@ -202,7 +208,8 @@ Phases, each of which raises on failure (nonzero exit, no result line):
    inputs;
    (c) ``FakeImageGenerator`` at FFHQ1024: 2 seeds of 96-plane MPIs, 4 views
    each, one K1 a render call, the last render against the gather
-   renderer, K1 timed at its inputs; (d) ``make_train_step`` on the FFHQ1024
+   renderer, K1 timed at its inputs, and the sampler's graph against eager
+   ``generate_mpi`` in turns as in phase 3; (d) ``make_train_step`` on the FFHQ1024
    preset (batch 4, ``batch_split`` 2, ``d_batch_split``, worst of 4 views
    at full resolution): 5 steps, one by phase and one past
    ``lighting_start_iter``, then 2 steps with each of ``fused_remat``,
@@ -316,6 +323,72 @@ def host_ms(fn):
     out = fn()
     torch.cuda.synchronize()
     return out, (time.perf_counter() - t0) * 1e3
+
+
+def launch_calls(fn) -> int:
+    """The kernel-launch calls ``fn()`` makes on the host, under
+    ``torch.profiler`` (the calls ``benchmark.port_spans`` counts, a CUDA
+    graph's launch among them)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from benchmark.port_spans import LAUNCH_CALLS
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages() if e.key in LAUNCH_CALLS)
+
+
+SAMPLER_ROUNDS = 3  # rounds of graph, eager, eager, graph over the seeds
+SAMPLER_GATE = 1e-6  # replayed against eager MPI, of max|eager|: the same kernels run
+
+
+def sampler_graph_turns(gen, seeds, card, label):
+    """``gen.sample_mpi`` (the generator's replayed CUDA graph) against eager
+    ``generate_mpi`` on the same seeds' z, in turns (graph, eager, eager,
+    graph a seed, ``SAMPLER_ROUNDS`` times): host ms a request after a
+    synchronize, the launch calls of one request each way, and the largest
+    gap of the two MPIs over max|eager| (gate ``SAMPLER_GATE``).  Prints
+    ``SAMPLER_GRAPH``'s counts of these calls; returns the record."""
+    from gmpi_tpu_torch.eval.generate import generate_mpi
+    from gmpi_tpu_torch.eval.harness import SAMPLER_GRAPH
+
+    @torch.no_grad()
+    def eager(seed):
+        z = torch.randn((1, gen.cfg.train.z_dim), generator=torch.Generator().manual_seed(seed))
+        return generate_mpi(gen.G, z.to(gen.device), gen.xyz_dict, gen.n_planes,
+                            chunk_n_planes=gen.chunk, truncation_psi=gen.psi, noise_mode="const")
+
+    runs = {"graph": gen.sample_mpi, "eager": eager}
+    before = SAMPLER_GRAPH.copy()
+    ms = {"graph": [], "eager": []}
+    err, equal = 0.0, True
+    for _ in range(SAMPLER_ROUNDS):
+        for seed in seeds:
+            out = {}
+            for route in ("graph", "eager", "eager", "graph"):
+                out[route], t = host_ms(lambda: runs[route](seed))
+                ms[route].append(t)
+            err = max(err, float((out["graph"] - out["eager"]).abs().max()
+                                 / out["eager"].abs().max()))
+            equal = equal and torch.equal(out["graph"], out["eager"])
+            del out
+    launches = {route: launch_calls(lambda: run(seeds[0])) for route, run in runs.items()}
+    counted = dict(SAMPLER_GRAPH - before)
+    record = {"graph_ms": ms["graph"], "eager_ms": ms["eager"],
+              "graph_ms_median": statistics.median(ms["graph"]),
+              "eager_ms_median": statistics.median(ms["eager"]), "launch_calls": launches,
+              "max_rel_gap": err, "bitwise_equal": equal, "sampler_graph": counted}
+    log(f"{label} sampler, {len(seeds)} seeds x {SAMPLER_ROUNDS} rounds in turns: graph "
+        f"{record['graph_ms_median']:.2f} ms, eager generate_mpi {record['eager_ms_median']:.2f} "
+        f"ms a request (medians, host clock after a synchronize); launch calls a request: "
+        f"graph {launches['graph']}, eager {launches['eager']}; SAMPLER_GRAPH {counted} over "
+        f"these calls; replayed vs eager MPI: bitwise equal {equal}, max gap {err:.3e} of "
+        f"max|eager| (gate {SAMPLER_GATE:g}) ({card})")
+    if not err <= SAMPLER_GATE:  # also catches NaN
+        raise RuntimeError(f"{label}: the replayed generator disagrees with eager generate_mpi")
+    return record
 
 
 def fused_inputs(fr, dhw, ray_dir, eye, z_dir, tex_size):
@@ -2897,8 +2970,9 @@ def preset_serving(fr, cfg, rates, card, dev):
     fused: for each seed ``sample_mpi`` at 96 planes, then ``render`` of 4
     views; one K1 launch a render call, checks as phase 3's, the last render
     against the gather renderer, then K1 at the last render's inputs against
-    its plain version and timed beside its bound.  Returns the record and
-    K1's timings."""
+    its plain version and timed beside its bound, and the sampler's graph
+    against eager ``generate_mpi`` (``sampler_graph_turns``).  Returns the
+    record and K1's timings."""
     from gmpi_tpu_torch.core.renderer import render_mpi
     from gmpi_tpu_torch.eval.harness import FakeImageGenerator
     from gmpi_tpu_torch.models.generator import Generator
@@ -2967,7 +3041,8 @@ def preset_serving(fr, cfg, rates, card, dev):
     log(f"fused_fwd bf16 at {cfg.name}'s serving inputs: {ms16:.4f} ms, plain {plain16:.3f} ms, "
         f"needs {bytes16} B; bound {b16[0]:.5f} ms by {b16[1]} ({card})")
     record = {"sample_mpi_ms": gen_ms, "render_ms": render_ms, "peak_gb": peak,
-              "launches": launches, "vs_gather": err}
+              "launches": launches, "vs_gather": err,
+              "sampler_graph": sampler_graph_turns(gen, PRESET_SEEDS, card, cfg.name)}
     timing = {"ms": ms, "queued_ms": queued, "plain_ms": plain, "bound_ms": b[0],
               "bound_by": b[1], "max_abs_err": err_k, "bf16_ms": ms16, "bf16_plain_ms": plain16,
               "bf16_bound_ms": b16[0], "bf16_bound_by": b16[1]}
@@ -3898,7 +3973,7 @@ def main() -> int:
     from gmpi_tpu_torch.core import renderer as renderer_mod
     from gmpi_tpu_torch.core.renderer import (homography_grid, plan_fused, render_mpi,
                                               render_mpi_chunked, render_mpi_fused)
-    from gmpi_tpu_torch.eval.harness import FakeImageGenerator
+    from gmpi_tpu_torch.eval.harness import SAMPLER_GRAPH, FakeImageGenerator
     from gmpi_tpu_torch.models.generator import Generator
     from gmpi_tpu_torch.ops import _build
     from gmpi_tpu_torch.ops import fused_render as fr
@@ -4087,9 +4162,11 @@ def main() -> int:
         raise RuntimeError(f"serving main path launched {serving_launches}, expected one "
                            f"fused_fwd per render call ({len(seeds)}) and no backward")
     log(f"serving main path: {len(seeds)} seeds x {n_views} views, launches {serving_launches}")
+    sampler_256 = sampler_graph_turns(gen, seeds, card, "FFHQ256")
     mpix = n_views * res * res / 1e6
     log(f"generator ms per MPI: {['%.2f' % x for x in gen_ms]} (median "
-        f"{statistics.median(gen_ms):.2f}; first includes cuDNN warm-up) ({card})")
+        f"{statistics.median(gen_ms):.2f}; the first includes the warm-up and the graph's "
+        f"capture) ({card})")
     log(f"render ms per call of {n_views} views: {['%.3f' % x for x in render_ms]}, median per "
         f"view {statistics.median(render_ms) / n_views:.4f} ms, "
         f"{mpix / (statistics.median(render_ms) / 1e3):.1f} Mpix/s host-timed ({card})")
@@ -4269,6 +4346,16 @@ def main() -> int:
     gen_b = FakeImageGenerator(cfg, gen_module, use_fused=False, device=dev)
     if gen_b.tiled_bands != tiled_bands:
         raise RuntimeError(f"the harness planned {gen_b.tiled_bands}, expected {tiled_bands}")
+    # the banded sampler captures a graph of its own, which gives phase 3's MPI
+    before = SAMPLER_GRAPH.copy()
+    same_b = torch.equal(gen_b.sample_mpi(seeds[-1]), mpis[-1])
+    graph_b = dict(SAMPLER_GRAPH - before)
+    launches_b = launch_calls(lambda: gen_b.sample_mpi(seeds[-1]))
+    log(f"banded sampler: SAMPLER_GRAPH {graph_b} at its first call, {launches_b} launch calls a "
+        f"request after it, the last seed's MPI bitwise equal to phase 3's: {same_b}; "
+        f"SAMPLER_GRAPH over the run {dict(SAMPLER_GRAPH)}")
+    if not same_b or graph_b != {"capture": 1}:
+        raise RuntimeError("the banded sampler's graph disagrees with phase 3's")
     calls = {"row_steps": 0, "gather_args": None, "sample_args": None}
     warp_row_tiles, gather_patches, sample_patches = (tw._warp_row_tiles, tw.gather_patches,
                                                       tw.sample_patches)
@@ -4496,7 +4583,7 @@ def main() -> int:
         "banded_render_ms": t_banded, "banded_spans_ms": banded_spans,
         "banded_same_mpi_fused_ms": t_fused_same, "banded_same_mpi_gather_ms": t_gather_same,
         "banded_peak_gb": peak_banded, "banded_chunked_peak_gb": peak_chunked,
-        "serving_gather_ms": serving_gather_ms, "loop": loop,
+        "serving_gather_ms": serving_gather_ms, "sampler_graph": sampler_256, "loop": loop,
         "eval": {**{k: v for k, v in evaluation.items() if k != "tasks"}, "viz": viz},
         "variants": variants, "bf16": bf16, "ranks": ranks, "presets": presets,
         "banded": banded, "phase_s": phase_s}

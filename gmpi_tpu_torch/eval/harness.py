@@ -17,11 +17,14 @@ Mirrors the reference eval pipeline (``gmpi/eval/eval.sh:64-172``):
   adapters (``eval/adapters.py``).
 
 The dumps and metrics are numpy and PIL, as in the JAX package; only the
-generator and the renderer run on the device.
+generator and the renderer run on the device.  On a CUDA card the sampler's
+generator runs as a CUDA graph (``FakeImageGenerator.sample_mpi``): at batch
+1 its ~1,200 small kernels cost more to launch one by one than to run.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import os
 from typing import Callable, Dict, Optional, Tuple
@@ -42,6 +45,21 @@ from gmpi_tpu_torch.models.generator import Generator
 from gmpi_tpu_torch.utils.device import resolve_device
 from gmpi_tpu_torch.utils.inspect import profile_scope
 
+# ``FakeImageGenerator.sample_mpi`` calls on a CUDA card by how they ran the
+# generator: "capture" (a new CUDA graph, then its first replay) or "replay"
+# (a graph captured by an earlier call)
+SAMPLER_GRAPH: collections.Counter = collections.Counter()
+
+
+@dataclasses.dataclass
+class _SamplerGraph:
+    """A captured generator call: the graph and the static tensors it reads
+    (z) and writes (the MPI)."""
+
+    graph: torch.cuda.CUDAGraph
+    z: torch.Tensor
+    out: torch.Tensor
+
 
 class FakeImageGenerator:
     """Seeded eval-time sampler around (generator, renderer) for one config.
@@ -60,6 +78,13 @@ class FakeImageGenerator:
     ragged.
     ``sanity_full_alpha`` forces every plane opaque, so the render collapses
     to the nearest plane's RGB (the reference's StyleGAN2 sanity mode).
+
+    On a CUDA card ``sample_mpi`` replays CUDA graphs of the generator, one
+    for each (batch, plane count, plane chunk, truncation psi, device) it
+    has met, and captures them all anew once a parameter, buffer or plane
+    coordinate of the generator has moved to other storage (a weight swap
+    that is not in place).  A swap in place needs nothing: a graph reads the
+    tensors where they are.
     """
 
     def __init__(self, cfg: ExperimentConfig, generator: Generator,
@@ -84,20 +109,67 @@ class FakeImageGenerator:
         self.patch_backend = "cuda" if self.device.type == "cuda" else "torch"
         self.tiled_bands = None if self.use_fused else bands_for_config(
             cfg, img_size=self.img_size, n_planes=self.n_planes, device=self.device)
+        self._graphs: Dict[tuple, _SamplerGraph] = {}
+        self._graph_ptrs: Optional[tuple] = None  # the storage the graphs read
 
     @torch.no_grad()
     def sample_mpi(self, seed: int, batch: int = 1) -> torch.Tensor:
         """MPI ``[batch, L, 4, R, R]`` from the z of ``seed`` (a
-        ``sampler.mpi`` span: the z draw and the generator)."""
+        ``sampler.mpi`` span: the z draw and the generator), a tensor of its
+        own: on a CUDA card a copy of the graph's output, which the next
+        replay overwrites."""
         with profile_scope("sampler.mpi"):
             z = torch.randn((batch, self.cfg.train.z_dim),
                             generator=torch.Generator().manual_seed(seed))
-            mpi = generate_mpi(self.G, z.to(self.device), self.xyz_dict, self.n_planes,
-                               chunk_n_planes=self.chunk, truncation_psi=self.psi,
-                               noise_mode="const")
+            if self.device.type == "cuda":
+                mpi = self._replay(z)
+            else:
+                mpi = self._generate(z.to(self.device))
             if self.sanity_full_alpha:
                 mpi = torch.cat([mpi[:, :, :3], torch.ones_like(mpi[:, :, 3:4])], dim=2)
             return mpi
+
+    def _generate(self, z: torch.Tensor) -> torch.Tensor:
+        return generate_mpi(self.G, z, self.xyz_dict, self.n_planes, chunk_n_planes=self.chunk,
+                            truncation_psi=self.psi, noise_mode="const")
+
+    def _replay(self, z: torch.Tensor) -> torch.Tensor:
+        """The generator's MPI for the host tensor ``z`` through the CUDA
+        graph of this call's key (captured first where there is none)."""
+        ptrs = tuple(t.data_ptr() for m in self.G.modules()
+                     for t in (*m._parameters.values(), *m._buffers.values()) if t is not None)
+        ptrs += tuple(t.data_ptr() for t in self.xyz_dict.values())
+        if ptrs != self._graph_ptrs:  # the graphs would read storage that has moved
+            self._graphs.clear()
+            self._graph_ptrs = ptrs
+        key = (z.shape[0], self.n_planes, self.chunk, self.psi, self.device)
+        with torch.cuda.device(self.device):
+            entry = self._graphs.get(key)
+            if entry is None:
+                with profile_scope("sampler.graph_capture"):
+                    entry = self._graphs[key] = self._capture(z)
+                SAMPLER_GRAPH["capture"] += 1
+            else:
+                SAMPLER_GRAPH["replay"] += 1
+            entry.z.copy_(z)
+            with profile_scope("sampler.graph_replay"):
+                entry.graph.replay()
+            return entry.out.clone()
+
+    def _capture(self, z: torch.Tensor) -> _SamplerGraph:
+        """Capture the generator's call on a static copy of ``z``, after one
+        eager call on a side stream (cuDNN's algorithm choices and the
+        allocator's workspaces made before the capture)."""
+        static_z = z.to(self.device)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            self._generate(static_z)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = self._generate(static_z)
+        return _SamplerGraph(graph, static_z, out)
 
     def sample_views(self, seed: int, n_views: int) -> Tuple[torch.Tensor, torch.Tensor]:
         """``[n_views, 1]`` yaws and pitches from the pose distribution."""
