@@ -678,7 +678,7 @@ def check_edges(fr, cam, poses, cfg, dev):
         d_samp = d_samp * (torch.rand((n_v, n_l, 1, h, w), device=dev, generator=gen) > 0.3)
         if tweak == "slab":
             d_samp = unaligned_copy(d_samp)
-        bands = fr.AdjointBands(8, 8) if tweak == "nan" else fr.plan_adjoint(scal, rx, ry, th, tw)
+        bands = fr.AdjointBands() if tweak == "nan" else fr.plan_adjoint(scal, rx, ry)
         a_tex = fr.warp_adjoint(d_samp, rx, ry, scal, bands, th, tw)
         a_again = fr.warp_adjoint(d_samp, rx, ry, scal, bands, th, tw)
         a_ref = fr.warp_adjoint_ref(d_samp, rx, ry, scal, th, tw)
@@ -843,7 +843,7 @@ def backward_kernels_at(fr, mpi, dhw, rays, cot, adj_bands, rates, card, plain_i
         f"{t_splat_direct_queued:.4f}); errors by path {splat_errs}; plain {t_splat_plain:.3f} ms, grid_sample backward "
         f"{t_splat_lib:.4f} ms, needs {work['splat']} B; bound {bounds['splat'][0]:.5f} ms "
         f"({card})")
-    log(f"adjoint (measured windows {adj_bands}): {t_adj:.4f} ms with everything its wrapper "
+    log(f"adjoint: {t_adj:.4f} ms with everything its wrapper "
         f"launches (the kernel alone: no op precedes it); the splat timed around it "
         f"{t_splat:.4f} / {t_splat_again:.4f} ms; 10 launches queued: adjoint "
         f"{t_adj_queued:.4f}, splat {t_splat_queued:.4f} a launch; plain {t_adj_plain:.3f} ms, "
@@ -1017,7 +1017,7 @@ def patch_sample_at(tw, gather_args, sample_args, rates, card, label):
     h, w = texf.shape[2] // c - 2 * pad_y, texf.shape[1] - 2 * pad_x
     fx_k, fy_k = fx[:k, rows, cols], fy[:k, rows, cols]
     step = lambda into: tw._warp_row_tiles(  # noqa: E731
-        texf[:k], fx_k, fy_k, band_y, band_x, pad_y, pad_x, h, w, c, "cuda", None, into)
+        texf[:k], fx_k, fy_k, band_y, band_x, pad_y, pad_x, h, w, c, None, into)
     with torch.no_grad():
         step_ms = time_ms(lambda: step((buf[:k], fx[:k], fy[:k], first_tile)), iters=5)
         hats_ms = time_ms(lambda: step(None), iters=5, warmup=1)
@@ -1026,7 +1026,8 @@ def patch_sample_at(tw, gather_args, sample_args, rates, card, label):
         f"version; {ms:.4f} ms, queued {queued_ms:.4f} ms, plain {plain_ms:.3f} ms; needs "
         f"{n_bytes} B ({n_taps} tap texels); bound {b[0]:.5f} ms ({b[0] / queued_ms:.0%} of it "
         f"queued, {b[0] / ms:.0%} one launch a pair); the tile-row step on {k} textures: K7 "
-        f"and K8 {step_ms:.3f} ms, K7 and the hat contractions {hats_ms:.3f} ms ({card})")
+        f"and K8 {step_ms:.3f} ms, the advanced index and the hat contractions {hats_ms:.3f} ms "
+        f"({card})")
     torch.cuda.empty_cache()
     return {"ms": ms, "queued_ms": queued_ms, "plain_ms": plain_ms, "bound_ms": b[0],
             "bound_by": b[1], "bytes": n_bytes, "tap_texels": n_taps, "max_rel_err": err,
@@ -2480,12 +2481,12 @@ def _rank_renders(mesh_p, mesh_t, mesh_pt, dev, gates, record, fr):
         cases["tile_fused"] = lambda x: pr.render_mpi_tile_sharded(
             mesh_t, x, geom.dhw, *rays, render_fn=fused)
         cases["tile_banded"] = lambda x: pr.render_mpi_tile_sharded(
-            mesh_t, x, geom.dhw, *rays, tiled_bands=bands, patch_backend="cuda")
+            mesh_t, x, geom.dhw, *rays, tiled_bands=bands)
     if mesh_pt is not None:
         cases["plane_tile_fused"] = lambda x: pr.render_mpi_plane_tile_sharded(
             mesh_pt, x, geom.dhw, *rays, slab_fn=slab)
         cases["plane_tile_banded"] = lambda x: pr.render_mpi_plane_tile_sharded(
-            mesh_pt, x, geom.dhw, *rays, tiled_bands=bands, patch_backend="cuda")
+            mesh_pt, x, geom.dhw, *rays, tiled_bands=bands)
     for name, fn in cases.items():
         reset_counts(fr)
         with torch.no_grad():
@@ -2922,8 +2923,7 @@ def full_scale_checks(fr, tw, pg, cfg, rates, card, dev):
                 "fused": lambda x: render_mpi_fused(x, geom.dhw, *rays, with_disp=False),
                 "fused bf16": lambda x: render_mpi_fused(x, geom.dhw, *rays, with_disp=False,
                                                          compute_dtype=torch.bfloat16),
-                "banded": lambda x: render_mpi(x, geom.dhw, *rays, tiled_bands=bands,
-                                               patch_backend="cuda")}
+                "banded": lambda x: render_mpi(x, geom.dhw, *rays, tiled_bands=bands)}
             pose = {"oracle_ms": oracle_ms, "fp32_oracle_vs_fp64": err_o}
             for name, render in routes.items():
                 reset_counts(fr)
@@ -3222,7 +3222,7 @@ def preset_training(fr, cfg, rates, card, dev):
     errs["fused_fwd"] = err_f
     del mpi
     torch.cuda.empty_cache()
-    record = {"runs": runs, "grad_vs_gather": err_g, "adjoint_windows": list(adj_bands)}
+    record = {"runs": runs, "grad_vs_gather": err_g}
     return record, all_launches, errs, {**k, **forms}
 
 
@@ -3767,9 +3767,9 @@ def banded_training(fr, tw, pg, card, dev, tmp, name):
     # a G micro-batch's rgba gradient: the step's banded render against the gather's
     step = make_train_step(dataclasses.replace(cfg, train=dataclasses.replace(
         cfg.train, use_fused_renderer=False)), device=dev)
-    if step.patch_backend != "cuda" or len(step.tiled_bands) != 4:
-        raise RuntimeError(f"{name}: the banded step took patches by {step.patch_backend!r} "
-                           f"with bands {step.tiled_bands}")
+    if len(step.tiled_bands) != 4:
+        raise RuntimeError(f"{name}: the banded step planned bands {step.tiled_bands}, with no "
+                           f"tiled adjoint")
     rng = torch.Generator().manual_seed(3)
     mbs = bs // split
     with torch.no_grad():
@@ -3781,7 +3781,11 @@ def banded_training(fr, tw, pg, card, dev, tmp, name):
     cot = torch.randn((mbs, 3, res, res), device=dev,
                       generator=torch.Generator(device=dev).manual_seed(42))
     x = mpi.clone().requires_grad_()
+    before = read_counts(fr)
     imgs, _, _ = step.render_views(x, yv, pv)
+    k78 = {k: read_counts(fr)[k] - before[k] for k in ("patch_gather", "patch_sample")}
+    if not k78["patch_gather"] == k78["patch_sample"] > 0:  # the taps, under autograd
+        raise RuntimeError(f"{name}: the banded step's G render launched {k78} of K7 and K8")
     grad_b = torch.autograd.grad((imgs * cot).sum(), x)[0]
     x = mpi.clone().requires_grad_()
     grad_g = torch.autograd.grad(((render_mpi(x, geom.dhw, *rays).color * 2.0 - 1.0)
@@ -4058,7 +4062,7 @@ def main() -> int:
     scales = torch.linspace(1.0, 0.25, n_cand).reshape(1, n_cand)
     rays_w = fused_inputs(fr, geom_train.dhw, *rays_at((yaws * scales).reshape(-1, 1),
                                                        (pitches * scales).reshape(-1, 1)), res)
-    # the adjoint's windows, planned on the host at the corners of the pose range
+    # the adjoint's plan (its checks of the warp), on the host at the corners of the pose range
     t0 = time.perf_counter()
     corner_rays = bands_mod._corner_rays(c, cfg.fov_deg, res, res, device=dev)
     adj_plans = plan_fused(geom_train.dhw, *corner_rays, res, res)
@@ -4396,7 +4400,7 @@ def main() -> int:
             for _ in range(2):
                 chunked, chunked_ms = host_ms(lambda: render_mpi_chunked(
                     mpi_v, geom.dhw, ray_dir, eye, z_dir, plane_chunk=24,
-                    tiled_bands=tiled_bands, patch_backend="cuda"))
+                    tiled_bands=tiled_bands))
         peak_chunked = torch.cuda.max_memory_allocated() / 1e9
         banded_launches = read_counts(fr)
     finally:
@@ -4407,8 +4411,7 @@ def main() -> int:
         n_views * n_planes, *x.shape[1:])
     grid, _ = homography_grid(geom.dhw.repeat(n_views, 1), per_plane(eye), per_plane(ray_dir),
                               per_plane(z_dir))
-    covered = bool(tw.bands_cover((n_views * n_planes, 4, res, res), grid, band_y, band_x,
-                                  tile=(8, res)))
+    covered = bool(tw.bands_cover((n_views * n_planes, 4, res, res), grid, band_y, band_x))
     del grid
     expected = {**dict.fromkeys(fr.LAUNCHES, 0), "patch_gather": calls["row_steps"],
                 "patch_sample": calls["row_steps"]}
@@ -4567,8 +4570,8 @@ def main() -> int:
               direct_path_ms=k5["splat_direct"],
               direct_path_queued_ms=k5["splat_direct_queued"]),
         entry("adjoint", 2029, k5["adj"], k5["adj_plain"], k5["bounds"]["adjoint"], k5["splat_lib"],
-              splat_ms_around=[k5["splat"], k5["splat_again"]], windows=list(adj_bands),
-              queued_ms=k5["adj_queued"], splat_queued_ms=k5["splat_queued"]),
+              splat_ms_around=[k5["splat"], k5["splat_again"]], queued_ms=k5["adj_queued"],
+              splat_queued_ms=k5["splat_queued"]),
         entry("patch_gather", 33, k7["ms"], k7["plain_ms"], (k7["bound_ms"], k7["bound_by"]),
               k7["library_ms"],
               replaces="gmpi_tpu/ops/pallas_patch.py", err_scale="exact equality required",

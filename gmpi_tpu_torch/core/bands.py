@@ -34,7 +34,7 @@ from gmpi_tpu_torch.core import camera as cam
 from gmpi_tpu_torch.core import poses as poses_mod
 from gmpi_tpu_torch.core.geometry import PlaneGeometry
 from gmpi_tpu_torch.core.renderer import homography_grid
-from gmpi_tpu_torch.ops.tiled_warp import required_bands
+from gmpi_tpu_torch.ops.tiled_warp import required_bands, tiling
 from gmpi_tpu_torch.ops.tiled_warp_adjoint import check_monotone, required_output_bands
 from gmpi_tpu_torch.utils.device import resolve_device
 
@@ -69,7 +69,8 @@ def required_spans(dhw: torch.Tensor, rays, img_h: int, img_w: int,
     """The spans, without margin, that the tiled warp and its adjoint need
     for every (pose, plane) pair of ``rays = (ray_dir [V, 3, H, W], eye [V,
     3], z_dir [V, 3])`` and ``dhw [L, 3]``: ``(band_y, band_x, adjoint rows,
-    adjoint cols)``, the last two None where the warp is not monotone.
+    adjoint cols)``, the last two None where the warp is not monotone, for
+    the tiles of ``tiled_warp.tiling`` (``tile`` in place of its warp tile).
     Measured on the rays' device, the pairs in groups under
     ``PLAN_STEP_BYTES``."""
     ray_dir, eye, z_dir = rays
@@ -78,14 +79,7 @@ def required_spans(dhw: torch.Tensor, rays, img_h: int, img_w: int,
     n_planes = dhw.shape[0]
     n_pairs = ray_dir.shape[0] * n_planes
     group = max(1, min(n_pairs, PLAN_STEP_BYTES // (_PLAN_FLOATS_PER_PIXEL * 4 * img_h * img_w)))
-    if tile is None:
-        # must mirror core/renderer._sample's tile heuristic
-        tile = (8 if img_h % 8 == 0 else 1,
-                256 if img_w % 256 == 0 else 128 if img_w % 128 == 0 else img_w)
-    # the adjoint runs on taller and wider texture tiles, which amortize the
-    # overlap of neighbouring tiles' bands
-    atile = (32 if img_h % 32 == 0 else tile[0],
-             512 if img_w % 512 == 0 else 256 if img_w % 256 == 0 else tile[1])
+    tile, atile = tiling(img_h, img_w, tile)[:2]
     by = bx = pbr = pbc = 0
     monotone = True
     for i in range(0, n_pairs, group):

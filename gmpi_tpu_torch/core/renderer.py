@@ -8,10 +8,10 @@ Three paths with the reference renderer's semantics:
   with weights ``alpha * cumprod(1 - alpha + 1e-10)``;
 * the banded path, :func:`render_mpi` / :func:`render_mpi_chunked` with
   ``tiled_bands``: the same render with the sampling done by the tile-banded
-  warp of ``gmpi_tpu_torch.ops.tiled_warp`` (``patch_backend="cuda"`` takes
-  its patches through the patch-gather kernel and its taps through the tap
-  kernel); 4-field bands add the scatter-free tiled adjoint as the warp's
-  backward;
+  warp of ``gmpi_tpu_torch.ops.tiled_warp``, which picks its tiling and its
+  route itself (the patch-gather and tap kernels where autograd records
+  nothing through it, the hat contractions where it does); 4-field bands add
+  the scatter-free tiled adjoint as the warp's backward;
 * the fused path, :func:`render_mpi_fused`: the warp+composite kernel of
   ``gmpi_tpu_torch.ops.fused_render`` and, under autograd, its backward
   kernels behind ``FusedRender`` (composite backward, then the splat or,
@@ -44,8 +44,9 @@ from gmpi_tpu_torch.utils.inspect import profile_scope
 
 ALIGN_CORNERS_FALSE_NARROW_SCALE = 0.95
 COMPOSITE_EPS = 1e-10
-# what one step of the banded warp holds: its patches on the tap kernel's route, else its
-# hats and mixed products
+# what one step of the banded warp holds: its patches on the taps, its hats and mixed
+# products on the hats (a served MPI of 96 planes in 4 views holds ~45 GB of hats and mixed
+# products at 256^2, 7 GB of patches)
 TILED_STEP_BYTES = 4 * 2 ** 30
 
 
@@ -75,49 +76,35 @@ def homography_grid(dhw: torch.Tensor, eye_pos: torch.Tensor, ray_dir: torch.Ten
     return grid, (scale * dist2depth).reshape(n, 1, h, w)
 
 
-def _sample(rgba, grid, align_corners, tiled_bands, patch_backend="torch"):
-    """Warp-backend dispatch: the per-pixel gather (``F.grid_sample``), or the
+def _sample(rgba, grid, align_corners, tiled_bands):
+    """Warp dispatch: the per-pixel gather (``F.grid_sample``), or the
     tile-banded warp when ``tiled_bands = (band_y, band_x[, adj_rows,
-    adj_cols])`` is given; with the two adjoint fields its backward is the
-    scatter-free tiled adjoint."""
+    adj_cols])`` is given, in the warp's own tiling (``tiled_warp.tiling``);
+    with the two adjoint fields its backward is the scatter-free tiled
+    adjoint."""
     if tiled_bands is None:
         return grid_sample_bilinear(rgba, grid, align_corners=align_corners)
     from gmpi_tpu_torch.ops.tiled_warp import grid_sample_tiled, make_tiled_warp_with_adjoint
 
     band_y, band_x = tiled_bands[0], tiled_bands[1]
-    h, w = grid.shape[1], grid.shape[2]
-    # must mirror core/bands.estimate_bands' tile heuristic
-    tile = (8 if h % 8 == 0 else 1,
-            256 if w % 256 == 0 else 128 if w % 128 == 0 else w)
-    # tile rows a step as the JAX package takes them (~64 steps at large
-    # sizes); the warp and its adjoint cut the rows and group the textures
-    # further to keep what a step holds under TILED_STEP_BYTES (a served MPI of
-    # 96 planes in 4 views holds ~45 GB of hats and mixed products at 256^2,
-    # 7 GB of patches)
-    nty = h // tile[0]
-    row_scan = nty > 32
-    rows_per_step = max(1, nty // 64) if row_scan else 1
     if len(tiled_bands) == 4:
-        fn = make_tiled_warp_with_adjoint(
-            band_y, band_x, (tiled_bands[2], tiled_bands[3]), tile=tile,
-            align_corners=align_corners, row_scan=row_scan, rows_per_step=rows_per_step,
-            patch_backend=patch_backend, step_bytes=TILED_STEP_BYTES)
+        fn = make_tiled_warp_with_adjoint(band_y, band_x, (tiled_bands[2], tiled_bands[3]),
+                                          align_corners=align_corners,
+                                          step_bytes=TILED_STEP_BYTES)
         return fn(rgba, grid)
-    return grid_sample_tiled(rgba, grid, band_y=band_y, band_x=band_x, tile=tile,
-                             align_corners=align_corners, row_scan=row_scan,
-                             rows_per_step=rows_per_step, patch_backend=patch_backend,
+    return grid_sample_tiled(rgba, grid, band_y, band_x, align_corners=align_corners,
                              step_bytes=TILED_STEP_BYTES)
 
 
 def warp_planes(rgba: torch.Tensor, dhw: torch.Tensor, eye_pos: torch.Tensor,
                 ray_dir: torch.Tensor, z_dir: torch.Tensor, align_corners: bool = True,
-                tiled_bands: Optional[Tuple[int, ...]] = None, patch_backend: str = "torch"
+                tiled_bands: Optional[Tuple[int, ...]] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Inverse-warp flattened planes ``rgba [N, 4, Th, Tw]`` into their
     cameras: ``(rgb [N,3,H,W], disp [N,1,H,W], alpha [N,1,H,W])``."""
     with torch.no_grad():
         grid, depth = homography_grid(dhw, eye_pos, ray_dir, z_dir, align_corners)
-    sampled = _sample(rgba, grid, align_corners, tiled_bands, patch_backend)
+    sampled = _sample(rgba, grid, align_corners, tiled_bands)
     return sampled[:, :3], 1.0 / depth, sampled[:, 3:4]
 
 
@@ -185,19 +172,18 @@ def _span_of(tiled_bands) -> str:
 
 def render_mpi(rgba: torch.Tensor, dhw: torch.Tensor, ray_dir: torch.Tensor,
                eye_pos: torch.Tensor, z_dir: torch.Tensor, align_corners: bool = True,
-               tiled_bands: Optional[Tuple[int, ...]] = None, stop_pose_grad: bool = True,
-               patch_backend: str = "torch") -> RenderOutput:
+               tiled_bands: Optional[Tuple[int, ...]] = None, stop_pose_grad: bool = True
+               ) -> RenderOutput:
     """Render ``rgba [V, L, 4, Th, Tw]`` (RGB and alpha in [0, 1], plane 0
     nearest) into one camera per view: dhw ``[L, 3]`` or ``[V, L, 3]``,
     ray_dir ``[V, 3, H, W]``, eye_pos / z_dir ``[V, 3]``.
 
     ``tiled_bands`` (from ``core.bands``) samples through the tile-banded warp
-    instead of the per-pixel gather, its patches gathered by
-    ``patch_backend`` (``"torch"`` or ``"cuda"``, the kernel).
-    ``stop_pose_grad=False`` is the differentiable-pose mode: the sampling
-    grid and the per-pixel depth keep their graph to ``dhw`` / ``ray_dir`` /
-    ``eye_pos`` / ``z_dir``; it samples through plain autograd (2-field bands
-    and the ``"torch"`` backend), since the custom adjoint cuts grid gradients."""
+    instead of the per-pixel gather.  ``stop_pose_grad=False`` is the
+    differentiable-pose mode: the sampling grid and the per-pixel depth keep
+    their graph to ``dhw`` / ``ray_dir`` / ``eye_pos`` / ``z_dir``; it samples
+    through plain autograd (2-field bands, so the warp takes the hats), since
+    the custom adjoint cuts grid gradients."""
     with profile_scope(_span_of(tiled_bands)):
         v, n_l = rgba.shape[0], rgba.shape[1]
         h, w = ray_dir.shape[2], ray_dir.shape[3]
@@ -206,7 +192,7 @@ def render_mpi(rgba: torch.Tensor, dhw: torch.Tensor, ray_dir: torch.Tensor,
         if stop_pose_grad:
             with torch.no_grad():
                 grid, depth = homography_grid(flat_dhw, flat_eye, flat_ray, flat_z, align_corners)
-            sampled = _sample(flat_rgba, grid, align_corners, tiled_bands, patch_backend)
+            sampled = _sample(flat_rgba, grid, align_corners, tiled_bands)
         else:
             grid, depth = homography_grid(flat_dhw, flat_eye, flat_ray, flat_z, align_corners)
             bands2 = tuple(tiled_bands[:2]) if tiled_bands is not None else None
@@ -221,8 +207,7 @@ def render_mpi(rgba: torch.Tensor, dhw: torch.Tensor, ray_dir: torch.Tensor,
 
 
 def render_slab_partial(rgba, dhw, ray_dir, eye_pos, z_dir, align_corners: bool = True,
-                        tiled_bands: Optional[Tuple[int, ...]] = None,
-                        patch_backend: str = "torch", with_disp: bool = False):
+                        tiled_bands: Optional[Tuple[int, ...]] = None, with_disp: bool = False):
     """Warp + partially composite one plane slab; partials for
     :func:`combine_segments` (a 4-tuple with disparity when ``with_disp``)."""
     v, n_l = rgba.shape[0], rgba.shape[1]
@@ -230,7 +215,7 @@ def render_slab_partial(rgba, dhw, ray_dir, eye_pos, z_dir, align_corners: bool 
     flat_rgba, flat_dhw, flat_ray, flat_eye, flat_z = _flatten_views(
         rgba, dhw, ray_dir, eye_pos, z_dir)
     rgb, disp, alpha = warp_planes(flat_rgba, flat_dhw, flat_eye, flat_ray, flat_z,
-                                   align_corners, tiled_bands, patch_backend)
+                                   align_corners, tiled_bands)
     depth = (1.0 / disp).reshape(v, n_l, 1, h, w)
     rgb = rgb.reshape(v, n_l, 3, h, w)
     alpha = alpha.reshape(v, n_l, 1, h, w)
@@ -241,8 +226,8 @@ def render_slab_partial(rgba, dhw, ray_dir, eye_pos, z_dir, align_corners: bool 
 def render_mpi_chunked(rgba: torch.Tensor, dhw: torch.Tensor, ray_dir: torch.Tensor,
                        eye_pos: torch.Tensor, z_dir: torch.Tensor, plane_chunk: int,
                        align_corners: bool = True, remat: bool = False,
-                       tiled_bands: Optional[Sequence] = None, patch_backend: str = "torch",
-                       with_disp: bool = True) -> RenderOutput:
+                       tiled_bands: Optional[Sequence] = None, with_disp: bool = True
+                       ) -> RenderOutput:
     """Memory-bounded render: planes go through in contiguous front-to-back
     slabs of ``plane_chunk`` (a loop) and their partials combine by segment
     compositing, so the peak footprint is one slab's warped planes, not all
@@ -269,7 +254,7 @@ def render_mpi_chunked(rgba: torch.Tensor, dhw: torch.Tensor, ray_dir: torch.Ten
 
             def slab(r, d, bands=bands):
                 return render_slab_partial(r, d, ray_dir, eye_pos, z_dir, align_corners, bands,
-                                           patch_backend, with_disp=with_disp)
+                                           with_disp=with_disp)
 
             sl = slice(k * plane_chunk, (k + 1) * plane_chunk)
             if remat:
@@ -323,25 +308,24 @@ def _fused_partials(rgba, dhw, ray_dir, eye_pos, z_dir, early_out: bool, with_di
 
 
 def plan_fused(dhw: torch.Tensor, ray_dir: torch.Tensor, eye_pos: torch.Tensor,
-               z_dir: torch.Tensor, tex_h: int, tex_w: int, margin: int = 2):
+               z_dir: torch.Tensor, tex_h: int, tex_w: int):
     """Host-side planning of the fused renderer's texture-space adjoint
     route: the ``plans`` pair for :func:`render_mpi_fused`, ``(None,
     (AdjointBands,))``, whose second half selects the adjoint as the
     backward's last stage in place of the splat.  No kernel reads a plan:
     the forward and the splat are tile kernels that find each tile's texel
     box on the card, and so does the adjoint for each texel tile's box of
-    pixels; the first half is therefore None.  What ``plans`` still carries
-    is ``fused_render.plan_adjoint``'s word that the poses passed its checks:
+    pixels; the first half is therefore None.  What ``plans`` carries is
+    ``fused_render.plan_adjoint``'s word that the poses passed its checks:
     every plane in front of the eye, and ``fx`` and ``fy`` monotone along and
-    across image rows and columns, which the adjoint's search needs.  Its
-    windows (``AdjointBands``) are kept as a measure of the boxes' size.
-    Call it with concrete poses at the corners of the pose range (for
-    training, the truncation corners), so the check covers every pose the
-    sampler can draw.  Raises where the warp is not monotone."""
+    across image rows and columns, which the adjoint's search needs.  Call it
+    with concrete poses at the corners of the pose range (for training, the
+    truncation corners), so the check covers every pose the sampler can draw.
+    Raises where the warp is not monotone."""
     with torch.no_grad():
         scal = fused_render.plane_affine(dhw.float().cpu(), eye_pos.float().cpu(), tex_h, tex_w)
         rx, ry, _ = fused_render.ray_fields(ray_dir.float().cpu(), z_dir.float().cpu())
-    return None, (fused_render.plan_adjoint(scal, rx, ry, tex_h, tex_w, margin=margin),)
+    return None, (fused_render.plan_adjoint(scal, rx, ry),)
 
 
 def _adjoint_bands_of(plans):
@@ -418,17 +402,15 @@ def make_fused_slab_renderer(with_disp: bool = False,
 
 
 def render_mpi_fused_remat(rgba: torch.Tensor, dhw: torch.Tensor, ray_dir: torch.Tensor,
-                           eye_pos: torch.Tensor, z_dir: torch.Tensor, plans=None,
-                           plane_chunk: int = 8, with_disp: bool = True,
+                           eye_pos: torch.Tensor, z_dir: torch.Tensor, plane_chunk: int = 8,
+                           with_disp: bool = True,
                            compute_dtype: Optional[torch.dtype] = None) -> RenderOutput:
     """Memory-rematerialized fused render: slabs of ``plane_chunk`` planes
     render through the slab renderer under ``torch.utils.checkpoint`` and
     their partials combine front to back, so the backward holds one slab's
     residual and cotangents at a time; each slab's forward runs twice.
     Semantics of :func:`render_mpi_fused` (``compute_dtype`` included);
-    ``plans`` accepted and unused (``plane_chunk`` takes the place of the
-    plan's chunks)."""
-    del plans
+    ``plane_chunk`` takes the place of the JAX package's plan chunks."""
     if plane_chunk < 1:
         raise ValueError(f"plane_chunk: expected >= 1, got {plane_chunk}")
     slab = make_fused_slab_renderer(with_disp=with_disp, compute_dtype=compute_dtype)

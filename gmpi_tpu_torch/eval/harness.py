@@ -106,7 +106,6 @@ class FakeImageGenerator:
         self.xyz_dict = cfg.multi_res_xyz(self.geom)
         self.intr = cam.intrinsics_from_fov(cfg.fov_deg, self.img_size, self.img_size)
         self.use_fused = use_fused and cfg.planes.align_corners
-        self.patch_backend = "cuda" if self.device.type == "cuda" else "torch"
         self.tiled_bands = None if self.use_fused else bands_for_config(
             cfg, img_size=self.img_size, n_planes=self.n_planes, device=self.device)
         self._graphs: Dict[tuple, _SamplerGraph] = {}
@@ -188,8 +187,7 @@ class FakeImageGenerator:
             out = render_mpi_fused(mpi, self.geom.dhw, ray_dir, eye, z_dir)
         else:
             out = render_mpi(mpi, self.geom.dhw, ray_dir, eye, z_dir,
-                             self.cfg.planes.align_corners, tiled_bands=self.tiled_bands,
-                             patch_backend=self.patch_backend)
+                             self.cfg.planes.align_corners, tiled_bands=self.tiled_bands)
         return out.color * 2.0 - 1.0, out.depth
 
 

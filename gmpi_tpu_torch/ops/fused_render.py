@@ -39,16 +39,15 @@ a block of the adjoint owns a tile of texels, finds that tile's box of pixels
 with a few cooperative searches of the ray fields, stages it the same way,
 and each thread sums its two texels' pixels from there.  Neither needs a plan
 made on the host: :func:`plan_adjoint` only checks, once per pose range, that
-the ray fields are monotone as the adjoint's search assumes, and measures the
-windows that :class:`AdjointBands` reports.
+the ray fields are monotone as the adjoint's search assumes.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple, Optional, Tuple, Union
+import dataclasses
+from typing import Optional, Tuple, Union
 
-import numpy as np
 import torch
 from torch.autograd.function import once_differentiable
 
@@ -496,32 +495,12 @@ def warp_splat(d_samp: torch.Tensor, rx: torch.Tensor, ry: torch.Tensor, scal: t
     return _launch_splat(d_samp, rx, ry, scal, n_live, tex_h, tex_w)
 
 
-class AdjointBands(NamedTuple):
-    """Windows of the texture-space adjoint, measured on the host
-    (:func:`plan_adjoint`) for a pose range; holding one is the caller's word
-    that the range's ray fields passed :func:`plan_adjoint`'s checks.
-
-    The numbers are plain pixel counts: ``d_u`` is how many image rows can
-    hold a pixel whose ``fy`` lies within one texel of a given texel row, the
-    worst case over texel rows, planes and planned poses, plus the margin;
-    ``d_v`` the same for image columns and ``fx``.  (The TPU kernel's fields
-    of the same names count tap offsets along a 16-row strip's rebased
-    diagonal and carry a third, DMA-row field; neither notion exists here.)
-    They say how large a texel tile's box of pixels gets; the kernel does not
-    read them: each block finds its own box, of whatever size, on the card.
-    """
-    d_u: int
-    d_v: int
-
-
-def _line_extrema(rx, ry, scal, rows: bool, largest: bool = True) -> torch.Tensor:
-    """The largest (or smallest) ``fy`` of each image row (``rows``: ``[V, L,
-    H]``) or ``fx`` of each image column (``[V, L, W]``), per (view, plane).
-    ``Ax, Ay > 0`` (planes in front of the eye, which :func:`plan_adjoint`
-    checks), so the extremum of the ray field is the coordinate's."""
-    pick = torch.amax if largest else torch.amin
-    field, dim, a, b = (ry, 2, 2, 3) if rows else (rx, 1, 0, 1)
-    return scal[..., a, None] * pick(field, dim=dim)[:, None] + scal[..., b, None]
+@dataclasses.dataclass(frozen=True)
+class AdjointBands:
+    """:func:`plan_adjoint`'s word that a pose range's ray fields passed its
+    checks, which the adjoint kernel's search relies on.  It carries no
+    numbers: each block of the kernel finds its own box of pixels on the
+    card.  (The TPU kernel's band plan has no counterpart here.)"""
 
 
 def _monotone_either_way(field: torch.Tensor, dim: int, tol: float = 1e-6) -> bool:
@@ -531,10 +510,10 @@ def _monotone_either_way(field: torch.Tensor, dim: int, tol: float = 1e-6) -> bo
     return bool(((d >= -tol).all(dim=dim) | (d <= tol).all(dim=dim)).all())
 
 
-def plan_adjoint(scal, rx, ry, tex_h: int, tex_w: int, margin: int = 2) -> AdjointBands:
-    """Check the ray fields of the poses given for the adjoint kernel and
-    measure its windows (host work on concrete tensors; plan at the corners of
-    the pose range so the result covers every pose in it).  scal ``[V, L, 6]``
+def plan_adjoint(scal, rx, ry) -> AdjointBands:
+    """Check the ray fields of the poses given for the adjoint kernel (host
+    work on concrete tensors; plan at the corners of the pose range so the
+    result covers every pose in it).  scal ``[V, L, 6]``
     (or ``[L, 6]``), rx, ry ``[V, H, W]``.  Raises ``ValueError`` where the
     warp is not monotone: the kernel searches ``fx`` along image rows and
     ``fy`` along image columns for a texel tile's box, and takes the box's
@@ -557,19 +536,7 @@ def plan_adjoint(scal, rx, ry, tex_h: int, tex_w: int, margin: int = 2) -> Adjoi
                          "(fx must rise or fall throughout along a column, fy along a row, as a "
                          "pinhole camera's do); the adjoint kernel cannot serve these poses, use "
                          "the splat route")
-    spans = []
-    for rows, n_tex in ((True, tex_h), (False, tex_w)):
-        f_max = _line_extrema(rx, ry, scal, rows).numpy()
-        f_min = _line_extrema(rx, ry, scal, rows, largest=False).numpy()
-        t = np.arange(n_tex, dtype=np.float32)
-        span = 1
-        for vi in range(f_max.shape[0]):
-            for li in range(f_max.shape[1]):
-                first = np.searchsorted(f_max[vi, li], t - 1.0, side="right")
-                last = np.searchsorted(f_min[vi, li], t + 1.0, side="left") - 1
-                span = max(span, int((last - first + 1).max()))
-        spans.append(span + 1 + margin)
-    return AdjointBands(d_u=spans[0], d_v=spans[1])
+    return AdjointBands()
 
 
 def warp_adjoint_ref(d_samp: torch.Tensor, rx: torch.Tensor, ry: torch.Tensor,
@@ -612,15 +579,15 @@ def warp_adjoint(d_samp: torch.Tensor, rx: torch.Tensor, ry: torch.Tensor, scal:
     d_samp ``[V, L, 4, H, W]`` f32 (exact zeros where a pixel never reached a
     plane, as :func:`composite_bwd` writes them); rx, ry ``[V, H, W]``; scal
     ``[V, L, 6]``; ``bands`` from :func:`plan_adjoint` for a pose range that
-    holds these poses (the kernel relies on what it checked, not on its
-    numbers).  Returns ``d_tex [V, L, 4, tex_h, tex_w]``.  A block owns a tile
-    of texels and finds that tile's pixels itself; every texel is owned by one
-    thread that visits its pixels in a fixed order and writes once: no
-    atomics, no zero fill, no work before the launch, bitwise repeatable
-    (unlike :func:`warp_splat`).  CPU tensors run :func:`warp_adjoint_ref`;
+    holds these poses (the kernel relies on what it checked).  Returns
+    ``d_tex [V, L, 4, tex_h, tex_w]``.  A block owns a tile of texels and
+    finds that tile's pixels itself; every texel is owned by one thread that
+    visits its pixels in a fixed order and writes once: no atomics, no zero
+    fill, no work before the launch, bitwise repeatable (unlike
+    :func:`warp_splat`).  CPU tensors run :func:`warp_adjoint_ref`;
     CUDA tensors launch the kernel."""
-    if not isinstance(bands, AdjointBands) or min(bands) < 1:
-        raise ValueError(f"bands: expected AdjointBands of positive windows, got {bands!r}")
+    if not isinstance(bands, AdjointBands):
+        raise ValueError(f"bands: expected AdjointBands from plan_adjoint, got {bands!r}")
     if d_samp.device.type == "cpu":
         return warp_adjoint_ref(d_samp, rx, ry, scal, tex_h, tex_w)
     if d_samp.device.type != "cuda":

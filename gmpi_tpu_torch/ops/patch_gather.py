@@ -154,8 +154,8 @@ def gather_patches(texf: torch.Tensor, offs: torch.Tensor, band_x: int, band_yc:
     if torch.is_grad_enabled() and texf.requires_grad:
         raise RuntimeError(
             "gather_patches has no gradient (a hand-written kernel outside autograd): "
-            "differentiate through make_tiled_warp_with_adjoint (4-field tiled_bands) or use "
-            "patch_backend='torch'")
+            "differentiate through make_tiled_warp_with_adjoint (4-field tiled_bands) or "
+            "through grid_sample_tiled, which takes the hat contractions under autograd")
     _check_args(texf, offs, band_x, band_yc)
     if validate:
         _check_range(texf, offs, band_x, band_yc)

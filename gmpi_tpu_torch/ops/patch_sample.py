@@ -124,8 +124,8 @@ def sample_patches(patches: torch.Tensor, offs: torch.Tensor, fx: torch.Tensor,
     if torch.is_grad_enabled() and any(x.requires_grad for x in (patches, fx, fy)):
         raise RuntimeError(
             "sample_patches has no gradient (a hand-written kernel outside autograd): "
-            "differentiate through make_tiled_warp_with_adjoint (4-field tiled_bands) or use "
-            "patch_backend='torch'")
+            "differentiate through make_tiled_warp_with_adjoint (4-field tiled_bands) or "
+            "through grid_sample_tiled, which takes the hat contractions under autograd")
     _check_args(patches, offs, fx, fy, pad, tile, out, first_tile)
     if any(x.device != patches.device or not x.is_contiguous()
            for x in (patches, offs, fx, fy, out)):

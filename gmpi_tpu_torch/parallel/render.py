@@ -31,8 +31,7 @@ upstream of it, is complete and the same on every rank.
 
 ``slab_fn`` / ``render_fn`` plug in the fused renderer (``core.renderer.
 make_fused_slab_renderer`` / ``render_mpi_fused``); the default route is
-``render_slab_partial`` / ``render_mpi`` with ``tiled_bands`` and its
-``patch_backend`` (``"cuda"``: the patch-gather and tap kernels), as in JAX.
+``render_slab_partial`` / ``render_mpi`` with ``tiled_bands``, as in JAX.
 """
 
 from __future__ import annotations
@@ -93,7 +92,7 @@ def _gather_rows(x: Optional[torch.Tensor], group) -> Optional[torch.Tensor]:
 
 
 def _slab_partial(rgba_slab, dhw_slab, ray_dir, eye_pos, z_dir, align_corners, tiled_bands,
-                  patch_backend, slab_fn, with_disp):
+                  slab_fn, with_disp):
     if slab_fn is not None:
         part = slab_fn(rgba_slab, dhw_slab, ray_dir, eye_pos, z_dir)
         if len(part) != (4 if with_disp else 3):
@@ -102,8 +101,7 @@ def _slab_partial(rgba_slab, dhw_slab, ray_dir, eye_pos, z_dir, align_corners, t
     v = rgba_slab.shape[0]
     slab_dhw = dhw_slab[None].expand(v, dhw_slab.shape[0], 3)
     return render_slab_partial(rgba_slab, slab_dhw, ray_dir, eye_pos, z_dir, align_corners,
-                               tiled_bands=tiled_bands, patch_backend=patch_backend,
-                               with_disp=with_disp)
+                               tiled_bands=tiled_bands, with_disp=with_disp)
 
 
 def _output(outs, with_disp: bool) -> RenderOutput:
@@ -119,15 +117,14 @@ def render_mpi_tile_sharded(mesh: Mesh, rgba: torch.Tensor, dhw: torch.Tensor,
                             ray_dir: torch.Tensor, eye_pos: torch.Tensor, z_dir: torch.Tensor,
                             axis: str = "tile", align_corners: bool = True,
                             tiled_bands: Optional[Tuple[int, ...]] = None,
-                            render_fn: Optional[Callable] = None, with_disp: bool = False,
-                            patch_backend: str = "torch") -> RenderOutput:
+                            render_fn: Optional[Callable] = None, with_disp: bool = False
+                            ) -> RenderOutput:
     """Render with output pixel rows split over ``mesh.group(axis)``: each
     rank renders every plane of ``rgba [V, L, 4, Th, Tw]`` for its block of
     the rows of ``ray_dir [V, 3, H, W]``, and the blocks are gathered, so
     every rank returns the whole image.  ``render_fn(rgba, dhw, rays, eye, z)
     -> RenderOutput`` plugs in any single-card renderer (``render_mpi_fused``);
-    else ``render_mpi`` with ``tiled_bands`` and ``patch_backend``.
-    ``with_disp`` also returns the expected disparity."""
+    else ``render_mpi`` with ``tiled_bands``.  ``with_disp`` also returns the expected disparity."""
     group = mesh.group(axis)
     rgba = mesh_mod.replicated_input(rgba, group)
     rays = _rows(ray_dir, group)
@@ -135,7 +132,7 @@ def render_mpi_tile_sharded(mesh: Mesh, rgba: torch.Tensor, dhw: torch.Tensor,
         out = render_fn(rgba, dhw, rays, eye_pos, z_dir)
     else:
         out = render_mpi(rgba, dhw, rays, eye_pos, z_dir, align_corners,
-                         tiled_bands=tiled_bands, patch_backend=patch_backend)
+                         tiled_bands=tiled_bands)
     if with_disp and out.disp is None:
         raise ValueError("render_fn must populate disp when with_disp is set")
     return RenderOutput(color=_gather_rows(out.color, group), depth=_gather_rows(out.depth, group),
@@ -146,23 +143,22 @@ def render_mpi_plane_sharded(mesh: Mesh, rgba: torch.Tensor, dhw: torch.Tensor,
                              ray_dir: torch.Tensor, eye_pos: torch.Tensor, z_dir: torch.Tensor,
                              axis: str = "plane", align_corners: bool = True,
                              tiled_bands: Optional[Tuple[int, ...]] = None,
-                             slab_fn: Optional[Callable] = None, with_disp: bool = False,
-                             patch_backend: str = "torch") -> RenderOutput:
+                             slab_fn: Optional[Callable] = None, with_disp: bool = False
+                             ) -> RenderOutput:
     """Render with the plane axis split over ``mesh.group(axis)``: rank *i*
     renders planes ``[i L/n, (i+1) L/n)`` (front to back) into slab partials
     and the partials combine in plane order on every rank.  ``dhw [L, 3]``.
     ``slab_fn(rgba_slab, dhw_slab [c, 3], rays, eye, z) -> (color_pre,
     depth_pre[, disp_pre], trans)`` plugs in the fused slab renderer (with a
     matching ``with_disp``); else ``render_slab_partial`` with
-    ``tiled_bands`` and ``patch_backend``."""
+    ``tiled_bands``."""
     group = mesh.group(axis)
     n = mesh_mod.group_size(group)
     _check_planes(rgba.shape[1], n)
     c = rgba.shape[1] // n
     i = mesh_mod.group_rank(group)
     part = _slab_partial(mesh_mod.shard_planes(rgba, group), dhw[i * c:(i + 1) * c], ray_dir,
-                         eye_pos, z_dir, align_corners, tiled_bands, patch_backend, slab_fn,
-                         with_disp)
+                         eye_pos, z_dir, align_corners, tiled_bands, slab_fn, with_disp)
     return _output(ordered_allcombine(part, group), with_disp)
 
 
@@ -172,8 +168,7 @@ def render_mpi_plane_sharded_pipelined(mesh: Mesh, rgba: torch.Tensor, dhw: torc
                                        axis: str = "plane", align_corners: bool = True,
                                        tiled_bands: Optional[Tuple[int, ...]] = None,
                                        slab_fn: Optional[Callable] = None,
-                                       with_disp: bool = False,
-                                       patch_backend: str = "torch") -> RenderOutput:
+                                       with_disp: bool = False) -> RenderOutput:
     """Plane-sharded render whose exchange overlaps the warp.  The plane
     axis is cut into ``n_sub`` front-to-back super-slabs, each split over the
     group (global plane ``k (n c) + i c + j`` is rank *i*'s plane *j* of
@@ -193,7 +188,7 @@ def render_mpi_plane_sharded_pipelined(mesh: Mesh, rgba: torch.Tensor, dhw: torc
 
     def sub_partial(k):
         return _slab_partial(mine[:, k * c:(k + 1) * c], dhw_r[k], ray_dir, eye_pos, z_dir,
-                             align_corners, tiled_bands, patch_backend, slab_fn, with_disp)
+                             align_corners, tiled_bands, slab_fn, with_disp)
 
     acc = None
     part = sub_partial(0)
@@ -211,8 +206,8 @@ def render_mpi_plane_tile_sharded(mesh: Mesh, rgba: torch.Tensor, dhw: torch.Ten
                                   z_dir: torch.Tensor, plane_axis: str = "plane",
                                   tile_axis: str = "tile", align_corners: bool = True,
                                   tiled_bands: Optional[Tuple[int, ...]] = None,
-                                  slab_fn: Optional[Callable] = None, with_disp: bool = False,
-                                  patch_backend: str = "torch") -> RenderOutput:
+                                  slab_fn: Optional[Callable] = None, with_disp: bool = False
+                                  ) -> RenderOutput:
     """Planes over ``plane_axis`` x pixel rows over ``tile_axis``: each rank
     renders its slab for its rows; the partials combine over the plane group
     and the row blocks are gathered over the tile group."""
@@ -223,6 +218,6 @@ def render_mpi_plane_tile_sharded(mesh: Mesh, rgba: torch.Tensor, dhw: torch.Ten
     i = mesh_mod.group_rank(pg)
     slab = mesh_mod.replicated_input(mesh_mod.shard_planes(rgba, pg), tg)
     part = _slab_partial(slab, dhw[i * c:(i + 1) * c], _rows(ray_dir, tg), eye_pos, z_dir,
-                         align_corners, tiled_bands, patch_backend, slab_fn, with_disp)
+                         align_corners, tiled_bands, slab_fn, with_disp)
     outs = ordered_allcombine(part, pg)[:-1]
     return _output(tuple(_gather_rows(x, tg) for x in outs), with_disp)

@@ -21,14 +21,13 @@ backward, splat).  With ``use_fused_renderer`` off (the CPU's default, when
 the caller asks for the CPU) it renders as the JAX step does without its
 kernels: through ``render_mpi`` with the static tile bands of
 ``bands_for_config``, planned on the step's device (at 128 pixels and above;
-4-field bands make the tiled adjoint the warp's backward, and on a card the
-forward then takes its patches through the patch-gather kernel and its taps
-through the tap kernel), in plane
-slabs through ``render_mpi_chunked``
-when ``renderer_plane_chunk`` is set; ``debug_ray_check`` NaN-poisons a
-render whose rays leave the last plane.  ``fused_compute_dtype="bf16"`` has
-the fused forward read bf16 textures in every fused render of the step (the
-backward stays fp32).
+4-field bands make the tiled adjoint the warp's backward, and the warp's
+forward then takes the patch-gather and tap kernels, as every render without
+a gradient does; on a card the step refuses 2-field bands), in plane slabs
+through ``render_mpi_chunked`` when ``renderer_plane_chunk`` is set;
+``debug_ray_check`` NaN-poisons a render whose rays leave the last plane.
+``fused_compute_dtype="bf16"`` has the fused forward read bf16 textures in
+every fused render of the step (the backward stays fp32).
 
 Several cards (``mesh``, a :class:`~gmpi_tpu_torch.parallel.mesh.Mesh` over
 ``torch.distributed``; one process a card):
@@ -181,21 +180,6 @@ def _grads(module: torch.nn.Module) -> Dict[str, torch.Tensor]:
             if p.grad is not None}
 
 
-def _patch_backend(device: torch.device, tiled_bands: Optional[Tuple[int, ...]]) -> str:
-    """The banded routes' patch backend: the patch-gather and tap kernels on a
-    card, the advanced index and the hats on the CPU.  The kernels have no
-    gradient, so on a card the
-    step needs 4-field bands, whose tiled adjoint is the warp's backward;
-    2-field bands (a warp not monotone over the pose range) raise there."""
-    if tiled_bands is None or device.type != "cuda":
-        return "torch"
-    if len(tiled_bands) != 4:
-        raise ValueError(f"tile bands {tiled_bands} carry no tiled adjoint: the banded step on "
-                         f"a card takes its patches through the patch-gather kernel, which has "
-                         f"no gradient, and needs 4-field bands")
-    return "cuda"
-
-
 class TrainStep:
     """The train step of one configuration; build it with
     :func:`make_train_step`.  Plane geometry, conditioning grids and camera
@@ -244,7 +228,11 @@ class TrainStep:
         # static bands of the tile-banded warp for the non-fused routes (None
         # under 128 pixels: the per-pixel gather), planned on the step's device
         self.tiled_bands = None if use_fused else bands_for_config(cfg, device=self.device)
-        self.patch_backend = _patch_backend(self.device, self.tiled_bands)
+        if self.tiled_bands is not None and self.device.type == "cuda" \
+                and len(self.tiled_bands) != 4:  # a warp not monotone over the pose range
+            raise ValueError(f"tile bands {self.tiled_bands} carry no tiled adjoint: the banded "
+                             f"step on a card takes its patches through the patch-gather "
+                             f"kernel, which has no gradient, and needs 4-field bands")
         self.geom = cfg.plane_geometry(device=self.device)
         self.xyz_dict = cfg.multi_res_xyz(self.geom)
         size = cfg.hparams.img_size
@@ -349,11 +337,10 @@ class TrainStep:
         elif t.renderer_plane_chunk:
             out = render_mpi_chunked(mpi, dhw, *rays, plane_chunk=t.renderer_plane_chunk,
                                      align_corners=cfg.planes.align_corners,
-                                     tiled_bands=self.tiled_bands,
-                                     patch_backend=self.patch_backend, with_disp=False)
+                                     tiled_bands=self.tiled_bands, with_disp=False)
         else:
             out = render_mpi(mpi, dhw, *rays, cfg.planes.align_corners,
-                             tiled_bands=self.tiled_bands, patch_backend=self.patch_backend)
+                             tiled_bands=self.tiled_bands)
         color = out.color
         if t.debug_ray_check:
             ray_dir, eye, z_dir = rays

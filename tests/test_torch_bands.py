@@ -98,3 +98,42 @@ def test_planning_needs_a_card_unless_asked_for_the_cpu():
     with pytest.raises(RuntimeError, match="cuda"):
         bands._corner_rays(ct.camera, ct.fov_deg, 128, 128)
     assert len(bands.bands_for_config(ct, img_size=128, device="cpu")) == 4
+
+
+@pytest.mark.parametrize("img", [64, 128, 256, 384])
+def test_planner_and_renderer_share_the_tiling(img, monkeypatch):
+    """``required_spans`` measures the warp's bands for the tiles that the
+    renderer's banded warp runs (64, 128, 256 and 128 columns wide at these
+    image widths), and the adjoint's bands for the texture tiles of its
+    tiled adjoint (32 rows): one rule, ``tiled_warp.tiling``."""
+    from gmpi_tpu_torch.core import renderer
+    from gmpi_tpu_torch.ops import tiled_warp as tw
+    from gmpi_tpu_torch.ops import tiled_warp_adjoint as ta
+
+    ct = _small(get_config, n_planes=2)
+    geom = ct.plane_geometry(device="cpu")
+    rays = bands._corner_rays(ct.camera, ct.fov_deg, img, img, device="cpu")
+    seen = {k: set() for k in ("plan", "plan_adjoint", "warp", "adjoint")}
+
+    def recorded(key, fn):
+        return lambda *a, tile, **k: seen[key].add(tile) or fn(*a, tile=tile, **k)
+
+    monkeypatch.setattr(bands, "required_bands", recorded("plan", bands.required_bands))
+    monkeypatch.setattr(bands, "required_output_bands",
+                        recorded("plan_adjoint", bands.required_output_bands))
+    spans = bands.required_spans(geom.dhw, rays, img, img)
+    coords = tw._tile_coords
+    monkeypatch.setattr(tw, "_tile_coords", lambda shape, grid, ac, tile=None:
+                        seen["warp"].add(tile) or coords(shape, grid, ac, tile))
+    monkeypatch.setattr(ta, "grid_sample_tiled_adjoint",
+                        recorded("adjoint", ta.grid_sample_tiled_adjoint))
+    ray_dir, eye, z_dir = rays
+    grid, _ = renderer.homography_grid(geom.dhw[:1], eye[:1], ray_dir[:1], z_dir[:1])
+    x = torch.rand((1, 4, img, img), generator=torch.Generator().manual_seed(img),
+                   requires_grad=True)
+    renderer._sample(x, grid, True, tuple(b + 8 for b in spans)).sum().backward()
+    want = tw.tiling(img, img)
+    assert want.tile == (8, {64: 64, 128: 128, 256: 256, 384: 128}[img])
+    assert want.adjoint_tile == (32, want.tile[1])
+    assert seen == {"plan": {want.tile}, "warp": {want.tile},
+                    "plan_adjoint": {want.adjoint_tile}, "adjoint": {want.adjoint_tile}}

@@ -120,7 +120,7 @@ def test_banded_full_scale_matches_oracle(cuda, yaw, pitch):
     bands = bands_for_config(cfg, img_size=RES, n_planes=N_PLANES)
     before = dict(fused_render.LAUNCHES)
     color, grad = _color_and_grad(lambda x: render_mpi(
-        x, geom.dhw, *rays, tiled_bands=bands, patch_backend="cuda"), rgba, cot)
+        x, geom.dhw, *rays, tiled_bands=bands), rgba, cot)
     torch.cuda.synchronize()
     steps = fused_render.LAUNCHES["patch_gather"] - before["patch_gather"]
     assert steps > 0 and fused_render.LAUNCHES["patch_sample"] - before["patch_sample"] == steps

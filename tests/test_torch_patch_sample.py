@@ -1,16 +1,16 @@
 """The tap sampler of the tile-banded warp (``ops/patch_sample.py``, K8), on the CPU.
 
 ``csrc/patch_sample.cu`` cannot run here; its plain version
-``sample_patches_ref`` repeats the kernel's arithmetic and is what the
-``"cuda"`` patch backend runs on CPU tensors.  After ``gather_patches_ref`` it
-must give the hat and contraction route's samples (the ``"torch"`` backend)
-within 1e-6 of max|samples|: both are the same bilinear sum in fp32, the hats
-with two nonzeros per row, summed in another order.  Bands too small for the
-grid drop the same taps on both routes (exactly zero where no tap is left),
-and ``check=True`` still poisons such a render.  The kernel itself is held
-against this plain version at the serving shapes by the ``gpu`` tests of
-``tests/test_torch_cuda.py``; the JAX package's tiled warp holds the
-``"cuda"`` backend in ``tests/test_torch_tiled_warp.py``.
+``sample_patches_ref`` repeats the kernel's arithmetic and is what the tiled
+warp's taps route runs on CPU tensors, where autograd records nothing through
+the warp.  After ``gather_patches_ref`` it must give the hats route's samples
+(the warp under autograd, :func:`hats`) within 1e-6 of max|samples|: both are
+the same bilinear sum in fp32, the hats with two nonzeros per row, summed in
+another order.  Bands too small for the grid drop the same taps on both
+routes (exactly zero where no tap is left), and ``check=True`` still poisons
+such a render.  The kernel itself is held against this plain version at the
+serving shapes by the ``gpu`` tests of ``tests/test_torch_cuda.py``; the JAX
+package's tiled warp holds the taps in ``tests/test_torch_tiled_warp.py``.
 """
 
 import pytest
@@ -48,6 +48,13 @@ def _scene(n, c, tex_hw, out_hw, seed):
     return tex, (xyw[..., :2] / xyw[..., 2:]).reshape(n, ho, wo, 2).contiguous()
 
 
+def hats(tex, grid, *args, **kw):
+    """``tw.grid_sample_tiled`` on its hats route, reached as a caller reaches
+    it: autograd records through the texture."""
+    with torch.enable_grad():
+        return tw.grid_sample_tiled(tex.detach().requires_grad_(), grid, *args, **kw).detach()
+
+
 def _count_ref(monkeypatch):
     """Count the plain tap sampler's calls (the kernel route on CPU tensors)."""
     calls, ref = [], ps.sample_patches_ref
@@ -68,16 +75,59 @@ def test_taps_from_plain_patches_equal_the_hat_contractions(monkeypatch, tile, o
     by, bx = tw.required_bands(tex.shape, grid, tile=tile)
     calls = _count_ref(monkeypatch)
     kw = dict(tile=tile, row_scan=row_scan, rows_per_step=2)
-    taps = tw.grid_sample_tiled(tex, grid, by, bx, patch_backend="cuda", **kw)
+    taps = tw.grid_sample_tiled(tex, grid, by, bx, **kw)
     nty, g = out_hw[0] // tile[0], 2
     while nty % g:
         g -= 1
     steps = nty // g if row_scan else 1
     assert len(calls) == steps and ps.LAUNCHES["patch_sample"] == 0
-    hats = tw.grid_sample_tiled(tex, grid, by, bx, patch_backend="torch", **kw)
-    assert taps.shape == hats.shape == (3, c, *out_hw) and taps.dtype == torch.float32
-    assert float(hats.abs().max()) > 0.5
-    assert float((taps - hats).abs().max()) <= TOL * float(hats.abs().max())
+    hats_out = hats(tex, grid, by, bx, **kw)
+    assert len(calls) == steps  # no tap on the hats
+    assert taps.shape == hats_out.shape == (3, c, *out_hw) and taps.dtype == torch.float32
+    assert float(hats_out.abs().max()) > 0.5
+    assert float((taps - hats_out).abs().max()) <= TOL * float(hats_out.abs().max())
+
+
+ROUTE_CASES = {"plain": "taps", "no_grad": "taps", "texture": "hats", "grid": "hats",
+               "bf16": "hats", "adjoint": "taps"}
+
+
+@pytest.mark.parametrize("case", ROUTE_CASES)
+def test_the_warp_picks_its_route(monkeypatch, case):
+    """The taps where autograd records nothing through the warp and no
+    ``compute_dtype`` is asked for (a plain call; a texture that requires a
+    gradient under ``torch.no_grad()``; the forward of the warp with the
+    tiled adjoint, whatever its inputs); the hats where autograd records
+    through the texture or the grid, or in bf16.  Each route is called once,
+    and the other not at all."""
+    from gmpi_tpu_torch.ops import tiled_warp_adjoint as ta
+
+    tex, grid = _scene(2, 4, (40, 56), (32, 64), seed=17)
+    by, bx = tw.required_bands(tex.shape, grid)
+    taken = []
+    for name in ("_sample_taps", "_sample_hats"):
+        monkeypatch.setattr(tw, name, lambda *a, fn=getattr(tw, name), name=name, **k:
+                            taken.append(name[len("_sample_"):]) or fn(*a, **k))
+    ref = hats(tex, grid, by, bx)
+    del taken[:]
+    if case == "no_grad":
+        with torch.no_grad():
+            out = tw.grid_sample_tiled(tex.requires_grad_(), grid, by, bx)
+    elif case in ("texture", "grid"):
+        (tex if case == "texture" else grid).requires_grad_()
+        out = tw.grid_sample_tiled(tex, grid, by, bx)
+        assert out.requires_grad
+    elif case == "adjoint":
+        adj = ta.required_output_bands(tex.shape, grid, tile=tw.tiling(40, 56).adjoint_tile)
+        out = tw.make_tiled_warp_with_adjoint(by, bx, adj)(tex.requires_grad_(), grid)
+        (d_tex,) = torch.autograd.grad(out.sum(), tex)
+        assert float(d_tex.abs().max()) > 0
+    else:
+        dtype = torch.bfloat16 if case == "bf16" else None
+        out = tw.grid_sample_tiled(tex, grid, by, bx, compute_dtype=dtype)
+    assert taken == [ROUTE_CASES[case]]
+    tol = 2e-2 if case == "bf16" else TOL * float(ref.abs().max())
+    assert float((out.detach() - ref).abs().max()) <= tol
 
 
 def test_sample_patches_ref_writes_its_tiles_only():
@@ -87,8 +137,8 @@ def test_sample_patches_ref_writes_its_tiles_only():
     tex, grid = _scene(2, 4, (40, 56), (32, 64), seed=11)
     tile = (8, 32)
     by, bx = tw.required_bands(tex.shape, grid, tile=tile)
-    hats = tw.grid_sample_tiled(tex, grid, by, bx, tile=tile)
-    fx_t, fy_t, nty, ntx = tw._tile_coords(tex.shape, grid, True, *tile)
+    hats_out = hats(tex, grid, by, bx, tile=tile)
+    fx_t, fy_t, nty, ntx = tw._tile_coords(tex.shape, grid, True, tile)
     texl = torch.nn.functional.pad(tex.permute(0, 3, 2, 1), (0, 0, by, by, bx, bx)).reshape(
         2, 56 + 2 * bx, (40 + 2 * by) * 4)
     fx_g = fx_t.reshape(2, nty * ntx, *tile)[:, 3:7]
@@ -104,7 +154,7 @@ def test_sample_patches_ref_writes_its_tiles_only():
     written.view(-1)[3:7] = True
     written = written.repeat_interleave(8, 0).repeat_interleave(32, 1)  # [32, 64]
     assert not torch.isnan(out[..., written]).any() and torch.isnan(out[..., ~written]).all()
-    assert float((out - hats)[..., written].abs().max()) <= TOL * float(hats.abs().max())
+    assert float((out - hats_out)[..., written].abs().max()) <= TOL * float(hats_out.abs().max())
 
 
 @pytest.mark.parametrize("short", [(2, 0), (0, 20), (4, 30)], ids=["rows", "columns", "both"])
@@ -115,17 +165,16 @@ def test_bands_too_small_give_the_hats_result_and_check_poisons(short):
     tex, grid = _scene(3, 4, (40, 56), (32, 64), seed=5)
     by, bx = tw.required_bands(tex.shape, grid, tile=(8, 64))
     bands = (by - short[0], bx - short[1])
-    taps = tw.grid_sample_tiled(tex, grid, *bands, tile=(8, 64), patch_backend="cuda")
-    hats = tw.grid_sample_tiled(tex, grid, *bands, tile=(8, 64), patch_backend="torch")
-    full = tw.grid_sample_tiled(tex, grid, by, bx, tile=(8, 64))
-    assert not torch.equal(hats, full)  # taps were dropped
-    assert float((taps - hats).abs().max()) <= TOL * float(hats.abs().max())
-    assert torch.equal(taps[hats == 0], torch.zeros_like(taps[hats == 0]))
-    for backend in tw.PATCH_BACKENDS:
-        out = tw.grid_sample_tiled(tex, grid, *bands, tile=(8, 64), patch_backend=backend,
-                                   check=True)
+    taps = tw.grid_sample_tiled(tex, grid, *bands, tile=(8, 64))
+    hats_out = hats(tex, grid, *bands, tile=(8, 64))
+    full = hats(tex, grid, by, bx, tile=(8, 64))
+    assert not torch.equal(hats_out, full)  # taps were dropped
+    assert float((taps - hats_out).abs().max()) <= TOL * float(hats_out.abs().max())
+    assert torch.equal(taps[hats_out == 0], torch.zeros_like(taps[hats_out == 0]))
+    for route in (tw.grid_sample_tiled, hats):
+        out = route(tex, grid, *bands, tile=(8, 64), check=True)
         assert torch.isnan(out).all()
-    ok = tw.grid_sample_tiled(tex, grid, by, bx, tile=(8, 64), patch_backend="cuda", check=True)
+    ok = tw.grid_sample_tiled(tex, grid, by, bx, tile=(8, 64), check=True)
     assert float((ok - full).abs().max()) <= TOL * float(full.abs().max())
 
 
@@ -133,18 +182,18 @@ def test_bands_too_small_give_the_hats_result_and_check_poisons(short):
                          ids=["one group", "three groups", "one row a step"])
 def test_tap_route_steps_hold_patches_and_padded_copies_under_step_bytes(monkeypatch, budget,
                                                                           groups):
-    """On the tap kernel's route a step's budget counts each texture's padded
+    """On the taps route a step's budget counts each texture's padded
     copy and its tile rows' patches (no hats): ``budget`` textures' worth a
     step gives equal groups of at most that many (0: one byte, so one
     texture and one tile row a step), each bitwise the ungrouped warp."""
     tex, grid = _scene(6, 4, (40, 56), (32, 64), seed=13)
     by, bx = tw.required_bands(tex.shape, grid, tile=(8, 64))
-    whole = tw.grid_sample_tiled(tex, grid, by, bx, tile=(8, 64), patch_backend="cuda")
+    whole = tw.grid_sample_tiled(tex, grid, by, bx, tile=(8, 64))
     per_texture = 4 * 4 * (bx * by * 4) + 4 * (56 + 2 * bx) * (40 + 2 * by) * 4
     seen, warp = [], tw._warp_textures
     monkeypatch.setattr(tw, "_warp_textures",
                         lambda tx, *a: seen.append((len(tx), a[4])) or warp(tx, *a))
-    out = tw.grid_sample_tiled(tex, grid, by, bx, tile=(8, 64), patch_backend="cuda",
+    out = tw.grid_sample_tiled(tex, grid, by, bx, tile=(8, 64),
                                step_bytes=max(1, budget * per_texture))
     assert seen == groups
     assert torch.equal(out, whole)
@@ -154,16 +203,15 @@ def test_a_nan_coordinate_samples_nan_as_through_the_hats():
     tex, grid = _scene(2, 4, (40, 56), (32, 64), seed=7)
     by, bx = tw.required_bands(tex.shape, grid, tile=(8, 64))
     grid[1, 5, 9, 0] = float("nan")
-    taps = tw.grid_sample_tiled(tex, grid, by, bx, tile=(8, 64), patch_backend="cuda")
-    hats = tw.grid_sample_tiled(tex, grid, by, bx, tile=(8, 64), patch_backend="torch")
+    taps = tw.grid_sample_tiled(tex, grid, by, bx, tile=(8, 64))
     nan = torch.isnan(taps)
     assert nan[1, :, 5, 9].all() and int(nan.sum()) == 4
-    assert torch.equal(nan, torch.isnan(hats))
+    assert torch.equal(nan, torch.isnan(hats(tex, grid, by, bx, tile=(8, 64))))
 
 
 def _args():
     tex, grid = _scene(1, 4, (40, 56), (16, 64), seed=3)
-    fx_t, fy_t, nty, ntx = tw._tile_coords(tex.shape, grid, True, 8, 64)
+    fx_t, fy_t, nty, ntx = tw._tile_coords(tex.shape, grid, True, (8, 64))
     fx, fy = (f.transpose(2, 3).reshape(1, 16, 64) for f in (fx_t, fy_t))
     pm = torch.rand((1, 2, 12, 40))
     offs = torch.zeros((1, 2, 2), dtype=torch.int32)

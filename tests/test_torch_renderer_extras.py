@@ -64,10 +64,9 @@ def test_render_mpi_chunked_matches_jax(scene, case):
     if case == "tiled":
         kw_j["tiled_bands"] = kw_t["tiled_bands"] = bands
     if case == "tiled_cuda_patches":
-        # the kernel backend has no gradient outside the adjoint Function:
-        # forward only, against the JAX default backend
-        kw_j["tiled_bands"] = kw_t["tiled_bands"] = bands
-        kw_t["patch_backend"] = "cuda"
+        # the card's route: 4-field bands, so that under autograd too the warp takes
+        # the taps (the kernels' plain versions here) with the tiled adjoint as backward
+        kw_j["tiled_bands"] = kw_t["tiled_bands"] = bands + (40, 80)
     if case == "per_chunk_bands_remat":
         per = ((bands[0], bands[1]), (bands[0] + 8, bands[1] + 8))
         kw_j.update(remat=True, tiled_bands=per)
@@ -81,10 +80,6 @@ def test_render_mpi_chunked_matches_jax(scene, case):
         for a, b in zip(ref, out):
             if a is not None:
                 np.testing.assert_allclose(b.numpy(), np.asarray(a), rtol=0, atol=TOL)
-    if case == "tiled_cuda_patches":
-        with pytest.raises(RuntimeError, match="no gradient"):
-            tr.render_mpi_chunked(torch.from_numpy(rgba).requires_grad_(), *cams_t, **kw_t)
-        return
     (val_j, g_j), (val_t, g_t) = _value_and_grad_both(scene, kw_j, kw_t)
     np.testing.assert_allclose(val_t, val_j, rtol=1e-4)
     assert np.abs(g_t - g_j).max() <= 1e-3 * np.abs(g_j).max()
@@ -106,9 +101,9 @@ def test_render_mpi_chunked_equals_the_unchunked_render_and_checks_its_chunk(sce
 
 def test_banded_render_loops_tile_rows_under_its_step_budget(scene, monkeypatch):
     """With more hats than ``TILED_STEP_BYTES`` in one step, the banded render
-    goes through equal texture groups sized to the budget and, where one
-    texture's tile rows exceed it, loops over groups of tile rows: same
-    values, more steps."""
+    under autograd (whose warp takes the hats) goes through equal texture
+    groups sized to the budget and, where one texture's tile rows exceed it,
+    loops over groups of tile rows: same values, more steps."""
     from gmpi_tpu_torch.ops import tiled_warp as tw
 
     _, cams_t, rgba, _, bands = scene
@@ -117,7 +112,7 @@ def test_banded_render_loops_tile_rows_under_its_step_budget(scene, monkeypatch)
     monkeypatch.setattr(tw, "_warp_row_tiles",
                         lambda texf, fx, *a, **k: steps.append(tuple(fx.shape[:2])) or
                         row_step(texf, fx, *a, **k))
-    x = torch.from_numpy(rgba)
+    x = torch.from_numpy(rgba).requires_grad_()
     whole = tr.render_mpi(x, *cams_t, tiled_bands=bands)
     # all 8 tile rows of the one 64-wide tile column of all 8 textures at once
     assert steps == [(2 * N_L, RES // 8)]
@@ -143,8 +138,7 @@ def test_render_mpi_tiled_bands_matches_jax_in_value_and_gradient(scene):
             lambda x: jnp.sum(jr.render_mpi(x, *cams_j, tiled_bands=tb).color * cot))(
             jnp.asarray(rgba))
         x = torch.from_numpy(rgba).clone().requires_grad_()
-        out = tr.render_mpi(x, *cams_t, tiled_bands=tb, patch_backend="cuda" if len(tb) == 4
-                            else "torch")
+        out = tr.render_mpi(x, *cams_t, tiled_bands=tb)
         val_t = (out.color * torch.from_numpy(cot)).sum()
         val_t.backward()
         np.testing.assert_allclose(float(val_t.detach()), float(val_j), rtol=1e-4)

@@ -70,13 +70,14 @@ def test_slice_matches_jax(both_generators, use_fused):
     assert float(color_t.min()) >= -1.0 and float(color_t.max()) <= 1.0
 
 
-@pytest.mark.parametrize("patch_backend", ["torch", "cuda"])
-def test_harness_banded_route_matches_jax(both_generators, patch_backend):
+@pytest.mark.parametrize("route", ["torch", "cuda"])
+def test_harness_banded_route_matches_jax(both_generators, route):
     """``use_fused=False`` at 128 pixels: both packages render through
     ``render_mpi`` with the static tile bands of ``bands_for_config`` (equal
-    tuples), the port with the patch backend it picks on the CPU and with the
-    one it picks on a card (whose kernel wrapper runs its plain version
-    here); the result also equals the port's per-pixel gather."""
+    tuples).  ``"cuda"``: the port's sampler, whose warp takes the route it
+    takes on a card, the taps (the kernels' plain versions here); ``"torch"``:
+    ``render_mpi`` at the same bands under autograd, whose warp takes the
+    hats.  The result also equals the port's per-pixel gather."""
     from gmpi_tpu.core.bands import bands_for_config as jax_bands_for_config
     from gmpi_tpu_torch.core import camera as cam
     from gmpi_tpu_torch.core import poses
@@ -86,21 +87,26 @@ def test_harness_banded_route_matches_jax(both_generators, patch_backend):
     gen_j128 = JaxFakeImageGenerator(gen_j.cfg, gen_j.params, gen_j.buffers, img_size=128,
                                      use_fused=False)
     gen_t = FakeImageGenerator(cfg_t, g_t, img_size=128, use_fused=False, device="cpu")
-    assert gen_t.patch_backend == "torch"
-    gen_t.patch_backend = patch_backend
     ref_bands = jax_bands_for_config(gen_j.cfg, img_size=128, n_planes=gen_j.n_planes)
     assert gen_t.tiled_bands == tuple(int(b) for b in ref_bands)
     assert FakeImageGenerator(cfg_t, g_t, use_fused=False, device="cpu").tiled_bands is None
     v = len(YAWS)
     mpi = np.random.default_rng(4).random((v, N_PLANES, 4, 64, 64)).astype(np.float32)
     color_j, depth_j = gen_j128.render(jnp.asarray(mpi), YAWS, PITCHES)
-    color_t, depth_t = gen_t.render(torch.from_numpy(mpi), YAWS, PITCHES)
+    c2w, _, _ = poses.sample_sphere_poses(None, v, cfg_t.camera, given_yaws=YAWS,
+                                          given_pitches=PITCHES, device="cpu")
+    rays = cam.generate_rays(gen_t.intr, c2w)
+    if route == "cuda":
+        color_t, depth_t = gen_t.render(torch.from_numpy(mpi), YAWS, PITCHES)
+    else:
+        out = render_mpi(torch.from_numpy(mpi).requires_grad_(), gen_t.geom.dhw, *rays,
+                         tiled_bands=gen_t.tiled_bands[:2])
+        assert out.color.requires_grad
+        color_t, depth_t = out.color.detach() * 2.0 - 1.0, out.depth.detach()
     assert color_t.shape == (v, 3, 128, 128)
     np.testing.assert_allclose(color_t.numpy(), np.asarray(color_j), rtol=0, atol=TOL)
     np.testing.assert_allclose(depth_t.numpy(), np.asarray(depth_j), rtol=0, atol=TOL)
-    c2w, _, _ = poses.sample_sphere_poses(None, v, cfg_t.camera, given_yaws=YAWS,
-                                          given_pitches=PITCHES, device="cpu")
-    gather = render_mpi(torch.from_numpy(mpi), gen_t.geom.dhw, *cam.generate_rays(gen_t.intr, c2w))
+    gather = render_mpi(torch.from_numpy(mpi), gen_t.geom.dhw, *rays)
     np.testing.assert_allclose(color_t.numpy(), gather.color.numpy() * 2.0 - 1.0, rtol=0,
                                atol=1e-5)
 

@@ -83,12 +83,15 @@ def test_grid_sample_tiled_adjoint_matches_jax(scene, row_scan, rows_per_step, s
                                      pbr, pbc, tile=(8, 48))
 
 
-@pytest.mark.parametrize("patch_backend", ["torch", "cuda"])
-def test_gradient_of_tiled_warp_with_adjoint_matches_jax(scene, patch_backend):
-    """The Function's forward and its texture gradient against the JAX
-    custom-VJP warp's, and the gradient against plain autograd through the
-    per-pixel gather.  The kernel backend works inside the Function (no
-    autograd records there) and the grid gets no gradient."""
+@pytest.mark.parametrize("route", ["torch", "cuda"])
+def test_gradient_of_tiled_warp_with_adjoint_matches_jax(scene, route):
+    """The JAX custom-VJP warp's value and texture gradient, and plain
+    autograd's through the per-pixel gather, against the port's on the route
+    the card takes (``"cuda"``: the Function, whose forward takes the taps,
+    since no autograd records inside it, and whose backward is the tiled
+    adjoint; the grid gets no gradient) and on the plain PyTorch route
+    (``"torch"``: ``grid_sample_tiled`` under autograd takes the hats, and
+    autograd differentiates them)."""
     tex, grid, cot = scene
     by, bx = jtw.required_bands(tex.shape, jnp.asarray(grid), tile=(8, 64))
     pbr, pbc = jta.required_output_bands(tex.shape, jnp.asarray(grid), tile=(8, 64))
@@ -97,14 +100,19 @@ def test_gradient_of_tiled_warp_with_adjoint_matches_jax(scene, patch_backend):
     val_j, g_j = jax.value_and_grad(
         lambda t: jnp.sum(fn_j(t, jnp.asarray(grid)) * jnp.asarray(cot)))(jnp.asarray(tex))
 
-    fn_t = tw.make_tiled_warp_with_adjoint(by, bx, (pbr, pbc), patch_backend=patch_backend, **kw)
     x = torch.from_numpy(tex).clone().requires_grad_()
-    g = torch.from_numpy(grid).clone().requires_grad_()
-    val_t = (fn_t(x, g) * torch.from_numpy(cot)).sum()
+    if route == "cuda":
+        fn_t = tw.make_tiled_warp_with_adjoint(by, bx, (pbr, pbc), **kw)
+        g = torch.from_numpy(grid).clone().requires_grad_()
+        val_t = (fn_t(x, g) * torch.from_numpy(cot)).sum()
+    else:
+        val_t = (tw.grid_sample_tiled(x, torch.from_numpy(grid), by, bx, tile=(8, 64))
+                 * torch.from_numpy(cot)).sum()
     val_t.backward()
     np.testing.assert_allclose(float(val_t.detach()), float(val_j), rtol=1e-5)
     np.testing.assert_allclose(x.grad.numpy(), np.asarray(g_j), rtol=0, atol=1e-4)
-    assert g.grad is None
+    if route == "cuda":
+        assert g.grad is None
 
     y = torch.from_numpy(tex).clone().requires_grad_()
     (grid_sample_bilinear(y, torch.from_numpy(grid)) * torch.from_numpy(cot)).sum().backward()

@@ -5,10 +5,11 @@ JAX package) go through ``gmpi_tpu.ops.tiled_warp`` and its port.  Gates:
 band helpers equal ints and bools; samples 1e-5 absolute (two fp32 stacks that
 contract in another order); the bf16 operand mode 2e-2 (bf16 rounds at other
 places in the two frameworks); the patch gather exact (it is a copy), against
-``gather_patches(interpret=True)``.  The ``"cuda"`` patch backend runs the
-plain versions of its two kernels (the patch gather, the tap sampler) on
-these CPU tensors and is held against the JAX package's Pallas backend in
-interpret mode.
+``gather_patches(interpret=True)``.  Where autograd records nothing the
+warp takes its taps route, which runs the plain versions of its two kernels
+(the patch gather, the tap sampler) on these CPU tensors; it is also held
+against the JAX package's Pallas backend in interpret mode.  The hats route
+is reached as a caller reaches it, under autograd (``hats``).
 """
 
 import numpy as np
@@ -24,6 +25,7 @@ from gmpi_tpu_torch.ops import patch_gather as pg
 from gmpi_tpu_torch.ops import tiled_warp as tw
 from gmpi_tpu_torch.ops.grid_sample import grid_sample_bilinear
 from tests.test_torch_fused_render import setup_both
+from tests.test_torch_patch_sample import hats
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -96,17 +98,17 @@ def test_check_poisons_a_render_that_leaves_its_bands(scene):
 
 @pytest.mark.parametrize("row_scan,rows_per_step", [(False, 1), (True, 2)])
 def test_texture_groups_under_step_bytes_match_jax(scene, row_scan, rows_per_step, monkeypatch):
-    """With ``step_bytes`` under one step of all 6 textures (the bytes of 4:
-    two groups of 3; 1 byte: one texture and one tile row a step) the
+    """With ``step_bytes`` under one step of all 6 textures' hats (the bytes
+    of 4: two groups of 3; 1 byte: one texture and one tile row a step) the
     textures go through in groups, to the JAX package's values and bitwise
-    to the ungrouped warp's."""
+    to the ungrouped warp's (the taps' budget: ``tests/test_torch_patch_sample.py``)."""
     tex, grid = scene
     by, bx = jtw.required_bands(tex.shape, jnp.asarray(grid), tile=(8, 64))
     ref = jtw.grid_sample_tiled(jnp.asarray(tex), jnp.asarray(grid), by, bx, tile=(8, 64),
                                 row_scan=row_scan, rows_per_step=rows_per_step)
     kw = dict(tile=(8, 64), row_scan=row_scan, rows_per_step=rows_per_step)
     t, g = torch.from_numpy(tex), torch.from_numpy(grid)
-    whole = tw.grid_sample_tiled(t, g, by, bx, **kw)
+    whole = hats(t, g, by, bx, **kw)
     groups, warp = [], tw._warp_textures
     monkeypatch.setattr(tw, "_warp_textures",
                         lambda tx, *a: groups.append((len(tx), a[4])) or warp(tx, *a))
@@ -115,7 +117,7 @@ def test_texture_groups_under_step_bytes_match_jax(scene, row_scan, rows_per_ste
     for step_bytes, sizes in ((4 * tex_bytes, [(3, rows)] * 2), (1, [(1, 1)] * 6),
                               (6 * tex_bytes, [(6, rows)])):
         groups.clear()
-        out = tw.grid_sample_tiled(t, g, by, bx, step_bytes=step_bytes, **kw)
+        out = hats(t, g, by, bx, step_bytes=step_bytes, **kw)
         assert groups == sizes
         assert torch.equal(out, whole)
         np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=0, atol=1e-5)
@@ -142,9 +144,8 @@ def test_bf16_compute_dtype_matches_jax_within_bf16_rounding():
 def test_zero_padding_out_of_range_is_exactly_zero():
     tex = torch.rand((1, 4, 16, 128), generator=torch.Generator().manual_seed(3))
     grid = torch.full((1, 8, 128, 2), 3.0)  # way outside
-    for backend in tw.PATCH_BACKENDS:
-        out = tw.grid_sample_tiled(tex, grid, band_y=16, band_x=64, tile=(8, 128),
-                                   patch_backend=backend)
+    for route in (tw.grid_sample_tiled, hats):
+        out = route(tex, grid, band_y=16, band_x=64, tile=(8, 128))
         assert float(out.abs().max()) == 0.0
 
 
@@ -200,28 +201,25 @@ def test_gather_patches_takes_any_in_range_offset_and_refuses_the_rest():
         pg.gather_patches(texf.clone().requires_grad_(), offs, band_x, band_yc)
 
 
-def test_cuda_patch_backend_matches_jax_pallas_backend_interpret():
-    """The kernel backend (the plain versions of the patch gather and the tap
-    sampler here) against the JAX Pallas backend in interpret mode, with the
-    bands that backend needs (its DMA alignment slack); and against the
-    port's ``"torch"`` backend (the same patches, the hats' bilinear sum in
-    another order) within 1e-6 of max|samples|."""
+def test_tap_route_matches_jax_pallas_backend_interpret():
+    """The taps (the plain versions of the patch gather and the tap sampler
+    here) against the JAX Pallas backend in interpret mode, with the bands
+    that backend needs (its DMA alignment slack); and against the port's
+    hats (the same patches, the hats' bilinear sum in another order) within
+    1e-6 of max|samples|."""
     rng = np.random.default_rng(9)
     grid = homography_grids(n_views=1, n_planes=4, img=64)
     tex = rng.random((grid.shape[0], 4, 64, 64)).astype(np.float32)
     by, bx = jtw.required_bands(tex.shape, jnp.asarray(grid), tile=(8, 64))
     by_a, bx_a = ((by + 62) // 32) * 32, ((bx + 14) // 8) * 8
-    ref = jtw.grid_sample_tiled(jnp.asarray(tex), jnp.asarray(grid), by_a, bx_a, tile=(8, 64),
-                                patch_backend="pallas", interpret=True)
+    # the JAX package's arguments (tile, align_corners, row_scan, rows_per_step, its patch
+    # backend, interpret): its Pallas backend in interpret mode
+    ref = jtw.grid_sample_tiled(jnp.asarray(tex), jnp.asarray(grid), by_a, bx_a, (8, 64), True,
+                                False, 1, "pallas", True)
     t, g = torch.from_numpy(tex), torch.from_numpy(grid)
-    out = tw.grid_sample_tiled(t, g, by_a, bx_a, tile=(8, 64), patch_backend="cuda")
+    out = tw.grid_sample_tiled(t, g, by_a, bx_a, tile=(8, 64))
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=0, atol=1e-5)
-    # no alignment slack needed here: the exact bands serve both backends alike
-    a = tw.grid_sample_tiled(t, g, by, bx, tile=(8, 64), patch_backend="cuda")
-    b = tw.grid_sample_tiled(t, g, by, bx, tile=(8, 64), patch_backend="torch")
+    # no alignment slack needed here: the exact bands serve both routes alike
+    a = tw.grid_sample_tiled(t, g, by, bx, tile=(8, 64))
+    b = hats(t, g, by, bx, tile=(8, 64))
     assert float((a - b).abs().max()) <= 1e-6 * float(b.abs().max())
-    with pytest.raises(ValueError, match="patch_backend"):
-        tw.grid_sample_tiled(t, g, by, bx, tile=(8, 64), patch_backend="pallas")
-    with pytest.raises(RuntimeError, match="no gradient"):
-        tw.grid_sample_tiled(t.clone().requires_grad_(), g, by, bx, tile=(8, 64),
-                             patch_backend="cuda")

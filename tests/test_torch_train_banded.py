@@ -7,11 +7,11 @@ output bands) and render every view of the step through the tile-banded
 warp, whose backward is the scatter-free tiled adjoint
 (``ops/tiled_warp.py``, ``ops/tiled_warp_adjoint.py``).  The port's step is
 handed the JAX step's draws (``tests/_torch_jax_step.py``) and held to its
-whole-step gates.  On a card the step's banded forward takes its patches
-through the patch-gather kernel (``patch_backend="cuda"``), which has no
-gradient: the tiled warp hands it detached textures, and the values and the
-``rgba`` gradient are those of the advanced index, checked here through the
-kernel's plain version.
+whole-step gates.  The step's banded forward takes the warp's taps, the
+patch-gather and tap kernels (their plain versions here), which have no
+gradient: inside the warp with the tiled adjoint autograd records nothing,
+and the values and the ``rgba`` gradient are those of the hats, checked here
+against the step's render at the same bands under plain autograd.
 """
 
 import dataclasses
@@ -52,7 +52,7 @@ def test_banded_step_matches_jax():
     cfg_j = jax_step.jax_config(cfg)
     assert cfg_j.train.use_fused_renderer is False
     step = make_train_step(cfg, device="cpu")
-    assert not step.use_fused and step.patch_backend == "torch"
+    assert not step.use_fused
     assert len(step.tiled_bands) == 4
     assert step.tiled_bands == tuple(int(b) for b in jax_bands_for_config(cfg_j))
     st = jax_step.jax_state(cfg_j)
@@ -65,13 +65,14 @@ def test_banded_step_matches_jax():
 
 
 @pytest.mark.parametrize("plane_chunk", [0, 1], ids=["whole", "slabs"])
-def test_step_tiled_warp_same_with_either_patch_backend(plane_chunk, monkeypatch):
-    """The step's banded render (whole, and in plane slabs) with the kernels'
-    backend, whose CPU form is ``gather_patches_ref`` on the detached
-    textures the tiled warp hands it and the plain tap sampler, against the
-    advanced index and the hats: images and ``rgba`` gradients within 1e-6
-    of max (the same patches and the same bilinear sum in another order; the
-    backward is the tiled adjoint either way)."""
+def test_step_tiled_warp_taps_match_the_hats(plane_chunk, monkeypatch):
+    """The step's banded render (whole, and in plane slabs), whose warp takes
+    the taps (the kernels' plain versions here, on textures that record no
+    gradient) with the tiled adjoint as its backward, against the same step
+    at the same bands without the adjoint fields, whose warp under autograd
+    takes the advanced index and the hats and whose backward is autograd's:
+    images and ``rgba`` gradients within 1e-6 of max (the same patches and
+    the same bilinear sum in another order)."""
     from gmpi_tpu_torch.train import make_train_step
 
     cfg = _banded_config(renderer_plane_chunk=plane_chunk)
@@ -88,28 +89,37 @@ def test_step_tiled_warp_same_with_either_patch_backend(plane_chunk, monkeypatch
 
     monkeypatch.setattr(tw, "gather_patches", recorded)
     out = {}
-    for backend in ("torch", "cuda"):
-        step.patch_backend = backend
+    for route, bands in (("taps", step.tiled_bands), ("hats", step.tiled_bands[:2])):
+        step.tiled_bands = bands
         x = mpi.clone().requires_grad_()
         imgs, _, _ = step.render_views(x, yaws, pitches)
-        out[backend] = imgs.detach(), torch.autograd.grad((imgs * cot).sum(), x)[0]
-    assert gathered and not any(gathered)
-    for hats, taps in zip(out["torch"], out["cuda"]):
+        out[route] = imgs.detach(), torch.autograd.grad((imgs * cot).sum(), x)[0]
+        if route == "taps":
+            n_taps = len(gathered)
+    assert n_taps and len(gathered) == n_taps and not any(gathered)  # none on the hats
+    for hats, taps in zip(out["hats"], out["taps"]):
         assert float((hats - taps).abs().max()) <= 1e-6 * float(hats.abs().max())
-    assert float(out["cuda"][1].abs().max()) > 0
+    assert float(out["taps"][1].abs().max()) > 0
 
 
 def test_two_field_bands_on_a_card_raise(monkeypatch):
     """Where the planned bands have 2 fields (a warp not monotone over the
     pose range: no tiled adjoint), a banded step on a card refuses to build,
     since the patch-gather kernel has no gradient; on the CPU the same bands
-    take the advanced index.  The card and the plan are stood in for."""
+    build, and the step's render under autograd takes the hats.  The card
+    and the plan are stood in for."""
     from gmpi_tpu_torch.train import step as step_mod
 
     cfg = _banded_config()
     monkeypatch.setattr(step_mod, "bands_for_config", lambda cfg, device: (32, 160))
-    assert step_mod.TrainStep(cfg, device="cpu").patch_backend == "torch"
+    step = step_mod.TrainStep(cfg, device="cpu")
+    assert step.tiled_bands == (32, 160)
+    taken, hats = [], tw._sample_hats
+    monkeypatch.setattr(tw, "_sample_hats", lambda *a, **k: taken.append(1) or hats(*a, **k))
+    x = torch.rand((1, 2, 4, 128, 128), generator=torch.Generator().manual_seed(1))
+    imgs, _, _ = step.render_views(x.requires_grad_(), torch.tensor([[0.1]]),
+                                   torch.tensor([[0.05]]))
+    assert taken and imgs.requires_grad
     monkeypatch.setattr(step_mod, "resolve_device", lambda device: torch.device("cuda"))
     with pytest.raises(ValueError, match="needs 4-field bands"):
         step_mod.TrainStep(cfg, device="cuda")
-    assert step_mod._patch_backend(torch.device("cuda"), (32, 160, 40, 300)) == "cuda"

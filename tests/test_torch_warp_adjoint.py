@@ -64,7 +64,7 @@ def test_warp_adjoint_matches_jax_pallas_kernel_interpret():
                                      pw._adjoint_bands_from_spans(*spans), th, tw,
                                      interpret=True))
     t = lambda a: torch.from_numpy(np.asarray(a))  # noqa: E731
-    bands = fr.plan_adjoint(t(scal), t(rx), t(ry), th, tw)
+    bands = fr.plan_adjoint(t(scal), t(rx), t(ry))
     out = fr.warp_adjoint(t(g), t(rx), t(ry), t(scal), bands, th, tw).numpy()
     assert out.shape == ref.shape == (1, 1, 4, th, tw)
     assert np.abs(ref).max() > 0
@@ -89,7 +89,7 @@ def test_warp_adjoint_matches_vjp_of_jax_gather_warp_and_the_splat():
         return jnp.concatenate([rgb, alpha], axis=1)
 
     (ref,) = jax.vjp(warp_all, x0)[1](jnp.asarray(g[0]))
-    bands = fr.plan_adjoint(scal, rx, ry, res, res)
+    bands = fr.plan_adjoint(scal, rx, ry)
     out = fr.warp_adjoint(torch.from_numpy(g), rx, ry, scal, bands, res, res)
     np.testing.assert_allclose(out.numpy()[0], np.asarray(ref), rtol=0, atol=1e-3)
     splat = fr.warp_splat_ref(torch.from_numpy(g), rx, ry, scal, res, res)
@@ -226,9 +226,9 @@ def test_kernel_search_with_planned_windows_finds_every_contribution(case):
     _, scal, rx, ry = _port_fields(2, res, yaws, pitches, tex=tex)
     if case == "poses_outside_planned_range":
         _, scal_p, rx_p, ry_p = _port_fields(2, res, [0.1, -0.1], [0.05, -0.05], tex=tex)
-        bands = fr.plan_adjoint(scal_p, rx_p, ry_p, tex, tex)
+        bands = fr.plan_adjoint(scal_p, rx_p, ry_p)
     else:
-        bands = fr.plan_adjoint(scal, rx, ry, tex, tex)  # accepts these ray fields
+        bands = fr.plan_adjoint(scal, rx, ry)  # accepts these ray fields
     g = torch.from_numpy(np.random.default_rng(3).standard_normal(
         (2, 2, 4, res, res)).astype(np.float32))
     if case == "nan_ray":
@@ -246,23 +246,31 @@ def test_kernel_search_with_planned_windows_finds_every_contribution(case):
 
 
 def test_plan_adjoint_windows_and_non_monotone_warp():
+    """``plan_adjoint`` holds the poses to what the kernel's search needs
+    (and measures no windows: the kernel finds its own): the corner poses
+    pass, at the image's size and at twice it on the same texture, and give
+    the word that ``plan_fused`` hands on; a mirrored ray field (along or
+    across image rows and columns, so that ``fx`` or ``fy`` is not monotone)
+    and a plane behind the eye raise; ``warp_adjoint`` takes only that
+    word."""
     (dt, rt, et, zt), scal, rx, ry = _port_fields(3, 32, [0.578, -0.578, 0.0],
                                                   [0.254, -0.254, 0.0])
-    bands = fr.plan_adjoint(scal, rx, ry, 32, 32)
-    assert isinstance(bands, fr.AdjointBands) and 3 <= bands.d_v <= 32 and 3 <= bands.d_u <= 32
-    wider = fr.plan_adjoint(scal, rx, ry, 32, 32, margin=5)
-    assert wider == fr.AdjointBands(bands.d_u + 3, bands.d_v + 3)
-    # twice the image on the same texture: twice the pixels per texel
+    bands = fr.plan_adjoint(scal, rx, ry)
+    assert bands == fr.AdjointBands()
     _, scal2, rx2, ry2 = _port_fields(3, 64, [0.578, -0.578, 0.0], [0.254, -0.254, 0.0], tex=32)
-    big = fr.plan_adjoint(scal2, rx2, ry2, 32, 32)
-    assert big.d_u > bands.d_u and big.d_v > bands.d_v
+    assert fr.plan_adjoint(scal2, rx2, ry2) == bands
+    assert fr.plan_adjoint(scal[0], rx[:1], ry[:1]) == bands  # scal [L, 6] for one view
     assert plan_fused(dt, rt, et, zt, 32, 32) == (None, (bands,))
-    with pytest.raises(ValueError, match="monotone"):
-        fr.plan_adjoint(scal, rx.flip(2), ry, 32, 32)  # mirrored image columns
-    with pytest.raises(ValueError, match="monotone"):
-        fr.plan_adjoint(scal, rx, ry.flip(1), 32, 32)
+    with pytest.raises(ValueError, match="monotone along"):
+        fr.plan_adjoint(scal, rx.flip(2), ry)  # mirrored image columns
+    with pytest.raises(ValueError, match="monotone along"):
+        fr.plan_adjoint(scal, rx, ry.flip(1))
+    bent = rx.clone()
+    bent[:, 16:] = bent[:, 16:].flip(1)  # fx rises, then falls, down a column
+    with pytest.raises(ValueError, match="monotone across"):
+        fr.plan_adjoint(scal, bent, ry)
     with pytest.raises(ValueError, match="behind"):
-        fr.plan_adjoint(-scal, rx, ry, 32, 32)
+        fr.plan_adjoint(-scal, rx, ry)
     with pytest.raises(ValueError, match="AdjointBands"):
         fr.warp_adjoint(torch.zeros((3, 3, 4, 32, 32)), rx, ry, scal, (4, 4), 32, 32)
 
@@ -279,7 +287,7 @@ def test_warp_adjoint_is_the_transpose_and_ignores_nan_coordinates():
     warped = torch.stack([fr.sample_bilinear(
         x[:, l], scal[:, l, 0, None, None] * rx + scal[:, l, 1, None, None],
         scal[:, l, 2, None, None] * ry + scal[:, l, 3, None, None]) for l in range(n_l)], dim=1)
-    bands = fr.AdjointBands(8, 8)
+    bands = fr.AdjointBands()
     d_tex = fr.warp_adjoint(g, rx, ry, scal, bands, res, res)
     lhs, rhs = float((warped * g).sum()), float((x * d_tex).sum())
     assert abs(lhs - rhs) <= 1e-12 * abs(lhs)
