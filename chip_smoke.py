@@ -45,7 +45,15 @@ Phases, each of which raises on failure (nonzero exit, no result line):
    without disparity and residual, on the three stacks; the splat in both
    paths, with and without ``n_live`` over NaN-poisoned dead slots; the
    composite backward with and without masks and optional cotangents, also at
-   9 and 600 planes (checkpoints past one a chunk) on an odd pixel count;
+   9 and 600 planes (checkpoints past one a chunk) on an odd pixel count.
+   (f) The MPI skip stack's update (K9) alone at the shapes the main paths
+   launch it with (``K9_SHAPES``: the last block of FFHQ256's and FFHQ1024's
+   96-plane MPIs at batch 1, the raw 512^2 block cut into plane chunks, the
+   first block with no stack, the train steps' last blocks at batch 8 and 4;
+   bf16 RGB and alpha heads, a float32 background): each against its plain
+   form (1e-6 of max(1, max|plain|)); the two serving last blocks also timed
+   (one launch a pair and 10 queued) beside the plain form (the library
+   chain it replaces), that chain's FIR alone and its byte bound;
 3. serving main path — ``FakeImageGenerator`` at full FFHQ256 width with
    seeded random weights and the fused renderer: for 4 seeds, ``sample_mpi``
    then ``render`` of 4 views.  Kernel launch counts are reset just before and
@@ -262,6 +270,10 @@ Phases, each of which raises on failure (nonzero exit, no result line):
 Each phase prints its seconds.  The patch gather's launches are counted by
 kernel path too, zeroed and read with each main path's launch counts: all of
 the main paths' must take the TMA path (their shapes are all ones it takes).
+Every launch count also expects one K9 launch a synthesis block that ran on
+the card without autograd (``K9_BLOCKS``, counted by a wrapper of
+``SynthesisBlock.forward``: the sampler's eager call and its capture, the
+train step's D-phase fakes and worst views), and none under autograd.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -1034,6 +1046,83 @@ def patch_sample_at(tw, gather_args, sample_args, rates, card, label):
             "step_textures": k, "step_ms": step_ms, "hats_step_ms": hats_ms}
 
 
+# K9's shapes on the main paths: label -> (resolution, batch, planes, with an input
+# stack, with the alpha head, final_act, timed).  Heads bf16 (float32 at the first
+# block), a float32 background plane; a last block (final_act tanh) also sets the
+# background alpha.  Timed: the last block of FFHQ256's and of FFHQ1024's 96-plane
+# MPI at batch 1.  Compared only: the raw 512^2 block of a fused 1024^2 request
+# (planes in chunks of 24), the first block (no stack), and the last blocks of the
+# train steps' no-gradient G calls (FFHQ256: batch 8, AFHQCat 512^2: batch 4).
+K9_SHAPES = {
+    "serve256_last": (256, 1, 96, True, True, "tanh", True),
+    "serve1024_last": (1024, 1, 96, True, False, "tanh", True),
+    "serve512_raw": (512, 1, 96, True, False, None, False),
+    "first_block": (4, 1, 96, False, True, None, False),
+    "train256_last": (256, 8, 32, True, True, "tanh", False),
+    "train512_last": (512, 4, 32, True, False, "tanh", False),
+}
+
+
+def mpi_stack_at(label, rates, card, dev):
+    """K9 alone at one of ``K9_SHAPES``, on seeded inputs in the generator's
+    dtypes: against its plain form (the library chain it replaces, fp32
+    rounding: 1e-6 of max(1, max|plain|)); where the shape is timed, then
+    timed (CUDA events, median of 20, one launch a pair, and 10 queued) beside
+    its plain form, the FIR alone (``upsample2d``, the chain's cuDNN
+    convolution) and its byte bound: the old stack and the heads read once,
+    the new stack written once.  Returns the record; raises on a
+    difference."""
+    from gmpi_tpu_torch.ops import mpi_stack as ms
+    from gmpi_tpu_torch.ops.upfirdn2d import setup_filter, upsample2d
+
+    res, bs, n_planes, with_stack, with_alpha, final_act, timed = K9_SHAPES[label]
+    heads = torch.bfloat16 if with_stack else torch.float32
+    g = torch.Generator(device=dev).manual_seed(res + bs)
+    stack = (torch.randn((bs, n_planes * 4, res // 2, res // 2), device=dev, generator=g)
+             if with_stack else None)
+    rgb = torch.randn((bs, 3, res, res), device=dev, generator=g).to(heads)
+    background = torch.randn((bs, 3, res, res), device=dev, generator=g)
+    alpha = (torch.randn((bs * n_planes, 1, res, res), device=dev, generator=g).to(heads)
+             if with_alpha else None)
+    f = torch.from_numpy(setup_filter([1, 3, 3, 1])).to(dev)
+    args = (stack, rgb, background, alpha, f, n_planes, final_act, final_act is not None)
+    what = (f"{res}^2, batch {bs}, {n_planes} planes ({'a' if with_stack else 'no'} stack, "
+            f"{'with' if with_alpha else 'no'} alpha head, {final_act or 'raw'})")
+    with torch.no_grad():
+        before = ms.LAUNCHES["mpi_stack"]
+        got = ms.mpi_stack(*args)
+        torch.cuda.synchronize()
+        if ms.LAUNCHES["mpi_stack"] != before + 1:
+            raise RuntimeError(f"mpi_stack at {what} did not launch K9")
+        ref = ms.mpi_stack_ref(*args)
+        err = float((got - ref).abs().max()) / max(1.0, float(ref.abs().max()))
+        if not err <= 1e-6:  # also catches NaN
+            raise RuntimeError(f"mpi_stack disagrees with its plain form at {what}: {err}")
+        del got, ref
+        record = {"max_rel_err": err}
+        if timed:
+            n_bytes = bs * n_planes * 4 * res * res * 4 + sum(
+                t.numel() * t.element_size() for t in (stack, rgb, background, alpha)
+                if t is not None)
+            b = bound(n_bytes, 0, rates)
+            kernel_ms, queued_ms = time_ms(lambda: ms.mpi_stack(*args)), time_ms(
+                lambda: ms.mpi_stack(*args), queued=10)
+            plain_ms = time_ms(lambda: ms.mpi_stack_ref(*args), warmup=1)
+            fir_ms = time_ms(lambda: upsample2d(stack, f), warmup=1)
+            record.update(ms=kernel_ms, queued_ms=queued_ms, plain_ms=plain_ms, fir_ms=fir_ms,
+                          bound_ms=b[0], bound_by=b[1], bytes=n_bytes)
+    if timed:
+        log(f"mpi_stack (K9) at {what}: {err:.2e} of max from its plain form; {kernel_ms:.4f} "
+            f"ms, queued {queued_ms:.4f} ms; plain form (the library chain it replaces) "
+            f"{plain_ms:.4f} ms, its FIR alone {fir_ms:.4f} ms; needs {n_bytes} B, bound "
+            f"{b[0]:.5f} ms ({b[0] / kernel_ms:.0%} of it one launch a pair, "
+            f"{b[0] / queued_ms:.0%} queued) ({card})")
+    else:
+        log(f"mpi_stack (K9) at {what}: {err:.2e} of max from its plain form ({card})")
+    torch.cuda.empty_cache()
+    return record
+
+
 # K7 at the edges of its design: (label, n, t, wp, hpc, band_x, band_yc, dtype, start step in
 # elements, tweak).  Starts are drawn on the step; a start 4 elements past 8 is a bf16 start
 # 8 bytes off the TMA's 16; "clamp" hands starts outside the texture with validate=False.
@@ -1097,31 +1186,61 @@ def patch_gather_edges(pg, dev, g):
 class Counts(dict):
     """Launches by kernel since ``reset_counts`` (a dict: compared with and
     built from plain ones), with K7's launches by kernel path read at the
-    same point, ``k7_paths``.  ``a + b`` adds both."""
+    same point, ``k7_paths``, and the synthesis blocks that should each have
+    launched K9, ``k9_blocks`` (``K9_BLOCKS``).  ``a + b`` adds all three."""
 
-    def __init__(self, launches, k7_paths):
+    def __init__(self, launches, k7_paths, k9_blocks=0):
         super().__init__(launches)
         self.k7_paths = dict(k7_paths)
+        self.k9_blocks = k9_blocks
 
     def __add__(self, other):
         return Counts({k: n + other[k] for k, n in self.items()},
-                      {p: n + other.k7_paths[p] for p, n in self.k7_paths.items()})
+                      {p: n + other.k7_paths[p] for p, n in self.k7_paths.items()},
+                      self.k9_blocks + other.k9_blocks)
+
+
+# synthesis blocks run on the card with the shared-RGB head and nothing recorded
+# by autograd since ``reset_counts`` (counted by ``count_k9_blocks``' wrapper): the
+# blocks whose MPI stack K9 must update, one launch each
+K9_BLOCKS = {"n": 0}
+
+
+def count_k9_blocks():
+    """Wrap ``SynthesisBlock.forward`` to count ``K9_BLOCKS``: a block on the
+    card with the ``only_alpha`` heads whose new stack needs no gradient."""
+    from gmpi_tpu_torch.models import generator as gen_mod
+
+    forward = gen_mod.SynthesisBlock.forward
+    if getattr(forward, "counts_k9", False):
+        return
+
+    def counted(self, x, img, block_ws, *args, **kw):
+        out = forward(self, x, img, block_ws, *args, **kw)
+        if block_ws.is_cuda and self.cfg.only_alpha and not out[1].requires_grad:
+            K9_BLOCKS["n"] += 1
+        return out
+
+    counted.counts_k9 = True
+    gen_mod.SynthesisBlock.forward = counted
 
 
 def reset_counts(fr):
-    """Zero the launch counts by kernel, and K7's by kernel path."""
+    """Zero the launch counts by kernel, K7's by kernel path and ``K9_BLOCKS``."""
     from gmpi_tpu_torch.ops import patch_gather as pg
 
     for table in (fr.LAUNCHES, pg.PATH_LAUNCHES):
         for key in table:
             table[key] = 0
+    K9_BLOCKS["n"] = 0
 
 
 def read_counts(fr) -> Counts:
-    """The launches since ``reset_counts``, by kernel and K7's by path."""
+    """The launches since ``reset_counts``, by kernel and K7's by path, and
+    the blocks that should have launched K9."""
     from gmpi_tpu_torch.ops import patch_gather as pg
 
-    return Counts(fr.LAUNCHES, pg.PATH_LAUNCHES)
+    return Counts(fr.LAUNCHES, pg.PATH_LAUNCHES, K9_BLOCKS["n"])
 
 
 def no_counts(fr) -> Counts:
@@ -1129,6 +1248,12 @@ def no_counts(fr) -> Counts:
     from gmpi_tpu_torch.ops import patch_gather as pg
 
     return Counts(dict.fromkeys(fr.LAUNCHES, 0), dict.fromkeys(pg.PATH_LAUNCHES, 0))
+
+
+def generator_only(counts: Counts) -> dict:
+    """What ``counts`` must read where no renderer kernel ran: one K9 launch
+    a synthesis block that ran without autograd, nothing else."""
+    return {**dict.fromkeys(counts, 0), "mpi_stack": counts.k9_blocks}
 
 
 def snapshot(tensors):
@@ -1342,7 +1467,7 @@ def training_loop_phase(fr, cfg, card, dev):
     n_snaps = sum(len(st.snapshot_steps) for _, st, _ in runs)
     renders = 2 * 3 * 4  # a snapshot: EMA and raw weights x 3 view rows x 4 images
     all_steps = n_steps + N_DIRECT_STEPS
-    expected = {**dict.fromkeys(fr.LAUNCHES, 0), "fused_fwd": 3 * all_steps + renders * n_snaps,
+    expected = {**generator_only(launches), "fused_fwd": 3 * all_steps + renders * n_snaps,
                 "composite_bwd": split * all_steps, "splat": split * all_steps}
     log(f"training loop: {n_steps} loop steps, {N_DIRECT_STEPS} steps outside it and {n_snaps} "
         f"snapshots, launches {launches} (per step 3 forward, {split} composite backward, "
@@ -1554,7 +1679,7 @@ def eval_phase(fr, tw, pg, cfg, card, dev, tmp):
     by_task = {}
     for t in tasks:
         renders = t["n_imgs"]  # one render call an image (its views in one call)
-        want = dict.fromkeys(fr.LAUNCHES, 0)
+        want = generator_only(t["launches"])
         if t["fused"]:
             want["fused_fwd"] = renders
         else:
@@ -1659,7 +1784,7 @@ def eval_phase(fr, tw, pg, cfg, card, dev, tmp):
     with open(os.path.join(out, "metrics.jsonl")) as f:
         fids = [json.loads(line)["fid"] for line in f if '"fid"' in line]
     split = cfg.hparams.batch_split
-    want = {**dict.fromkeys(fr.LAUNCHES, 0), "composite_bwd": 2 * split, "splat": 2 * split,
+    want = {**generator_only(train_launches), "composite_bwd": 2 * split, "splat": 2 * split,
             "fused_fwd": 2 * 3 + -(-fid_n_imgs // 8)}  # 3 a step; the FID's renders of 8
     log(f"in-training FID (train_gmpi_torch.main, 2 steps, --fid_interval 1 --fid_n_imgs "
         f"{fid_n_imgs}): logged {fids}, {fid_s_train[0] / 1e3:.2f} s for one; launches "
@@ -1733,7 +1858,7 @@ def viz_phase(fr, cfg, ckpt_dir, out_dir, card, dev):
         f"{faces_ok}; launches {launches} ({card})")
     if missing or None in videos.values() or not (n_v > 0 and faces_ok):
         raise RuntimeError("render_gmpi_torch.main left an artifact missing or malformed")
-    if any(launches.values()):
+    if launches != generator_only(launches):
         raise RuntimeError(f"the video path launched {launches}; it renders by the gather")
     return {"launches": launches, "frame_ms_median": statistics.median(frame_ms),
             "marching_tetrahedra_s": mt_ms[0] / 1e3, "verts": n_v, "faces": n_f,
@@ -1797,7 +1922,6 @@ def variants_phase(fr, cfg, card, chip, dev):
     from gmpi_tpu_torch.utils.toy_mpi import layered_scene
 
     res, n_views = cfg.resolution, VARIANT_VIEWS
-    zero = dict.fromkeys(fr.LAUNCHES, 0)
     launches = {"renders": no_counts(fr), "d_steps": no_counts(fr), "warm_steps": no_counts(fr)}
     k1_err = 0.0
     record = {"renders": {}}
@@ -1824,7 +1948,7 @@ def variants_phase(fr, cfg, card, chip, dev):
             reset_counts(fr)
             (color, depth), ms = host_ms(lambda: fake.render(mpi_v, yv, pv))
             counts = read_counts(fr)
-            if counts != {**zero, "fused_fwd": 1}:
+            if counts != {**generator_only(counts), "fused_fwd": 1}:
                 raise RuntimeError(f"{label}: a render launched {counts}, expected one K1")
             launches["renders"] += counts
             render_ms.append(ms)
@@ -1987,7 +2111,8 @@ def variants_phase(fr, cfg, card, chip, dev):
             all_vals.append({k: float(v) for k, v in metrics.items()})
         counts = read_counts(fr)
         split = cfg.hparams.batch_split
-        want = {**zero, "fused_fwd": 3 * D_STEPS, "composite_bwd": split * D_STEPS,
+        want = {**generator_only(counts), "fused_fwd": 3 * D_STEPS,
+                "composite_bwd": split * D_STEPS,
                 "splat": split * D_STEPS}
         vals = all_vals[-1]
         log(f"[D {arch}] {sum(p.numel() for p in d_gpu.parameters())} params, batch {D_BATCH} "
@@ -2060,7 +2185,7 @@ def variants_phase(fr, cfg, card, chip, dev):
         counts = read_counts(fr)
         split = cfg.hparams.batch_split
         n_snaps = len(stats.snapshot_steps)
-        want = {**zero, "fused_fwd": 3 * WARM_STEPS + 24 * n_snaps,
+        want = {**generator_only(counts), "fused_fwd": 3 * WARM_STEPS + 24 * n_snaps,
                 "composite_bwd": split * WARM_STEPS, "splat": split * WARM_STEPS}
         log(f"warm-started training: {len(stats.step_ms)} steps, step ms "
             f"{['%.1f' % x for x in stats.step_ms]}, launches {counts}; "
@@ -2297,7 +2422,7 @@ def bf16_phase(fr, cfg, card, chip, dev, fp32_step):
     metrics.append({**dm, **gm})
     launches = read_counts(fr)
     peak = torch.cuda.max_memory_allocated() / 1e9
-    expected = {**dict.fromkeys(fr.LAUNCHES, 0), "fused_fwd": 3 * BF16_STEPS,
+    expected = {**generator_only(launches), "fused_fwd": 3 * BF16_STEPS,
                 "composite_bwd": split * BF16_STEPS, "splat": split * BF16_STEPS}
     if launches != expected:
         raise RuntimeError(f"bf16 train steps launched {launches}, expected {expected}")
@@ -2429,7 +2554,8 @@ def ranks_phase(fr, card, dev):
     log(f"ranks on the one card: 2 + 4 + 2 + 1 processes in {seconds:.1f} s ({card}; ranks "
         f"share the card: correctness and per-rank cost, not scaling)")
     # each rank's counts as read at the end of each of its main paths
-    launches = sum((Counts(r["launches"], r["k7_paths"]) for r in two + four + cli + nccl),
+    launches = sum((Counts(r["launches"], r["k7_paths"], r["k9_blocks"])
+                    for r in two + four + cli + nccl),
                    no_counts(fr))
     return {"sharded2": two, "render4": four, "cli2": cli, "nccl1": nccl,
             "launches": launches, "seconds": seconds}
@@ -2524,6 +2650,7 @@ def _rank_job(job, rank, world, work):
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    count_k9_blocks()
     dev = torch.device(RANK_DEVICE)
     torch.cuda.set_device(dev)
     record = {"rank": rank, "world": world, "renders": {},
@@ -2556,6 +2683,7 @@ def _rank_job(job, rank, world, work):
         finally:
             dist.destroy_process_group()
     record["k7_paths"] = record["launches"].k7_paths
+    record["k9_blocks"] = record["launches"].k9_blocks
     with open(os.path.join(work, f"{job}_{rank}.json"), "w") as f:
         json.dump(record, f)
     print(json.dumps({k: v for k, v in record.items() if k != "launches"}), flush=True)
@@ -2943,7 +3071,7 @@ def full_scale_checks(fr, tw, pg, cfg, rates, card, dev):
                     f"{oracle_ms:.1f}), peak {peak:.2f} GB; launches {launches} ({card})")
                 if not (err_c <= gates[name] and err_g <= gates[name]):  # also catches NaN
                     raise RuntimeError(f"full scale [{name}] disagrees with the chunked gather")
-                want = {**dict.fromkeys(fr.LAUNCHES, 0),
+                want = {**generator_only(launches),
                         **({"patch_gather": launches["patch_gather"],
                             "patch_sample": launches["patch_gather"]} if name == "banded" else
                            {"fused_fwd": 1, "composite_bwd": 1, "splat": 1})}
@@ -3001,7 +3129,7 @@ def preset_serving(fr, cfg, rates, card, dev):
             raise RuntimeError(f"{cfg.name} seed {seed}: bad render shape {tuple(color.shape)}")
     launches = read_counts(fr)
     peak = torch.cuda.max_memory_allocated() / 1e9
-    if launches != {**dict.fromkeys(fr.LAUNCHES, 0), "fused_fwd": len(PRESET_SEEDS)}:
+    if launches != {**generator_only(launches), "fused_fwd": len(PRESET_SEEDS)}:
         raise RuntimeError(f"{cfg.name} serving launched {launches}, expected one fused_fwd "
                            f"a render call")
     geom, rays = gen.geom, preset_rays(cfg, n_planes, yv, pv, dev)[1]
@@ -3157,7 +3285,7 @@ def preset_training(fr, cfg, rates, card, dev):
             metrics.append(m)
         launches = read_counts(fr)
         peak = max(peaks.values())
-        want = {**dict.fromkeys(fr.LAUNCHES, 0), **scaled(step_launches(run_cfg), len(metrics))}
+        want = {**generator_only(launches), **scaled(step_launches(run_cfg), len(metrics))}
         if launches != want:
             raise RuntimeError(f"{cfg.name} [{label}] launched {launches} in {len(metrics)} "
                                f"steps, expected {want}")
@@ -3319,7 +3447,7 @@ def prepare_fake_routes(fr, tw, pg, label, cfg, ckpt_dir, routes, tmp, card, dev
                 eval_gmpi_torch.main(argv)
             eval_s[route] = time.perf_counter() - t0
             launches[route] = read_counts(fr)
-            want = {**dict.fromkeys(fr.LAUNCHES, 0),
+            want = {**generator_only(launches[route]),
                     **({"patch_gather": row_steps["n"], "patch_sample": row_steps["n"]}
                        if route == "banded" else {"fused_fwd": PRESET_FAKES})}
             if launches[route] != want or (route == "banded" and not row_steps["n"]):
@@ -3431,7 +3559,7 @@ def preset_loop_eval(fr, tw, pg, card, dev, tmp):
     del state
     torch.cuda.empty_cache()
     launches = read_counts(fr)
-    want = {**dict.fromkeys(fr.LAUNCHES, 0), **scaled(step_launches(ffhq), last)}
+    want = {**generator_only(launches), **scaled(step_launches(ffhq), last)}
     if launches != want:
         raise RuntimeError(f"the FFHQ1024 train CLI launched {launches} in {last} steps, "
                            f"expected {want}")
@@ -3468,7 +3596,7 @@ def preset_loop_eval(fr, tw, pg, card, dev, tmp):
                                    "--total_iters", str(first), "--device", str(dev)],
                                   stats=stats)
     launches = read_counts(fr)
-    want = {**dict.fromkeys(fr.LAUNCHES, 0), **scaled(step_launches(afhq), first)}
+    want = {**generator_only(launches), **scaled(step_launches(afhq), first)}
     if state.step != first or launches != want:
         raise RuntimeError(f"the AFHQCat train CLI ended at step {state.step} with launches "
                            f"{launches}, expected {first} steps and {want}")
@@ -3483,7 +3611,7 @@ def preset_loop_eval(fr, tw, pg, card, dev, tmp):
     reset_counts(fr)
     color, depth = gen.render(mpi_v, yv, pv)
     render_launches = read_counts(fr)
-    if render_launches != {**dict.fromkeys(fr.LAUNCHES, 0), "fused_fwd": 1}:
+    if render_launches != {**generator_only(render_launches), "fused_fwd": 1}:
         raise RuntimeError(f"an AFHQCat render launched {render_launches}")
     paths.append(render_launches)
     _, rays = preset_rays(afhq, afhq.eval_n_planes, yv, pv, dev)
@@ -3734,7 +3862,7 @@ def banded_training(fr, tw, pg, card, dev, tmp, name):
         for k, fn in step_spans.items():
             setattr(TrainStep, k, fn)
     launches = read_counts(fr)
-    want = {**dict.fromkeys(fr.LAUNCHES, 0), "patch_gather": row_steps["n"],
+    want = {**generator_only(launches), "patch_gather": row_steps["n"],
             "patch_sample": row_steps["n"]}
     if launches != want or not row_steps["n"]:
         raise RuntimeError(f"the {name} banded train CLI launched {launches}, expected {want}")
@@ -3847,7 +3975,7 @@ def fused_training(fr, card, dev, tmp, name):
                                        "6", "--total_iters", str(FUSED_LOOP_STEPS), "--device",
                                        str(dev)], stats=stats)
     launches = read_counts(fr)
-    want = {**dict.fromkeys(fr.LAUNCHES, 0), **scaled(step_launches(cfg), FUSED_LOOP_STEPS)}
+    want = {**generator_only(launches), **scaled(step_launches(cfg), FUSED_LOOP_STEPS)}
     if state.step != FUSED_LOOP_STEPS or launches != want:
         raise RuntimeError(f"the {name} train CLI ended at step {state.step} with launches "
                            f"{launches}, expected {FUSED_LOOP_STEPS} steps and {want}")
@@ -4010,6 +4138,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     log("tf32: off for cuDNN convolutions and CUDA matmuls (full fp32)")
+    count_k9_blocks()
     t0 = time.perf_counter()
     built = _build.build_all()
     log(f"build: {sorted(built)} in {time.perf_counter() - t0:.1f} s")
@@ -4132,6 +4261,12 @@ def main() -> int:
 
     lap("2c")
 
+    # -- 2f. the MPI skip stack's update (K9) alone at the serving shapes ------------
+    k9 = {label: mpi_stack_at(label, rates, card, dev) for label in K9_SHAPES}
+    max_err["mpi_stack"] = max(r["max_rel_err"] for r in k9.values())
+
+    lap("2f")
+
     # -- 3. serving main path ----------------------------------------------------
     t0 = time.perf_counter()
     gen_module = Generator(cfg.generator_cfg(), generator=torch.Generator().manual_seed(0))
@@ -4162,7 +4297,7 @@ def main() -> int:
             raise RuntimeError(f"seed {seed}: depth {float(depth.min())}..{float(depth.max())} "
                                f"outside [{lo}, {hi}]")
     serving_launches = read_counts(fr)
-    if serving_launches != {**dict.fromkeys(fr.LAUNCHES, 0), "fused_fwd": len(seeds)}:
+    if serving_launches != {**generator_only(serving_launches), "fused_fwd": len(seeds)}:
         raise RuntimeError(f"serving main path launched {serving_launches}, expected one "
                            f"fused_fwd per render call ({len(seeds)}) and no backward")
     log(f"serving main path: {len(seeds)} seeds x {n_views} views, launches {serving_launches}")
@@ -4253,7 +4388,7 @@ def main() -> int:
     train_launches = read_counts(fr)
     n_steps = len(all_metrics)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    expected = {**dict.fromkeys(fr.LAUNCHES, 0), "fused_fwd": 3 * n_steps,
+    expected = {**generator_only(train_launches), "fused_fwd": 3 * n_steps,
                 "composite_bwd": split * n_steps, "splat": split * n_steps}
     if train_launches != expected:
         raise RuntimeError(f"training main path launched {train_launches} in {n_steps} steps, "
@@ -4314,7 +4449,8 @@ def main() -> int:
         grads_a.append(torch.autograd.grad((out.color * cot).sum(), x)[0])
     torch.cuda.synchronize()
     adjoint_launches = read_counts(fr)
-    expected = {**dict.fromkeys(fr.LAUNCHES, 0), "fused_fwd": 2, "composite_bwd": 2, "adjoint": 2}
+    expected = {**generator_only(adjoint_launches), "fused_fwd": 2, "composite_bwd": 2,
+                "adjoint": 2}
     if adjoint_launches != expected:
         raise RuntimeError(f"the adjoint route launched {adjoint_launches} in 2 forward+backward "
                            f"passes, expected {expected}")
@@ -4413,7 +4549,7 @@ def main() -> int:
                               per_plane(z_dir))
     covered = bool(tw.bands_cover((n_views * n_planes, 4, res, res), grid, band_y, band_x))
     del grid
-    expected = {**dict.fromkeys(fr.LAUNCHES, 0), "patch_gather": calls["row_steps"],
+    expected = {**generator_only(banded_launches), "patch_gather": calls["row_steps"],
                 "patch_sample": calls["row_steps"]}
     log(f"banded serving path: {len(seeds)} seeds x {n_views} views x {n_planes} planes in one "
         f"call each (textures and tile rows in steps under "
@@ -4542,6 +4678,15 @@ def main() -> int:
                            f"TMA path, or not the {sum(p['patch_gather'] for p in main_paths)} "
                            f"launches counted by kernel")
 
+    # K9: one launch a synthesis block run without autograd on every main path
+    k9_launches = sum(path["mpi_stack"] for path in main_paths)
+    k9_blocks = sum(path.k9_blocks for path in main_paths)
+    log(f"mpi_stack launches of the main paths: {k9_launches}, for {k9_blocks} synthesis blocks "
+        f"run without autograd")
+    if k9_launches != k9_blocks or not k9_launches:
+        raise RuntimeError(f"the main paths launched K9 {k9_launches} times for {k9_blocks} "
+                           f"synthesis blocks run without autograd")
+
     def entry(kname, line, ms, plain_ms, b, library_ms, replaces="gmpi_tpu/ops/pallas_warp.py",
               **extra):
         return {"name": kname, "route": "cuda", "source": f"gmpi_tpu_torch/csrc/{kname}.cu",
@@ -4549,7 +4694,7 @@ def main() -> int:
                 "launches": sum(path[kname] for path in main_paths),
                 "max_abs_err": max_err[kname], "err_scale": "max|plain| per field", "ms": ms,
                 "plain_ms": plain_ms, "bound_ms": b[0], "bound_by": b[1],
-                "library_ms": library_ms, "at_1024": at_1024[kname], **extra}
+                "library_ms": library_ms, "at_1024": at_1024.get(kname), **extra}
 
     record = {"kernels": [
         entry("fused_fwd", 518, fwd_ms, fwd_plain_ms, fwd_bound, None,
@@ -4582,6 +4727,14 @@ def main() -> int:
               None, replaces="none (the hats and contractions of gmpi_tpu/ops/tiled_warp.py)",
               queued_ms=k8["queued_ms"], bytes=k8["bytes"], step_ms=k8["step_ms"],
               hats_step_ms=k8["hats_step_ms"], step_textures=k8["step_textures"]),
+        entry("mpi_stack", None, k9["serve256_last"]["ms"], k9["serve256_last"]["plain_ms"],
+              (k9["serve256_last"]["bound_ms"], k9["serve256_last"]["bound_by"]),
+              k9["serve256_last"]["plain_ms"],
+              replaces="none (the skip stack's library chain of gmpi_tpu/models/generator.py)",
+              err_scale="max(1, max|plain|)", queued_ms=k9["serve256_last"]["queued_ms"],
+              fir_ms=k9["serve256_last"]["fir_ms"], bytes=k9["serve256_last"]["bytes"],
+              at_1024_serving=k9["serve1024_last"],
+              errs={label: r["max_rel_err"] for label, r in k9.items()}),
     ], "train_steps": n_steps, "train_step_ms": statistics.median(timed),
         "banded_render_ms": t_banded, "banded_spans_ms": banded_spans,
         "banded_same_mpi_fused_ms": t_fused_same, "banded_same_mpi_gather_ms": t_gather_same,

@@ -39,7 +39,8 @@ from gmpi_tpu_torch.models.layers import (
     instance_mean_std,
     normalize_2nd_moment,
 )
-from gmpi_tpu_torch.ops.upfirdn2d import setup_filter, upsample2d
+from gmpi_tpu_torch.ops.mpi_stack import add_to_stack, mpi_stack
+from gmpi_tpu_torch.ops.upfirdn2d import setup_filter
 
 COND_MODES = ("add_z", "normalize_add_z", "add_xyz", "normalize_add_xyz", "cat_xyz", "cond_z",
               "cond_xyz")
@@ -205,10 +206,16 @@ class SynthesisTrunk(nn.Module):
 
 
 class SynthesisBlock(SynthesisTrunk):
-    """One resolution of the skip-architecture trunk plus its MPI head."""
+    """One resolution of the skip-architecture trunk plus its MPI head.
+    ``finish``, the last block's alone: the generator's ``final_img_act``
+    and ``background_alpha_full``, applied as the MPI stack is written."""
 
-    def __init__(self, cfg: SynthesisBlockCfg, generator: Optional[torch.Generator] = None):
+    def __init__(self, cfg: SynthesisBlockCfg, generator: Optional[torch.Generator] = None,
+                 finish: Optional[Tuple[str, bool]] = None):
         super().__init__(cfg, generator)
+        if (finish is not None) != cfg.is_last:
+            raise ValueError("the last block, and only it, finishes the MPI stack")
+        self.finish = finish
         if cfg.cond_mode not in COND_MODES:
             raise ValueError(f"cond_mode {cfg.cond_mode!r} is none of {COND_MODES}")
         if cfg.sep_background and not (cfg.build_bg_from_rgb and cfg.only_alpha):
@@ -378,16 +385,16 @@ class SynthesisBlock(SynthesisTrunk):
                 z_interpolation_ws: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """``foreground_only`` disables the background path: every plane slot
-        is foreground (shared RGB + depth-conditioned alpha).
-        ``stop_trunk_grad`` detaches the trunk feature, so only the MPI head
-        trains."""
+        is foreground (shared RGB + depth-conditioned alpha), and the last
+        block forces no background alpha.  ``stop_trunk_grad`` detaches the
+        trunk feature, so only the MPI head trains."""
         cfg = self.cfg
         bs, res = block_ws.shape[0], cfg.resolution
         sep_background = cfg.sep_background and not foreground_only
+        final_act, alpha_full = None, False
+        if self.finish is not None:
+            final_act, alpha_full = self.finish[0], self.finish[1] and not foreground_only
         x, w_conv1, w_idx = self.trunk(x, block_ws, noise_mode, generator, stop_trunk_grad)
-
-        if img is not None:
-            img = upsample2d(img, self.resample_filter)
         w_rgba = block_ws[:, w_idx]
 
         cond_x = None
@@ -397,24 +404,17 @@ class SynthesisBlock(SynthesisTrunk):
 
         if cfg.only_alpha:
             single_rgb = self.torgb(x, w_rgba)  # [bs, 3, res, res]
-            if sep_background:
-                background = self.torgb(self._background_feature(x), w_rgba)
-                fg = single_rgb[:, None].expand(bs, n_planes - 1, 3, res, res)
-                cur_rgb = torch.cat([fg.to(background.dtype), background[:, None]], dim=1)
-            else:
-                cur_rgb = single_rgb[:, None].expand(bs, n_planes, 3, res, res)
-            cur_rgb = cur_rgb.reshape(bs * n_planes, 3, res, res)
-            if cfg.gen_alpha_this_res:
-                cur_alpha = self.toalpha(cond_x, w_rgba, splitted=True, n_planes=n_planes)
-            else:
-                cur_alpha = torch.zeros((bs * n_planes, 1, res, res), dtype=cur_rgb.dtype,
-                                        device=cur_rgb.device)
-            y = torch.cat([cur_rgb, cur_alpha.to(cur_rgb.dtype)], dim=1)
+            background = (self.torgb(self._background_feature(x), w_rgba) if sep_background
+                          else None)
+            alpha = (self.toalpha(cond_x, w_rgba, splitted=True, n_planes=n_planes)
+                     if cfg.gen_alpha_this_res else None)
+            img = mpi_stack(img, single_rgb, background, alpha, self.resample_filter, n_planes,
+                            final_act, alpha_full)
         else:
             # per-plane RGBA from the conditioned feature
             y = self.torgba(cond_x, w_rgba, splitted=True, n_planes=n_planes)
-        y = y.reshape(bs, n_planes * cfg.img_channels, res, res).to(torch.float32)
-        img = img + y if img is not None else y
+            y = y.reshape(bs, n_planes * cfg.img_channels, res, res).to(torch.float32)
+            img = add_to_stack(img, y, self.resample_filter, final_act, alpha_full)
         return x, img
 
 
@@ -477,17 +477,24 @@ class SynthesisNetworkCfg:
 
 
 class SynthesisNetwork(nn.Module):
-    def __init__(self, cfg: SynthesisNetworkCfg, generator: Optional[torch.Generator] = None):
+    """ws -> the finished MPI stack; ``finish`` is the generator's
+    ``(final_img_act, background_alpha_full)``, which its last block applies."""
+
+    def __init__(self, cfg: SynthesisNetworkCfg, finish: Tuple[str, bool],
+                 generator: Optional[torch.Generator] = None):
         super().__init__()
         self.cfg = cfg
         for res in cfg.block_resolutions:
-            setattr(self, f"b{res}", SynthesisBlock(cfg.block_cfg(res), generator=generator))
+            bcfg = cfg.block_cfg(res)
+            setattr(self, f"b{res}", SynthesisBlock(bcfg, generator=generator,
+                                                    finish=finish if bcfg.is_last else None))
 
     def forward(self, ws: torch.Tensor, xyz_dict: Optional[Dict[int, torch.Tensor]],
                 n_planes: int, noise_mode: str = "const",
                 generator: Optional[torch.Generator] = None,
                 foreground_only: bool = False, stop_trunk_grad: bool = False,
                 z_interpolation_ws: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """ws -> the finished MPI stack ``[B, L * 4, R, R]``."""
         ws = ws.to(torch.float32)
         x = img = None
         w_idx = 0
@@ -536,7 +543,9 @@ class Generator(nn.Module):
         self.cfg = cfg
         self.mapping = MappingNetwork(cfg.z_dim, cfg.c_dim, cfg.w_dim, cfg.num_ws,
                                       cfg.mapping_num_layers, generator=generator)
-        self.synthesis = SynthesisNetwork(cfg.synthesis, generator=generator)
+        self.synthesis = SynthesisNetwork(cfg.synthesis,
+                                          (cfg.final_img_act, cfg.background_alpha_full),
+                                          generator=generator)
 
     def synthesize(self, ws: torch.Tensor, xyz_dict: Optional[Dict[int, torch.Tensor]],
                    n_planes: int, noise_mode: str = "const",
@@ -547,23 +556,11 @@ class Generator(nn.Module):
         slot as foreground (no background plane, no forced background alpha).
         ``z_interpolation_ws`` (``core.geometry.plane_interp_weights``)
         re-samples ``learnable_param``'s training-plane tokens to ``n_planes``."""
-        cfg = self.cfg
         img = self.synthesis(ws, xyz_dict, n_planes, noise_mode=noise_mode,
                              generator=generator, foreground_only=foreground_only,
                              stop_trunk_grad=stop_trunk_grad,
                              z_interpolation_ws=z_interpolation_ws)
-        if cfg.final_img_act == "none":
-            img = (torch.clamp(img, -1.0, 1.0) + 1.0) / 2.0
-        elif cfg.final_img_act == "sigmoid":
-            img = torch.sigmoid(img)
-        elif cfg.final_img_act == "tanh":
-            img = (torch.tanh(img) + 1.0) / 2.0
-        else:
-            raise ValueError(cfg.final_img_act)
-        if cfg.background_alpha_full and not foreground_only:
-            ones = torch.ones_like(img[:, :1])
-            img = torch.cat([img[:, :-1], ones], dim=1)
-        res = cfg.img_resolution
+        res = self.cfg.img_resolution
         return img.reshape(img.shape[0], n_planes, 4, res, res)
 
     def forward(self, z: torch.Tensor, c: Optional[torch.Tensor],

@@ -198,7 +198,7 @@ def test_function_gradient_matches_gather_autograd_on_the_card(cuda, opaque):
             grads.append(torch.autograd.grad(sum((o * c).sum() for o, c in zip(out, cot)), x)[0])
         assert {k: v - before[k] for k, v in fused_render.LAUNCHES.items()} == {
             "fused_fwd": 1, "composite_bwd": 1, "splat": 1, "adjoint": 0, "patch_gather": 0,
-            "patch_sample": 0}
+            "patch_sample": 0, "mpi_stack": 0}
         assert torch.isfinite(grads[0]).all()
         assert _rel(grads[0], grads[1]) <= 1e-3
 
@@ -758,7 +758,9 @@ def test_training_loop_on_the_card(cuda, tmp_path):
     """The training loop at a tiny width on the card: the fused kernels run
     (per step ``batch_split`` forward launches for the D phase's fakes, one
     for worst-view selection, ``batch_split`` for the G phase, and
-    ``batch_split`` composite backward and splat launches), the weights stay
+    ``batch_split`` composite backward and splat launches; one MPI-stack
+    launch a block of each G call without a gradient, the D phase's
+    ``batch_split`` and worst-view selection's), the weights stay
     finite, the checkpoint loads bitwise."""
     from gmpi_tpu_torch import config as tcfg
     from gmpi_tpu_torch.core.poses import SphereCameraConfig
@@ -786,7 +788,8 @@ def test_training_loop_on_the_card(cuda, tmp_path):
     launched = {k: fused_render.LAUNCHES[k] - before[k] for k in before}
     assert state.step == 3 and len(stats.step_ms) == 3
     assert launched == {**dict.fromkeys(launched, 0), "fused_fwd": (2 * split + 1) * 3,
-                        "composite_bwd": split * 3, "splat": split * 3}
+                        "composite_bwd": split * 3, "splat": split * 3,
+                        "mpi_stack": (split + 1) * 3 * 3}  # G's blocks 4, 8, 16 a call
     assert all(torch.isfinite(p).all() for p in state.G.parameters())
     loaded = checkpoint.load_checkpoint(str(tmp_path / "checkpoints"),
                                         init_train_state(cfg, device=cuda))

@@ -106,7 +106,7 @@ def test_fused_full_scale_fwd_and_grad_allclose(cuda, yaw, pitch, compute_dtype,
     torch.cuda.synchronize()
     assert {k: fused_render.LAUNCHES[k] - before[k] for k in before} == {
         "fused_fwd": 1, "composite_bwd": 1, "splat": 1, "adjoint": 0, "patch_gather": 0,
-        "patch_sample": 0}
+        "patch_sample": 0, "mpi_stack": 0}
     color_o, grad_o = (t.float() for t in _color_and_grad(
         lambda x: types.SimpleNamespace(color=chunked_gather_fp64(x, geom.dhw, *rays)), rgba,
         cot))
