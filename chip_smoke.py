@@ -253,9 +253,10 @@ Phases, each of which raises on failure (nonzero exit, no result line):
    1e-3 of max of the gather renderer's; (c) ``eval_gmpi_torch.main --task
    prepare_fake``, banded (eval's default), on the FFHQ1024 banded
    checkpoint and on the MetFaces checkpoint of (d), 4 fakes each: the
-   planning timed on the card, one K7 and one K8 a tile-row step, K7 equal
-   to its plain version and the render within 5e-4 of the gather renderer
-   on the run's own last inputs; then ``--task prepare_real`` of the
+   planning timed on the card, one K7 and one K8 a tile-row step, one
+   ``render.composite`` span a banded render call (under ``torch.profiler``),
+   K7 equal to its plain version and the render within 5e-4 of the gather
+   renderer on the run's own last inputs; then ``--task prepare_real`` of the
    training PNGs and ``--task fid_kid`` between them and the banded fakes
    (random Inception weights), finite; (d) ``train_gmpi_torch.main`` (fused) on
    FFHQ512 (a zip), AFHQCat (a folder of PNGs with an EG3D ``dataset.json``)
@@ -3395,7 +3396,8 @@ def prepare_fake_routes(fr, tw, pg, label, cfg, ckpt_dir, routes, tmp, card, dev
     render be within 5e-4 of the gather renderer; with both routes the dumps
     must be at most 1 level apart.  The banded call runs under
     ``torch.profiler``: K7's and K8's device ms an image (their kernels'
-    summed durations over the fakes) go into the record.  Returns the record
+    summed durations over the fakes) go into the record, and it must open
+    one ``render.composite`` span a banded render call.  Returns the record
     (with each route's dump directory) and the launches by route."""
     import copy
     import os
@@ -3406,7 +3408,7 @@ def prepare_fake_routes(fr, tw, pg, label, cfg, ckpt_dir, routes, tmp, card, dev
     common = ["--dataset", cfg.name, "--task", "prepare_fake", "--ckpt", ckpt_dir,
               "--n_planes", str(cfg.eval_n_planes), "--n_imgs", str(PRESET_FAKES),
               "--device", str(dev)]
-    kept, row_steps, plan_s = {}, {"n": 0}, []
+    kept, row_steps, renders, plan_s = {}, {"n": 0}, {"n": 0}, []
     row_step, gather = tw._warp_row_tiles, tw.gather_patches
     render, plan = harness.FakeImageGenerator.render, harness.bands_for_config
 
@@ -3421,6 +3423,7 @@ def prepare_fake_routes(fr, tw, pg, label, cfg, ckpt_dir, routes, tmp, card, dev
     def recorded_render(gen, mpi, yaws, pitches):
         if not gen.use_fused:
             kept["render"] = (gen, mpi, yaws, pitches)
+            renders["n"] += 1
         return render(gen, mpi, yaws, pitches)
 
     def timed_plan(*a, **kw):
@@ -3441,8 +3444,14 @@ def prepare_fake_routes(fr, tw, pg, label, cfg, ckpt_dir, routes, tmp, card, dev
                 "--out", dirs[route]]
             t0 = time.perf_counter()
             if route == "banded":
-                per_image = kernel_ms_per_image(lambda: eval_gmpi_torch.main(argv),
-                                                ("patch_gather", "patch_sample"), PRESET_FAKES)
+                renders["n"] = 0
+                per_image, spans = kernel_ms_per_image(
+                    lambda: eval_gmpi_torch.main(argv), ("patch_gather", "patch_sample"),
+                    PRESET_FAKES, spans=("render.composite",))
+                if spans["render.composite"] != renders["n"] or not renders["n"]:
+                    raise RuntimeError(f"{label}: {cfg.name} prepare_fake [banded] opened "
+                                       f"{spans['render.composite']} render.composite spans "
+                                       f"for {renders['n']} banded render calls")
             else:
                 eval_gmpi_torch.main(argv)
             eval_s[route] = time.perf_counter() - t0
@@ -3476,7 +3485,8 @@ def prepare_fake_routes(fr, tw, pg, label, cfg, ckpt_dir, routes, tmp, card, dev
         + (f"; dumps at most {worst} level apart ({share:.3e} of pixel channels differ)"
            if worst is not None else "")
         + f"; device ms an image under the profiler: K7 {per_image['patch_gather']:.4f}, "
-        f"K8 {per_image['patch_sample']:.4f}"
+        f"K8 {per_image['patch_sample']:.4f}; render.composite spans "
+        f"{spans['render.composite']} for {renders['n']} banded render calls"
         + f"; K7 on the banded run's last inputs {tuple(texf.shape)} equal to its plain "
         f"version: {same}; its last banded render vs the gather renderer {err:.2e} (gate "
         f"5e-4) ({card})")
@@ -3485,13 +3495,15 @@ def prepare_fake_routes(fr, tw, pg, label, cfg, ckpt_dir, routes, tmp, card, dev
                            f"the banded render disagree")
     return {"seconds": eval_s, "plan_s": plan_s, "launches": launches, "max_level_apart": worst,
             "k7_exact": same, "banded_vs_gather": err, "dirs": dirs,
-            "kernel_ms_per_image": per_image}, launches
+            "kernel_ms_per_image": per_image, "composite_spans": spans["render.composite"],
+            "banded_renders": renders["n"]}, launches
 
 
-def kernel_ms_per_image(fn, names, n_images):
+def kernel_ms_per_image(fn, names, n_images, spans=()):
     """``fn()`` under ``torch.profiler`` (CPU and CUDA): for each of
     ``names``, the summed device ms of the kernels whose names hold it, over
-    ``n_images``."""
+    ``n_images``; and for each of ``spans``, how many host spans of that
+    name it opened."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -3500,8 +3512,9 @@ def kernel_ms_per_image(fn, names, n_images):
         torch.cuda.synchronize()
     device = [e for e in prof.events()
               if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
-    return {name: sum(e.time_range.elapsed_us() for e in device if name in e.name) / 1e3
-            / n_images for name in names}
+    host = [e.name for e in prof.events() if e.device_type == DeviceType.CPU]
+    return ({name: sum(e.time_range.elapsed_us() for e in device if name in e.name) / 1e3
+             / n_images for name in names}, {span: host.count(span) for span in spans})
 
 
 def preset_loop_eval(fr, tw, pg, card, dev, tmp):

@@ -27,8 +27,11 @@ only, on every path, unless :func:`render_mpi` is asked for
 
 Each render is a ``torch.profiler`` span named for its path:
 ``render.fused``, ``render.banded`` or ``render.gather`` (the fused and
-tiled backwards open ``render.backward``); without a profiler they do
-nothing.
+tiled backwards open ``render.backward``); inside the banded and gather
+spans, the over-composite that follows the warp is ``render.composite``,
+once a :func:`render_mpi` call and once a slab of :func:`render_mpi_chunked`
+(the slab's partials and their combine with the slabs in front).  Without a
+profiler they do nothing.
 """
 
 from __future__ import annotations
@@ -200,16 +203,19 @@ def render_mpi(rgba: torch.Tensor, dhw: torch.Tensor, ray_dir: torch.Tensor,
         # the reference's fp order: disp = 1/depth, then depth = 1/disp
         disp = 1.0 / depth
         depth = 1.0 / disp
-        color, depth_out, disp_out = composite(
-            sampled[:, :3].reshape(v, n_l, 3, h, w), sampled[:, 3:4].reshape(v, n_l, 1, h, w),
-            depth.reshape(v, n_l, 1, h, w), disp.reshape(v, n_l, 1, h, w))
+        with profile_scope("render.composite"):
+            color, depth_out, disp_out = composite(
+                sampled[:, :3].reshape(v, n_l, 3, h, w), sampled[:, 3:4].reshape(v, n_l, 1, h, w),
+                depth.reshape(v, n_l, 1, h, w), disp.reshape(v, n_l, 1, h, w))
         return RenderOutput(color=color, depth=depth_out, disp=disp_out)
 
 
 def render_slab_partial(rgba, dhw, ray_dir, eye_pos, z_dir, align_corners: bool = True,
-                        tiled_bands: Optional[Tuple[int, ...]] = None, with_disp: bool = False):
+                        tiled_bands: Optional[Tuple[int, ...]] = None, with_disp: bool = False,
+                        front=None):
     """Warp + partially composite one plane slab; partials for
-    :func:`combine_segments` (a 4-tuple with disparity when ``with_disp``)."""
+    :func:`combine_segments` (a 4-tuple with disparity when ``with_disp``),
+    combined behind ``front``, the partials of the slabs in front, if given."""
     v, n_l = rgba.shape[0], rgba.shape[1]
     h, w = ray_dir.shape[2], ray_dir.shape[3]
     flat_rgba, flat_dhw, flat_ray, flat_eye, flat_z = _flatten_views(
@@ -220,7 +226,9 @@ def render_slab_partial(rgba, dhw, ray_dir, eye_pos, z_dir, align_corners: bool 
     rgb = rgb.reshape(v, n_l, 3, h, w)
     alpha = alpha.reshape(v, n_l, 1, h, w)
     disp = disp.reshape(v, n_l, 1, h, w) if with_disp else None
-    return composite_partial(rgb, alpha, depth, disp)
+    with profile_scope("render.composite"):
+        part = composite_partial(rgb, alpha, depth, disp)
+        return part if front is None else combine_segments(front, part)
 
 
 def render_mpi_chunked(rgba: torch.Tensor, dhw: torch.Tensor, ray_dir: torch.Tensor,
@@ -252,16 +260,15 @@ def render_mpi_chunked(rgba: torch.Tensor, dhw: torch.Tensor, ray_dir: torch.Ten
         for k in range(n_chunks):
             bands = tuple(tiled_bands[k]) if per_chunk else tiled_bands
 
-            def slab(r, d, bands=bands):
+            def slab(r, d, front, bands=bands):
                 return render_slab_partial(r, d, ray_dir, eye_pos, z_dir, align_corners, bands,
-                                           with_disp=with_disp)
+                                           with_disp=with_disp, front=front)
 
             sl = slice(k * plane_chunk, (k + 1) * plane_chunk)
             if remat:
-                part = checkpoint(slab, rgba[:, sl], dhw[:, sl], use_reentrant=False)
+                carry = checkpoint(slab, rgba[:, sl], dhw[:, sl], carry, use_reentrant=False)
             else:
-                part = slab(rgba[:, sl], dhw[:, sl])
-            carry = part if carry is None else combine_segments(carry, part)
+                carry = slab(rgba[:, sl], dhw[:, sl], carry)
     return RenderOutput(color=carry[0], depth=carry[1], disp=carry[2] if with_disp else None)
 
 

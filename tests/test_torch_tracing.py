@@ -6,6 +6,8 @@ benchmark's per-layer metrics read, each counted under a CPU
     loader.wait                     a batch the consumer waits for
     host_draw.{z,pose,noise}        a random draw on the host with its copy
     render.{fused,banded,gather}    a render's warp and composite
+    render.composite                the over-composite after a banded or
+                                    gather warp, inside its render span
     render.backward                 the renderer's backward kernels
     sampler.mpi                     one request's z draw and generator
 """
@@ -24,7 +26,7 @@ from gmpi_tpu_torch.core import camera as cam
 from gmpi_tpu_torch.core import poses as poses_mod
 from gmpi_tpu_torch.core.bands import bands_for_config
 from gmpi_tpu_torch.core.poses import SphereCameraConfig
-from gmpi_tpu_torch.core.renderer import render_mpi
+from gmpi_tpu_torch.core.renderer import render_mpi, render_mpi_chunked
 from gmpi_tpu_torch.data import ShardedLoader
 from gmpi_tpu_torch.eval.harness import FakeImageGenerator
 from gmpi_tpu_torch.models.generator import Generator
@@ -103,15 +105,16 @@ def test_profile_scope_opens_no_record_function_without_a_profiler(monkeypatch):
 # -- the sampler and the renderer ------------------------------------------------------
 
 
-@pytest.mark.parametrize("route,resolution,span", [
-    ("fused", 32, "render.fused"),
-    ("banded", 128, "render.banded"),
-    ("gather", 32, "render.gather"),
+@pytest.mark.parametrize("route,resolution,spans", [
+    ("fused", 32, ("render.fused",)),
+    ("banded", 128, ("render.banded", "render.composite")),
+    ("gather", 32, ("render.gather", "render.composite")),
 ])
-def test_sampler_and_render_spans_once_a_request(route, resolution, span):
+def test_sampler_and_render_spans_once_a_request(route, resolution, spans):
     """A request of the FID loop (``sample_mpi``, ``sample_views``,
     ``render``): one ``sampler.mpi``, one pose draw and one render span of the
-    route each; no noise draw (the sampler's noise is constant)."""
+    route each, and on the banded and gather routes one ``render.composite``;
+    no noise draw (the sampler's noise is constant)."""
     cfg = tiny_config(resolution)
     G = Generator(cfg.generator_cfg(), generator=torch.Generator().manual_seed(0))
     gen = FakeImageGenerator(cfg, G, use_fused=route == "fused", device="cpu")
@@ -124,7 +127,7 @@ def test_sampler_and_render_spans_once_a_request(route, resolution, span):
             gen.render(mpi, yaws, pitches)
 
     assert families(span_counts(requests)) == {"sampler.mpi": 2, "host_draw.pose": 2,
-                                               span: 2}
+                                               **dict.fromkeys(spans, 2)}
 
 
 def test_tiled_adjoint_opens_render_backward():
@@ -146,8 +149,58 @@ def test_tiled_adjoint_opens_render_backward():
         render_mpi(rgba, geom.dhw, *rays, tiled_bands=bands).color.sum().backward()
 
     assert families(span_counts(render_and_backward)) == {"render.banded": 1,
+                                                          "render.composite": 1,
                                                           "render.backward": 1}
     assert rgba.grad is not None and float(rgba.grad.abs().sum()) > 0
+
+
+def _banded_scene(n_planes, resolution=128, seed=1):
+    """A tiny config's tile bands, plane geometry, one view's rays and a
+    seeded MPI of ``n_planes`` planes."""
+    cfg = tiny_config(resolution, n_planes=n_planes)
+    geom = cfg.plane_geometry(device="cpu")
+    yaws, pitches = poses_mod.sample_yaw_pitch(torch.Generator().manual_seed(seed), 1,
+                                               cfg.camera, device="cpu")
+    c2w, _, _ = poses_mod.sample_sphere_poses(None, 1, cfg.camera, given_yaws=yaws,
+                                              given_pitches=pitches, device="cpu")
+    rays = cam.generate_rays(cam.intrinsics_from_fov(cfg.fov_deg, resolution, resolution), c2w)
+    rgba = torch.rand((1, n_planes, 4, resolution, resolution),
+                      generator=torch.Generator().manual_seed(seed + 1))
+    return bands_for_config(cfg, device="cpu"), geom, rays, rgba
+
+
+@pytest.mark.parametrize("calls", [1, 3])
+def test_composite_span_once_a_render_mpi_call(calls):
+    """``render.composite`` opens once a ``render_mpi`` call, on the banded
+    and the gather route alike, inside the call's render span."""
+    bands, geom, rays, rgba = _banded_scene(4)
+
+    def renders():
+        for _ in range(calls):
+            render_mpi(rgba, geom.dhw, *rays, tiled_bands=bands)
+            render_mpi(rgba, geom.dhw, *rays)
+
+    assert families(span_counts(renders)) == {"render.banded": calls, "render.gather": calls,
+                                              "render.composite": 2 * calls}
+
+
+@pytest.mark.parametrize("plane_chunk,remat", [(1, False), (2, False), (4, False), (2, True)])
+def test_composite_span_once_a_slab_of_render_mpi_chunked(plane_chunk, remat):
+    """``render_mpi_chunked``: one ``render.composite`` a slab (its partials
+    and their combine with the slabs in front), and the same picture as the
+    whole render."""
+    bands, geom, rays, rgba = _banded_scene(4)
+    out = {}
+
+    def chunked():
+        out["c"] = render_mpi_chunked(rgba, geom.dhw, *rays, plane_chunk=plane_chunk,
+                                      remat=remat, tiled_bands=bands)
+
+    assert families(span_counts(chunked)) == {"render.banded": 1,
+                                              "render.composite": 4 // plane_chunk}
+    whole = render_mpi(rgba, geom.dhw, *rays, tiled_bands=bands)
+    assert (out["c"].color - whole.color).abs().max() <= 1e-5
+    assert (out["c"].depth - whole.depth).abs().max() <= 1e-5
 
 
 # -- the train step --------------------------------------------------------------------
