@@ -81,30 +81,33 @@ Phases, each of which raises on failure (nonzero exit, no result line):
    phase), the composite backward, the splat in both of its paths (a tile's
    taps summed in its texel box, what the path takes at 256^2; every tap into
    ``d_tex``, the path of a box beyond the kernel's shared memory), and
-   the adjoint (at phase 7's inputs); the patch gather is timed in phase 6 at
-   that path's inputs (and in 13b at the 1024^2 route's): in fp32 and on a
-   bf16 copy of the texture, one launch a pair and 10 queued, with the kernel
-   path each took, beside its plain version, the advanced index and its
-   bound; so is the tap sampler (K8), against its plain version (1e-4 of
-   max), one launch a pair and 10 queued, beside its plain version, its byte
-   bound and the tile-row step it replaced (K7 and the hat contractions
-   against K7 and K8 on the same inputs);
+   the adjoint (at phase 7's inputs); the banded route's kernels in phase 6:
+   K10 at the banded cells' requests (``K10_CELLS``: one view of 96 planes
+   at 256^2 and at MetFaces' 1024^2, the planned bands), bitwise K7 + K8,
+   within 1e-4 of max of its plain version, one launch a pair and 10
+   queued, beside its plain version, the band origins' pass, its byte bound
+   and what it replaced (K7 + K8 over the padded x-major copy); the patch
+   gather at the last tile-row step K7 + K8 would take on phase 6's inputs
+   (and in 13b on the 1024^2 route's): in fp32 and on a bf16 copy of the
+   texture, one launch a pair and 10 queued, with the kernel path each took,
+   beside its plain version, the advanced index and its bound; so is the
+   tap sampler (K8), against its plain version (1e-4 of max), one launch a
+   pair and 10 queued, beside its plain version, its byte bound and the
+   tile-row step it replaced (K7 and the hat contractions against K7 and K8
+   on the same inputs);
 6. banded serving path — ``FakeImageGenerator(use_fused=False)`` (on a card
-   its patches come through the patch-gather kernel and its taps through the
-   tap kernel) samples the last seed through a graph of its own (one
-   capture, bitwise phase 3's MPI; its launch calls a request printed), then
-   renders the 96-plane MPIs
-   of phase 3's seeds, 4 views each, through
-   ``render_mpi(tiled_bands=bands_for_config(...))``: all 384 textures in one
-   call, in texture groups and tile-row steps that keep the live patches under
-   ``renderer.TILED_STEP_BYTES``; then the last MPI through
+   its taps read from the texture by K10) samples the last seed through a
+   graph of its own (one capture, bitwise phase 3's MPI; its launch calls a
+   request printed), then renders the 96-plane MPIs of phase 3's seeds, 4
+   views each, through ``render_mpi(tiled_bands=bands_for_config(...))``:
+   all 384 textures in one call, one K10 launch; then the last MPI through
    ``render_mpi_chunked`` in slabs of 24 planes, twice.  Launch counts are
-   reset just before and read just after: one patch-gather and one
-   tap-sampler launch per call of the tiled warp's tile-row step, nothing
-   else.  Every render must match the gather
-   renderer within 5e-4 and ``bands_cover`` must hold at the sampled poses.
-   One render is profiled by the tiled warp's spans (patches, sample) beside
-   the fused and gather renders of the same MPI;
+   reset just before and read just after: one K10 launch per call of the
+   tiled warp's taps, nothing else; K10 at the last call's inputs bitwise
+   K7 + K8.  Every render must match the gather renderer within 5e-4 and
+   ``bands_cover`` must hold at the sampled poses.  One render is profiled
+   by the tiled warp's spans (``tiled_warp.sample``: the band origins and
+   K10) beside the fused and gather renders of the same MPI;
 7. adjoint route at the training shapes (it runs right after phase 4, whose
    MPIs and cotangent it reuses) — ``render_mpi_fused(plans=plan_fused(...
    corner poses))`` forward and backward on the 8 MPIs of 32 planes: one
@@ -135,8 +138,9 @@ Phases, each of which raises on failure (nonzero exit, no result line):
    equal; ``prepare_fake`` once more with ``--fused_renderer``, whose PNGs
    must be within 1 level of the banded run's.  Launch counts are reset
    before and read after each ``prepare_fake_images`` call: fused, one
-   forward launch an image; banded, one patch-gather and one tap-sampler
-   launch a tile-row step; nothing else.  The Inception features on the card against a CPU copy of
+   forward launch an image; banded, one K10 launch a call of the tiled
+   warp's taps (K10 bitwise K7 + K8 on each banded task's last inputs);
+   nothing else.  The Inception features on the card against a CPU copy of
    the module (8 images, 1e-4 of max|CPU|); then Inception ms an image at
    batch 32 over 2048 random 256^2 images, ``frechet_distance`` seconds at
    2048 features, and ``train_gmpi_torch.main`` for 2 steps with the
@@ -187,7 +191,7 @@ Phases, each of which raises on failure (nonzero exit, no result line):
    route's ``rgba`` gradient against the fp32 route's (2e-2 of max|grad|).  (b) Ranks spawned as ``python3 chip_smoke.py --rank <job>
    <rank> <world> <dir>``, every one on ``cuda:0``: 2 ranks over gloo render
    plane-sharded (the fused slab kernel per rank), pipelined and
-   tile-sharded (fused, and banded with K7 per shard) at 4 views x 96
+   tile-sharded (fused, and banded with K10 per shard) at 4 views x 96
    planes against the single process's render (5e-4) with the plane-sharded
    ``rgba`` gradient (1e-3 of max), then take ``RANK_STEPS``
    ``renderer_plane_shards=2`` train steps (step ms, peak GB, bytes handed to
@@ -211,9 +215,10 @@ Phases, each of which raises on failure (nonzero exit, no result line):
    ``tests/test_tpu_full_scale.py``: uniform rgba of 96 planes at 1024^2 and
    a normal cotangent at the JAX bench pose and a +2 sigma corner, the fused
    renderer (5e-4 of max|oracle|; bf16 textures 2e-2) and the banded route
-   through K7 and K8 (5e-4), forward and ``rgba`` gradient, against
-   ``render_mpi_chunked(plane_chunk=4)``, and K7 and K8 at that route's
-   inputs;
+   through K10 (5e-4), forward and ``rgba`` gradient, against
+   ``render_mpi_chunked(plane_chunk=4)``; K10 bitwise K7 + K8 at that
+   route's last inputs, and K7 and K8 at the last tile-row step they would
+   take on them;
    (c) ``FakeImageGenerator`` at FFHQ1024: 2 seeds of 96-plane MPIs, 4 views
    each, one K1 a render call, the last render against the gather
    renderer, K1 timed at its inputs, and the sampler's graph against eager
@@ -230,7 +235,7 @@ Phases, each of which raises on failure (nonzero exit, no result line):
    ``train_gmpi_torch.main --dataset FFHQ1024`` on 8 noise PNGs of 1024^2
    (2 steps, the checkpoint loaded back bitwise, resumed to 3),
    ``eval_gmpi_torch.main --task prepare_fake`` on it, banded and fused (4
-   fakes; dumps at most 1 level apart, K7 exact and the banded render within
+   fakes; dumps at most 1 level apart, K10 bitwise K7 + K8 and the banded render within
    5e-4 of the gather renderer on the banded run's own inputs), and
    ``train_gmpi_torch.main --dataset AFHQCat`` on a folder of 8 PNGs of
    512^2 with an EG3D ``dataset.json`` (2 steps), then 4 views of one of
@@ -245,17 +250,17 @@ Phases, each of which raises on failure (nonzero exit, no result line):
    at the presets' settings from noise PNGs in a zip: 1 step, resumed to 2,
    each step's D and G phases timed and its peak memory read by span (D
    phase, G before worst views, worst views, G after them); launches reset
-   before and read after: one patch gather and one tap sampler a tile-row
-   step, nothing else; K7 equal to its plain version on the first inputs of each shape that the
-   steps hand it (worst-view groups, D- and G-phase renders); metrics
+   before and read after: one K10 a call of the warp's taps, nothing else;
+   K10 bitwise K7 + K8 on the first inputs of each shape that the steps hand
+   it (worst-view groups, D- and G-phase renders); metrics
    finite, every G and D parameter moved from the initial weights, a G
    micro-batch's ``rgba`` gradient through the step's banded render within
    1e-3 of max of the gather renderer's; (c) ``eval_gmpi_torch.main --task
    prepare_fake``, banded (eval's default), on the FFHQ1024 banded
    checkpoint and on the MetFaces checkpoint of (d), 4 fakes each: the
-   planning timed on the card, one K7 and one K8 a tile-row step, one
+   planning timed on the card, one K10 a render call, one
    ``render.composite`` span a banded render call (under ``torch.profiler``),
-   K7 equal to its plain version and the render within 5e-4 of the gather
+   K10 bitwise K7 + K8 and the render within 5e-4 of the gather
    renderer on the run's own last inputs; then ``--task prepare_real`` of the
    training PNGs and ``--task fid_kid`` between them and the banded fakes
    (random Inception weights), finite; (d) ``train_gmpi_torch.main`` (fused) on
@@ -264,13 +269,13 @@ Phases, each of which raises on failure (nonzero exit, no result line):
    launches as ``step_launches`` works them out, step, D and G ms and peak
    GB by span; (e) as (c) on the FFHQ512 and AFHQCat checkpoints of (d) at
    512^2, banded and ``--fused_renderer`` (dumps at most 1 level apart, one
-   K1 an image fused), with K7's and K8's device ms an image read by
+   K1 an image fused), with K10's device ms an image read by
    ``torch.profiler`` over the banded call, then ``fid_kid`` on the banded
    fakes.
 
-Each phase prints its seconds.  The patch gather's launches are counted by
-kernel path too, zeroed and read with each main path's launch counts: all of
-the main paths' must take the TMA path (their shapes are all ones it takes).
+Each phase prints its seconds.  No main path may launch K7 or K8 (the
+patch gather's launches are counted by kernel path too, zeroed and read with
+each main path's launch counts), and the banded ones launch K10.
 Every launch count also expects one K9 launch a synthesis block that ran on
 the card without autograd (``K9_BLOCKS``, counted by a wrapper of
 ``SynthesisBlock.forward``: the sampler's eager call and its capture, the
@@ -976,8 +981,9 @@ def patch_gather_at(pg, texf, offs, band_x, band_yc, rates, card, label):
 
 
 def patch_sample_at(tw, gather_args, sample_args, rates, card, label):
-    """The tap sampler (K8) at a path's inputs (its last tile-row step's
-    patches, band starts and coordinates): against its plain version (1e-4 of
+    """The tap sampler (K8) at a path's inputs (the last tile-row step's
+    patches, band starts and coordinates, as the tiled warp handed them to K8
+    before K10: ``patch_step_inputs``): against its plain version (1e-4 of
     max|plain| over the step's pixels), then timed (one launch per event pair
     with the wrapper's host work, and 10 queued) beside its plain version and
     its byte bound: the coordinates read, each tap texel that the step's
@@ -987,6 +993,7 @@ def patch_sample_at(tw, gather_args, sample_args, rates, card, label):
     the contractions' step budget (``renderer.TILED_STEP_BYTES``) held.
     Returns the record; raises on a difference."""
     from gmpi_tpu_torch.core import renderer as renderer_mod
+    from gmpi_tpu_torch.ops import patch_gather as pg
     from gmpi_tpu_torch.ops import patch_sample as ps
 
     texf, _, band_x, band_yc = gather_args
@@ -1029,11 +1036,16 @@ def patch_sample_at(tw, gather_args, sample_args, rates, card, label):
     k = max(1, min(n, renderer_mod.TILED_STEP_BYTES // (t // (wo // tile[1]) * hats_row)))
     h, w = texf.shape[2] // c - 2 * pad_y, texf.shape[1] - 2 * pad_x
     fx_k, fy_k = fx[:k, rows, cols], fy[:k, rows, cols]
-    step = lambda into: tw._warp_row_tiles(  # noqa: E731
-        texf[:k], fx_k, fy_k, band_y, band_x, pad_y, pad_x, h, w, c, None, into)
+
+    def taps_step():
+        pm_k = pg.gather_patches(texf[:k], offs[:k], band_x, band_yc, validate=False)
+        ps.sample_patches(pm_k, offs[:k], fx[:k], fy[:k], pad, tile, buf[:k], first_tile)
+
     with torch.no_grad():
-        step_ms = time_ms(lambda: step((buf[:k], fx[:k], fy[:k], first_tile)), iters=5)
-        hats_ms = time_ms(lambda: step(None), iters=5, warmup=1)
+        step_ms = time_ms(taps_step, iters=5)
+        hats_ms = time_ms(lambda: tw._warp_row_tiles(texf[:k], fx_k, fy_k, band_y, band_x,
+                                                     pad_y, pad_x, h, w, c),
+                          iters=5, warmup=1)
     log(f"patch_sample at {label} ({n} x {t} patches of {band_x} x {band_yc}, {pixels} "
         f"pixels of {c} channels, tile {tuple(tile)}): {err:.2e} of max from its plain "
         f"version; {ms:.4f} ms, queued {queued_ms:.4f} ms, plain {plain_ms:.3f} ms; needs "
@@ -1045,6 +1057,178 @@ def patch_sample_at(tw, gather_args, sample_args, rates, card, label):
     return {"ms": ms, "queued_ms": queued_ms, "plain_ms": plain_ms, "bound_ms": b[0],
             "bound_by": b[1], "bytes": n_bytes, "tap_texels": n_taps, "max_rel_err": err,
             "step_textures": k, "step_ms": step_ms, "hats_step_ms": hats_ms}
+
+
+def patch_step_inputs(ts, k10_args, rows):
+    """K7's and K8's inputs at the last tile-row step of ``ts.patch_taps`` on
+    K10's inputs ``k10_args`` (``rows`` tile rows a step), as the tiled warp
+    handed them to the two kernels before K10: ``((texf, offs, band_x,
+    band_yc), (patches, offs, fx, fy, pad, tile, out, first_tile))``."""
+    kept, gather, sample = {}, ts.gather_patches, ts.sample_patches
+
+    def keep_gather(texf, offs, band_x, band_yc, **kw):
+        kept["gather"] = (texf, offs, band_x, band_yc)
+        return gather(texf, offs, band_x, band_yc, **kw)
+
+    def keep_sample(*args):
+        kept["sample"] = args
+        return sample(*args)
+
+    ts.gather_patches, ts.sample_patches = keep_gather, keep_sample
+    try:
+        ts.patch_taps(*k10_args, rows)
+    finally:
+        ts.gather_patches, ts.sample_patches = gather, sample
+    return kept["gather"], kept["sample"]
+
+
+class K10Calls:
+    """While installed (``with``), counts the tiled warp's calls of K10
+    (``tw.texture_sample``: one launch each on a card) in ``n``, keeps the
+    last call's inputs in ``last`` and hands each call's inputs and samples
+    to ``on_call``, if given.  The inputs are kept detached: inside the tiled
+    adjoint's autograd Function the texture still requires a gradient."""
+
+    def __init__(self, tw, on_call=None):
+        self.tw, self.on_call, self.n, self.last = tw, on_call, 0, None
+
+    def __call__(self, *args):
+        out = self.orig(*args)
+        self.n += 1
+        args = tuple(a.detach() if isinstance(a, torch.Tensor) else a for a in args)
+        self.last = args
+        if self.on_call is not None:
+            self.on_call(args, out)
+        return out
+
+    def __enter__(self):
+        self.orig, self.tw.texture_sample = self.tw.texture_sample, self
+        return self
+
+    def __exit__(self, *exc):
+        self.tw.texture_sample = self.orig
+
+
+def k10_against_k7_k8(ts, args, out=None, textures=None) -> bool:
+    """Whether K10's samples ``out`` at a path's inputs ``args`` (by default a
+    fresh launch) are bitwise K7 + K8's on the same inputs (``ts.patch_taps``,
+    two tile rows a step; NaN where they give NaN): on all textures, or on
+    the first and the last ``textures`` of them (the padded copy of all would
+    not fit beside a train step).  The yardstick's launches are taken off the
+    counts again, so that a main path's counts read what the path launched."""
+    from gmpi_tpu_torch.ops import patch_gather as pg
+
+    tex, origins, fx, fy, bands, tile = args
+    counts, paths = dict(ts.LAUNCHES), dict(pg.PATH_LAUNCHES)
+    same = True
+    with torch.no_grad():
+        out = ts.texture_sample(*args) if out is None else out
+        for part in ([slice(None)] if textures is None
+                     else [slice(0, textures), slice(-textures, None)]):
+            want = ts.patch_taps(tex[part], origins[part].contiguous(), fx[part], fy[part],
+                                 bands, tile, 2)
+            same = same and torch.equal(torch.isnan(out[part]), torch.isnan(want)) and (
+                torch.equal(out[part].nan_to_num(0.0), want.nan_to_num(0.0)))
+            del want
+    ts.LAUNCHES.update(counts)
+    pg.PATH_LAUNCHES.update(paths)
+    return same
+
+
+def texture_sample_at(ts, tw, args, rates, card, label):
+    """K10 at a path's inputs ``args`` (textures, band origins, coordinates,
+    bands, tile): bitwise K7 + K8 on the same inputs, within 1e-4 of max|plain|
+    of its plain version; then timed (one launch per event pair with the
+    wrapper's host work, and 10 queued) beside its plain version, the band
+    origins' pass, its byte bound (each texel that some tap reads, read once;
+    the coordinates read and the samples written once) and what it replaced:
+    K7 + K8 over the padded x-major copy (``ts.patch_taps``, the tiling's
+    tile rows a step).  Returns the record; raises on a difference."""
+    tex, origins, fx, fy, bands, tile = args
+    n, c, h, w = tex.shape
+    ho, wo = fx.shape[1:]
+    got = ts.texture_sample(*args)
+    same = k10_against_k7_k8(ts, args, got)
+    plain = ts.texture_sample_ref(*args)
+    torch.cuda.synchronize()
+    err = rel_err(got, plain)
+    if not same or not err <= TOL:  # also catches NaN
+        raise RuntimeError(f"texture_sample at {label}: bitwise K7 + K8 {same}, {err} of max "
+                           f"from its plain version")
+
+    # the texels some tap reads, each counted once
+    tile_of = ts._tile_of_pixel(ho, wo, tile, tex.device)
+    org = origins.long()[:, tile_of]  # [N, Ho, Wo, 2]
+    rx, ry = fx - org[..., 0], fy - org[..., 1]
+    j0, i0 = torch.floor(rx), torch.floor(ry)
+    read = torch.zeros(n * h * w, dtype=torch.bool, device=tex.device)
+    base = torch.arange(n, device=tex.device).reshape(n, 1, 1) * (h * w)
+    for dj in (0, 1):
+        for di in (0, 1):
+            j, i = j0 + dj, i0 + di
+            x, y = org[..., 0] + j.nan_to_num(-1).long(), org[..., 1] + i.nan_to_num(-1).long()
+            inside = ((j >= 0) & (j < bands[1]) & (i >= 0) & (i < bands[0]) & (x >= 0)
+                      & (x < w) & (y >= 0) & (y < h))
+            read[(base + y * w + x)[inside]] = True
+    n_texels = int(read.sum())
+    del tile_of, org, rx, ry, j0, i0, read, base, plain
+    pixels = n * ho * wo
+    n_bytes = (n_texels * c + pixels * (2 + c)) * 4 + origins.numel() * 4
+    b = bound(n_bytes, 0, rates)
+    run = lambda: ts.texture_sample(*args)  # noqa: E731
+    ms, queued_ms = time_ms(run), time_ms(run, queued=10)
+    plain_ms = time_ms(lambda: ts.texture_sample_ref(*args), iters=3, warmup=1)
+    origins_ms = time_ms(lambda: ts.band_origins(fx, fy, bands, tile, h, w))
+    t = tw.tiling(ho, wo, tile)
+    rows = t.rows_per_step if t.row_scan else ho // tile[0]
+    k78_ms = time_ms(lambda: ts.patch_taps(*args, rows), iters=5, warmup=1)
+    log(f"texture_sample at {label} ({n} textures of {c} x {h} x {w}, {pixels} pixels, tile "
+        f"{tuple(tile)}, bands {tuple(bands)}): bitwise K7 + K8, {err:.2e} of max from its "
+        f"plain version; {ms:.4f} ms, queued {queued_ms:.4f} ms, plain {plain_ms:.3f} ms, the "
+        f"band origins {origins_ms:.4f} ms; needs {n_bytes} B ({n_texels} texels read); bound "
+        f"{b[0]:.5f} ms ({b[0] / queued_ms:.0%} of it queued, {b[0] / ms:.0%} one launch a "
+        f"pair); K7 + K8 with the padded copy, {rows} tile rows a step, {k78_ms:.3f} ms "
+        f"({card})")
+    torch.cuda.empty_cache()
+    return {"ms": ms, "queued_ms": queued_ms, "plain_ms": plain_ms, "bound_ms": b[0],
+            "bound_by": b[1], "bytes": n_bytes, "texels_read": n_texels, "max_rel_err": err,
+            "bitwise_k7_k8": same, "origins_ms": origins_ms, "k7_k8_ms": k78_ms,
+            "rows_per_step": rows}
+
+
+# the banded cells' request: one view of the eval planes at a +2 sigma corner pose, with the
+# bands the planner gives their presets (label -> preset)
+K10_CELLS = {"ffhq256-fid-banded": "FFHQ256", "metfaces1024-fid-banded": "MetFaces"}
+
+
+def k10_cells(ts, tw, rates, card, dev):
+    """K10 at the banded cells' shapes (``K10_CELLS``: seeded textures, a
+    corner pose's grids, the preset's planned bands), through
+    ``texture_sample_at``.  Returns label -> record."""
+    from gmpi_tpu_torch.config import get_config
+    from gmpi_tpu_torch.core.bands import bands_for_config
+    from gmpi_tpu_torch.core.renderer import homography_grid
+
+    out = {}
+    for label, preset in K10_CELLS.items():
+        cfg = get_config(preset)
+        n_l, res = cfg.eval_n_planes, cfg.resolution
+        bands = tuple(bands_for_config(cfg, img_size=res, n_planes=n_l, device=dev)[:2])
+        yaws, pitches = corner_angles(cfg)
+        geom, (ray_dir, eye, z_dir) = preset_rays(cfg, n_l, yaws[:1], pitches[:1], dev)
+        grid, _ = homography_grid(geom.dhw, eye.expand(n_l, 3), ray_dir.expand(n_l, -1, -1, -1),
+                                  z_dir.expand(n_l, 3))
+        tex = torch.rand((n_l, 4, res, res), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(23))
+        tile = tw.tiling(res, res).tile
+        fx_t, fy_t, nty, ntx = tw._tile_coords(tex.shape, grid, True, tile)
+        fx, fy = (f.transpose(2, 3).reshape(n_l, res, res).contiguous() for f in (fx_t, fy_t))
+        del grid, fx_t, fy_t
+        args = (tex, ts.band_origins(fx, fy, bands, tile, res, res), fx, fy, bands, tile)
+        out[label] = texture_sample_at(ts, tw, args, rates, card, f"{label}'s request")
+        del args, tex, fx, fy
+        torch.cuda.empty_cache()
+    return out
 
 
 # K9's shapes on the main paths: label -> (resolution, batch, planes, with an input
@@ -1563,11 +1747,11 @@ EVAL_KEYS = {"fid_kid": ("frechet_inception_distance", "kernel_inception_distanc
              "geometry": ("n_evaluated", "n_skipped", "angle_error_mse", "depth_error_mse")}
 
 
-def eval_phase(fr, tw, pg, cfg, card, dev, tmp):
+def eval_phase(fr, tw, ts, cfg, card, dev, tmp):
     """Phase 9: ``eval_gmpi_torch.main --task all`` twice on a checkpoint of a
     seeded state (banded renders), ``prepare_fake`` once more with the fused
-    renderer, the patch gather and the banded render of each banded task
-    against their plain versions on that task's inputs, the Inception
+    renderer, K10 (bitwise against K7 + K8) and the banded render (against
+    the gather renderer) of each banded task on that task's inputs, the Inception
     features on the card against a CPU copy, the timings of the eval layers,
     and ``train_gmpi_torch.main`` with the in-training FID.  Returns the
     phase's record and the checkpoint's directory; everything is written
@@ -1606,11 +1790,12 @@ def eval_phase(fr, tw, pg, cfg, card, dev, tmp):
                       "--pose_estimator", "chip_smoke:StubEstimator"]
 
     # each prepare_fake_images call: launches reset just before and read just after; the
-    # last gather_patches and render call of each banded task kept to hold against the plain
-    # versions below
-    tasks, row_steps = [], {"n": 0}
-    kept, current = {}, {"label": None}
-    prepare, row_step, gather = harness.prepare_fake_images, tw._warp_row_tiles, tw.gather_patches
+    # last K10 and render call of each banded task kept to hold against K7 + K8 and the
+    # gather renderer below
+    tasks, kept, current = [], {}, {"label": None}
+    prepare = harness.prepare_fake_images
+    k10_calls = K10Calls(tw, on_call=lambda args, out: kept.setdefault(
+        current["label"], {}).__setitem__("k10", args))
     cls = harness.FakeImageGenerator
     gen_ms, render_ms = {False: [], True: []}, {False: [], True: []}
 
@@ -1619,20 +1804,12 @@ def eval_phase(fr, tw, pg, cfg, card, dev, tmp):
 
     def counted_prepare(gen, out_dir, n_imgs, task="fid_kid"):
         reset_counts(fr)
-        row_steps["n"] = 0
+        k10_calls.n = 0
         current["label"] = label_of(gen, task)
         _, ms = host_ms(lambda: prepare(gen, out_dir, n_imgs, task=task))
         tasks.append({"task": task, "fused": gen.use_fused, "size": gen.img_size,
                       "n_imgs": n_imgs, "launches": read_counts(fr),
-                      "row_steps": row_steps["n"], "seconds": ms / 1e3})
-
-    def counted_row_step(*args, **kw):
-        row_steps["n"] += 1
-        return row_step(*args, **kw)
-
-    def recorded_gather(texf, offs, band_x, band_yc, **kw):
-        kept.setdefault(current["label"], {})["gather"] = (texf, offs, band_x, band_yc)
-        return gather(texf, offs, band_x, band_yc, **kw)
+                      "k10_calls": k10_calls.n, "seconds": ms / 1e3})
 
     def recorded_render(gen, mpi, yaws, pitches):
         if not gen.use_fused:
@@ -1640,21 +1817,22 @@ def eval_phase(fr, tw, pg, cfg, card, dev, tmp):
         return render(gen, mpi, yaws, pitches)
 
     by_route = lambda gen, *_: gen.use_fused  # noqa: E731
-    originals = [(harness, "prepare_fake_images", prepare), (tw, "_warp_row_tiles", row_step),
-                 (tw, "gather_patches", gather),
+    originals = [(harness, "prepare_fake_images", prepare),
                  (cls, "sample_mpi", _timed(cls, "sample_mpi", gen_ms, key=by_route)),
                  (cls, "render", _timed(cls, "render", render_ms, key=by_route))]
-    harness.prepare_fake_images, tw._warp_row_tiles = counted_prepare, counted_row_step
-    tw.gather_patches, render, cls.render = recorded_gather, cls.render, recorded_render
+    harness.prepare_fake_images = counted_prepare
+    render, cls.render = cls.render, recorded_render
     try:
-        runs = []
-        for k in range(2):
-            t0 = time.perf_counter()
-            res = eval_gmpi_torch.main(chain + ["--out", os.path.join(tmp, f"eval{k}")], cfg=cfg)
-            runs.append((res, time.perf_counter() - t0))
-        fused_dir = os.path.join(tmp, "fused")
-        eval_gmpi_torch.main(common + ["--task", "prepare_fake", "--fused_renderer", "--out",
-                                       fused_dir, "--n_imgs", str(n_fakes)], cfg=cfg)
+        with k10_calls:
+            runs = []
+            for k in range(2):
+                t0 = time.perf_counter()
+                res = eval_gmpi_torch.main(chain + ["--out", os.path.join(tmp, f"eval{k}")],
+                                           cfg=cfg)
+                runs.append((res, time.perf_counter() - t0))
+            fused_dir = os.path.join(tmp, "fused")
+            eval_gmpi_torch.main(common + ["--task", "prepare_fake", "--fused_renderer", "--out",
+                                           fused_dir, "--n_imgs", str(n_fakes)], cfg=cfg)
     finally:
         for obj, name, orig in originals:
             setattr(obj, name, orig)
@@ -1676,7 +1854,7 @@ def eval_phase(fr, tw, pg, cfg, card, dev, tmp):
     if not all(a == b for a, b in repeat.values()):
         raise RuntimeError(f"the second eval run differs: {repeat}")
 
-    # launches by task: fused, one K1 a render call; banded, one K7 and one K8 a tile-row step
+    # launches by task: fused, one K1 a render call; banded, one K10 a call of the warp's taps
     by_task = {}
     for t in tasks:
         renders = t["n_imgs"]  # one render call an image (its views in one call)
@@ -1684,29 +1862,28 @@ def eval_phase(fr, tw, pg, cfg, card, dev, tmp):
         if t["fused"]:
             want["fused_fwd"] = renders
         else:
-            want["patch_gather"] = want["patch_sample"] = t["row_steps"]
+            want["texture_sample"] = t["k10_calls"]
         label = f"{t['task']} {t['size']}^2 {'fused' if t['fused'] else 'banded'}"  # label_of
         log(f"prepare_fake_images [{label}]: {t['n_imgs']} images in {t['seconds']:.2f} s, "
-            f"{t['n_imgs'] / t['seconds']:.2f} images/s; {t['row_steps']} tile-row steps, "
-            f"launches {t['launches']} ({card})")
-        if t["launches"] != want or (not t["fused"] and t["row_steps"] == 0):
+            f"{t['n_imgs'] / t['seconds']:.2f} images/s; {t['k10_calls']} calls of the warp's "
+            f"taps, launches {t['launches']} ({card})")
+        if t["launches"] != want or (not t["fused"] and t["k10_calls"] == 0):
             raise RuntimeError(f"prepare_fake_images [{label}] launched {t['launches']}, "
                                f"expected {want}")
         by_task.setdefault(label, []).append(t)
     launches = sum((t["launches"] for t in tasks), no_counts(fr))
-    fps = {label: [t["n_imgs"] / t["seconds"] for t in ts] for label, ts in by_task.items()}
+    fps = {label: [t["n_imgs"] / t["seconds"] for t in tl] for label, tl in by_task.items()}
 
-    # each banded task at its own inputs (its last call): the patch gather against its plain
-    # version, exactly, and the banded render against the per-pixel gather renderer
-    banded = {label for label, ts in by_task.items() if not ts[0]["fused"]}
-    if set(kept) != banded or not all(set(k) == {"gather", "render"} for k in kept.values()):
+    # each banded task at its own inputs (its last call): K10 against K7 + K8, bitwise, and
+    # the banded render against the per-pixel gather renderer
+    banded = {label for label, tl in by_task.items() if not tl[0]["fused"]}
+    if set(kept) != banded or not all(set(k) == {"k10", "render"} for k in kept.values()):
         raise RuntimeError(f"kept the inputs of {({b: sorted(k) for b, k in kept.items()})}, "
-                           f"expected a gather and a render of each of {sorted(banded)}")
+                           f"expected a K10 call and a render of each of {sorted(banded)}")
     banded_errs = {}
     for label, k in sorted(kept.items()):
-        texf, offs, band_x, band_yc = k["gather"]
-        same = torch.equal(pg.gather_patches(texf, offs, band_x, band_yc),
-                           pg.gather_patches_ref(texf, offs, band_x, band_yc))
+        texs, bands = tuple(k["k10"][0].shape), k["k10"][4]
+        same = k10_against_k7_k8(ts, k["k10"])
         gen, mpi, yaws, pitches = k["render"]
         plain = copy.copy(gen)
         plain.tiled_bands = None
@@ -1714,15 +1891,14 @@ def eval_phase(fr, tw, pg, cfg, card, dev, tmp):
         color_g, depth_g = plain.render(mpi, yaws, pitches)
         err = max(float((color - color_g).abs().max()), float((depth - depth_g).abs().max()))
         banded_errs[label] = err
-        log(f"[{label}] patch_gather at the task's inputs ({tuple(texf.shape)} -> "
-            f"{band_x}x{band_yc} patches at {tuple(offs.shape[:2])} offsets): equal to its "
-            f"plain version: {same}; banded render of V={mpi.shape[0]} vs the gather renderer: "
-            f"{err:.2e} (gate 5e-4)")
+        log(f"[{label}] texture_sample at the task's inputs ({texs} textures, bands {bands}): "
+            f"bitwise K7 + K8: {same}; banded render of V={mpi.shape[0]} vs the gather "
+            f"renderer: {err:.2e} (gate 5e-4)")
         if not same:
-            raise RuntimeError(f"[{label}] patch_gather disagrees with its plain version")
+            raise RuntimeError(f"[{label}] texture_sample is not K7 + K8's")
         if not err <= 5e-4:  # also catches NaN
             raise RuntimeError(f"[{label}] the banded render disagrees with the gather renderer")
-    del kept, texf, offs, gen, mpi, plain, color, depth, color_g, depth_g
+    del kept, gen, mpi, plain, color, depth, color_g, depth_g
     torch.cuda.empty_cache()
 
     # the fused dump against the banded one: at most 1 level apart, and their FID
@@ -2998,13 +3174,16 @@ def full_scale_checks(fr, tw, pg, cfg, rates, card, dev):
     gradient under autograd: the fused renderer (fp32, 5e-4 of max|oracle|;
     bf16 textures, 2e-2) against ``render_mpi_chunked(plane_chunk=4)``'s
     function in float64 (``chunked_gather_fp64``), and the banded route
-    (``render_mpi(tiled_bands=bands_for_config(...))``, patches through K7;
+    (``render_mpi(tiled_bands=bands_for_config(...))``, taps through K10;
     5e-4) against ``render_mpi_chunked(plane_chunk=4)`` itself, whose float32
     texel coordinates it shares; every pair of the four is printed.
-    Launches are read per route; the last patch gather is held against its
-    plain version (exactly) and timed.  Returns the phase's record."""
+    Launches are read per route; the banded route's last K10 call is held
+    bitwise against K7 + K8 on its inputs, and K7 and K8 are timed at the
+    last tile-row step they would take on them.  Returns the phase's
+    record."""
     from gmpi_tpu_torch.core.bands import bands_for_config
     from gmpi_tpu_torch.core.renderer import render_mpi, render_mpi_chunked, render_mpi_fused
+    from gmpi_tpu_torch.ops import texture_sample as ts
 
     res, n_l = cfg.resolution, FULL_SCALE_PLANES
     g = torch.Generator(device=dev).manual_seed(40)
@@ -3015,21 +3194,9 @@ def full_scale_checks(fr, tw, pg, cfg, rates, card, dev):
     bands_s = time.perf_counter() - t0
     log(f"tile bands for {n_l} planes at {res}^2: {bands} in {bands_s:.1f} s (planned on "
         f"{dev})")
-    kept = {}
-    gather, sample = tw.gather_patches, tw.sample_patches
-
-    def recorded_gather(texf, offs, band_x, band_yc, **kw):
-        kept["gather"] = (texf, offs, band_x, band_yc)
-        return gather(texf, offs, band_x, band_yc, **kw)
-
-    def recorded_sample(*args):
-        kept["sample"] = args
-        return sample(*args)
-
     record = {"bands": list(bands), "bands_s": bands_s, "poses": {}}
     gates = {"fused": 5e-4, "fused bf16": FULL_SCALE_BF16_GATE, "banded": 5e-4}
-    tw.gather_patches, tw.sample_patches = recorded_gather, recorded_sample
-    try:
+    with K10Calls(tw) as k10_calls:
         for yaw, pitch in FULL_SCALE_POSES:
             geom, rays = preset_rays(cfg, n_l, torch.tensor([[yaw]]), torch.tensor([[pitch]]),
                                      dev)
@@ -3056,6 +3223,7 @@ def full_scale_checks(fr, tw, pg, cfg, rates, card, dev):
             pose = {"oracle_ms": oracle_ms, "fp32_oracle_vs_fp64": err_o}
             for name, render in routes.items():
                 reset_counts(fr)
+                k10_calls.n = 0
                 torch.cuda.reset_peak_memory_stats()
                 (color, grad), ms = host_ms(lambda: color_and_grad(render))
                 launches = read_counts(fr)
@@ -3073,23 +3241,33 @@ def full_scale_checks(fr, tw, pg, cfg, rates, card, dev):
                 if not (err_c <= gates[name] and err_g <= gates[name]):  # also catches NaN
                     raise RuntimeError(f"full scale [{name}] disagrees with the chunked gather")
                 want = {**generator_only(launches),
-                        **({"patch_gather": launches["patch_gather"],
-                            "patch_sample": launches["patch_gather"]} if name == "banded" else
+                        **({"texture_sample": k10_calls.n} if name == "banded" else
                            {"fused_fwd": 1, "composite_bwd": 1, "splat": 1})}
-                if launches != want or (name == "banded" and not launches["patch_gather"]):
+                if launches != want or (name == "banded" and not k10_calls.n):
                     raise RuntimeError(f"full scale [{name}] launched {launches}")
                 pose[name] = {"rel_err_vs_fp64": errs["fp64"], "rel_err_vs_fp32": errs["fp32"],
                               "ms": ms, "peak_gb": peak, "launches": launches}
             record["poses"][f"{yaw},{pitch}"] = pose
             del oracle, exact, color, grad
             torch.cuda.empty_cache()
-    finally:
-        tw.gather_patches, tw.sample_patches = gather, sample
 
-    # K8 and K7 at the banded route's own inputs (its last tile-row step)
-    record["patch_sample"] = patch_sample_at(tw, kept["gather"], kept.pop("sample"), rates, card,
+    # K10 at the banded route's own last inputs, bitwise K7 + K8; K8 and K7 at the last
+    # tile-row step they would take on them
+    args, k10_calls.last = k10_calls.last, None
+    record["k10_bitwise_k7_k8"] = k10_against_k7_k8(ts, args)
+    log(f"texture_sample at the full-scale banded route's last inputs "
+        f"({tuple(args[0].shape)} textures, bands {args[4]}): bitwise K7 + K8 "
+        f"{record['k10_bitwise_k7_k8']}")
+    if not record["k10_bitwise_k7_k8"]:
+        raise RuntimeError("texture_sample at the full-scale banded route is not K7 + K8's")
+    rows = tw.tiling(res, res)
+    gather_args, sample_args = patch_step_inputs(
+        ts, args, rows.rows_per_step if rows.row_scan else res // 8)
+    del args
+    record["patch_sample"] = patch_sample_at(tw, gather_args, sample_args, rates, card,
                                              "the full-scale banded route's inputs")
-    record["patch_gather"] = patch_gather_at(pg, *kept.pop("gather"), rates, card,
+    del sample_args
+    record["patch_gather"] = patch_gather_at(pg, *gather_args, rates, card,
                                              "the full-scale banded route's inputs")
     return record
 
@@ -3389,36 +3567,29 @@ def prepare_fake_routes(fr, tw, pg, label, cfg, ckpt_dir, routes, tmp, card, dev
     at ``cfg``'s eval planes from the checkpoint in ``ckpt_dir``, by each of
     ``routes`` (``"banded"``, the default, and ``"fused"``,
     ``--fused_renderer``), into ``tmp/<label> <route>``.  Launches are reset
-    before and read after each call: banded, one patch gather and one tap
-    sampler a tile-row step; fused, one forward an image; nothing else.  The banded generator's
-    planning (``bands_for_config`` on the card) is timed apart.  On the banded
-    run's own last inputs K7 must equal its plain version and the banded
-    render be within 5e-4 of the gather renderer; with both routes the dumps
-    must be at most 1 level apart.  The banded call runs under
-    ``torch.profiler``: K7's and K8's device ms an image (their kernels'
-    summed durations over the fakes) go into the record, and it must open
-    one ``render.composite`` span a banded render call.  Returns the record
+    before and read after each call: banded, one K10 a call of the tiled
+    warp's taps; fused, one forward an image; nothing else.  The banded
+    generator's planning (``bands_for_config`` on the card) is timed apart.
+    On the banded run's own last inputs K10 must be bitwise K7 + K8 and the
+    banded render within 5e-4 of the gather renderer; with both routes the
+    dumps must be at most 1 level apart.  The banded call runs under
+    ``torch.profiler``: K10's device ms an image (its kernel's summed
+    durations over the fakes) goes into the record, and it must open one
+    ``render.composite`` span a banded render call.  Returns the record
     (with each route's dump directory) and the launches by route."""
     import copy
     import os
 
     import eval_gmpi_torch
     from gmpi_tpu_torch.eval import harness
+    from gmpi_tpu_torch.ops import texture_sample as ts
 
     common = ["--dataset", cfg.name, "--task", "prepare_fake", "--ckpt", ckpt_dir,
               "--n_planes", str(cfg.eval_n_planes), "--n_imgs", str(PRESET_FAKES),
               "--device", str(dev)]
-    kept, row_steps, renders, plan_s = {}, {"n": 0}, {"n": 0}, []
-    row_step, gather = tw._warp_row_tiles, tw.gather_patches
+    kept, renders, plan_s = {}, {"n": 0}, []
     render, plan = harness.FakeImageGenerator.render, harness.bands_for_config
-
-    def counted_row_step(*a, **kw):
-        row_steps["n"] += 1
-        return row_step(*a, **kw)
-
-    def recorded_gather(texf, offs, band_x, band_yc, **kw):
-        kept["gather"] = (texf, offs, band_x, band_yc)
-        return gather(texf, offs, band_x, band_yc, **kw)
+    k10_calls = K10Calls(tw)
 
     def recorded_render(gen, mpi, yaws, pitches):
         if not gen.use_fused:
@@ -3432,45 +3603,48 @@ def prepare_fake_routes(fr, tw, pg, label, cfg, ckpt_dir, routes, tmp, card, dev
         plan_s.append(time.perf_counter() - t0)  # its ints are on the host: the card is done
         return bands
 
-    tw._warp_row_tiles, tw.gather_patches = counted_row_step, recorded_gather
     harness.FakeImageGenerator.render, harness.bands_for_config = recorded_render, timed_plan
     eval_s, launches, dirs = {}, {}, {}
     try:
-        for route in routes:
-            reset_counts(fr)
-            row_steps["n"] = 0
-            dirs[route] = os.path.join(tmp, f"{label} {route}")
-            argv = common + (["--fused_renderer"] if route == "fused" else []) + [
-                "--out", dirs[route]]
-            t0 = time.perf_counter()
-            if route == "banded":
-                renders["n"] = 0
-                per_image, spans = kernel_ms_per_image(
-                    lambda: eval_gmpi_torch.main(argv), ("patch_gather", "patch_sample"),
-                    PRESET_FAKES, spans=("render.composite",))
-                if spans["render.composite"] != renders["n"] or not renders["n"]:
-                    raise RuntimeError(f"{label}: {cfg.name} prepare_fake [banded] opened "
-                                       f"{spans['render.composite']} render.composite spans "
-                                       f"for {renders['n']} banded render calls")
-            else:
-                eval_gmpi_torch.main(argv)
-            eval_s[route] = time.perf_counter() - t0
-            launches[route] = read_counts(fr)
-            want = {**generator_only(launches[route]),
-                    **({"patch_gather": row_steps["n"], "patch_sample": row_steps["n"]}
-                       if route == "banded" else {"fused_fwd": PRESET_FAKES})}
-            if launches[route] != want or (route == "banded" and not row_steps["n"]):
-                raise RuntimeError(f"{label}: {cfg.name} prepare_fake [{route}] launched "
-                                   f"{launches[route]}, expected {want}")
+        with k10_calls:
+            for route in routes:
+                reset_counts(fr)
+                k10_calls.n = 0
+                dirs[route] = os.path.join(tmp, f"{label} {route}")
+                argv = common + (["--fused_renderer"] if route == "fused" else []) + [
+                    "--out", dirs[route]]
+                t0 = time.perf_counter()
+                if route == "banded":
+                    renders["n"] = 0
+                    per_image, spans = kernel_ms_per_image(
+                        lambda: eval_gmpi_torch.main(argv), ("texture_sample",),
+                        PRESET_FAKES, spans=("render.composite",))
+                    if spans["render.composite"] != renders["n"] or not renders["n"]:
+                        raise RuntimeError(f"{label}: {cfg.name} prepare_fake [banded] opened "
+                                           f"{spans['render.composite']} render.composite spans "
+                                           f"for {renders['n']} banded render calls")
+                else:
+                    eval_gmpi_torch.main(argv)
+                eval_s[route] = time.perf_counter() - t0
+                launches[route] = read_counts(fr)
+                want = {**generator_only(launches[route]),
+                        **({"texture_sample": k10_calls.n} if route == "banded"
+                           else {"fused_fwd": PRESET_FAKES})}
+                if launches[route] != want or (route == "banded" and not k10_calls.n):
+                    raise RuntimeError(f"{label}: {cfg.name} prepare_fake [{route}] launched "
+                                       f"{launches[route]}, expected {want}")
+                if route == "banded":
+                    kept["k10"] = k10_calls.last
     finally:
-        tw._warp_row_tiles, tw.gather_patches = row_step, gather
         harness.FakeImageGenerator.render, harness.bands_for_config = render, plan
     worst = share = None
     if len(dirs) == 2:
         worst, share = _pngs_apart(*(os.path.join(d, "rgb") for d in dirs.values()))
-    texf, offs, band_x, band_yc = kept.pop("gather")
-    same = torch.equal(pg.gather_patches(texf, offs, band_x, band_yc),
-                       pg.gather_patches_ref(texf, offs, band_x, band_yc))
+    k10_args = kept.pop("k10")
+    k10_calls.last = None
+    texs = tuple(k10_args[0].shape)
+    same = k10_against_k7_k8(ts, k10_args)
+    del k10_args
     gen, mpi, yaws, pitches = kept.pop("render")
     plain = copy.copy(gen)
     plain.tiled_bands = None
@@ -3484,17 +3658,15 @@ def prepare_fake_routes(fr, tw, pg, label, cfg, ckpt_dir, routes, tmp, card, dev
         f"{', '.join('%.2f' % x for x in plan_s)} s); launches {launches}"
         + (f"; dumps at most {worst} level apart ({share:.3e} of pixel channels differ)"
            if worst is not None else "")
-        + f"; device ms an image under the profiler: K7 {per_image['patch_gather']:.4f}, "
-        f"K8 {per_image['patch_sample']:.4f}; render.composite spans "
-        f"{spans['render.composite']} for {renders['n']} banded render calls"
-        + f"; K7 on the banded run's last inputs {tuple(texf.shape)} equal to its plain "
-        f"version: {same}; its last banded render vs the gather renderer {err:.2e} (gate "
-        f"5e-4) ({card})")
+        + f"; device ms an image under the profiler: K10 {per_image['texture_sample']:.4f}; "
+        f"render.composite spans {spans['render.composite']} for {renders['n']} banded render "
+        f"calls; K10 on the banded run's last inputs {texs} bitwise K7 + K8: {same}; its "
+        f"last banded render vs the gather renderer {err:.2e} (gate 5e-4) ({card})")
     if (worst is not None and worst > 1) or not same or not err <= 5e-4:
-        raise RuntimeError(f"{label}: {cfg.name} prepare_fake: the dumps, the patch gather or "
-                           f"the banded render disagree")
+        raise RuntimeError(f"{label}: {cfg.name} prepare_fake: the dumps, K10 or the banded "
+                           f"render disagree")
     return {"seconds": eval_s, "plan_s": plan_s, "launches": launches, "max_level_apart": worst,
-            "k7_exact": same, "banded_vs_gather": err, "dirs": dirs,
+            "k10_bitwise_k7_k8": same, "banded_vs_gather": err, "dirs": dirs,
             "kernel_ms_per_image": per_image, "composite_spans": spans["render.composite"],
             "banded_renders": renders["n"]}, launches
 
@@ -3524,7 +3696,7 @@ def preset_loop_eval(fr, tw, pg, card, dev, tmp):
     must equal the live state bitwise), resumed to ``PRESET_LOOP_STEPS[1]``;
     ``eval_gmpi_torch.main --task prepare_fake`` on that checkpoint,
     banded and ``--fused_renderer`` (dumps at most 1 level apart, launches per
-    route, K7 equal to its plain version and the banded render within 5e-4
+    route, K10 bitwise K7 + K8 and the banded render within 5e-4
     of the gather renderer on the banded run's own last inputs); then
     ``train_gmpi_torch.main --dataset AFHQCat`` on a folder of 512^2 PNGs
     with an EG3D ``dataset.json`` for ``PRESET_LOOP_STEPS[0]`` steps, and 4
@@ -3719,6 +3891,7 @@ FUSED_TRAIN = ("FFHQ512", "AFHQCat", "MetFaces")  # trained through the fused de
 EVAL_BANDED = ("FFHQ1024", "MetFaces")  # 14c: prepare_fake on eval's default route
 EVAL_512 = ("FFHQ512", "AFHQCat")  # 14e: prepare_fake on both routes at 512^2
 BANDED_LOOP_STEPS = (1, 2)  # train CLI steps, then resumed to (a FFHQ1024 step takes ~53 s)
+K10_STEP_TEXTURES = 8  # 14b: K10 held against K7 + K8 on a step call's first and last textures
 FUSED_LOOP_STEPS = 2
 
 
@@ -3801,15 +3974,15 @@ def banded_training(fr, tw, pg, card, dev, tmp, name):
     noise PNGs in a zip, ``BANDED_LOOP_STEPS[0]`` steps, resumed to
     ``BANDED_LOOP_STEPS[1]``, with each step's D and G phases timed and
     peaks read by span (``phases_timed``).  Launches are reset before and read
-    after both runs: one patch gather and one tap sampler a tile-row step
-    of the tiled warp, nothing else.  In each of the step's D phase, worst-view selection and
-    G phase, the first K7 call of each input shape (texture group, offsets,
-    bands) is held exactly against ``gather_patches_ref`` on the same inputs,
-    in the step (a transient copy of that call's patches, once a key).
-    Metrics finite, ``r1 > 0``; every parameter of G and D moved from the
-    CLI's initial weights; then a G micro-batch's ``rgba`` gradient through
-    the step's banded render (K7, the tiled adjoint) against the gather
-    renderer's autograd (1e-3 of max).  Returns the record, the
+    after both runs: one K10 a call of the tiled warp's taps, nothing else.
+    In each of the step's D phase, worst-view selection and G phase, the
+    first K10 call of each input shape (textures, bands, tile) is held
+    bitwise against K7 + K8 on the same inputs, in the step (on its first and
+    last ``K10_STEP_TEXTURES`` textures, once a key).  Metrics finite,
+    ``r1 > 0``; every parameter of G and D moved from the CLI's initial
+    weights; then a G micro-batch's ``rgba`` gradient through the step's
+    banded render (K10, the tiled adjoint) against the gather renderer's
+    autograd (1e-3 of max).  Returns the record, the
     launches, the checkpoint directory and the dataset's ``(data_root,
     pose_root)``."""
     import os
@@ -3817,6 +3990,7 @@ def banded_training(fr, tw, pg, card, dev, tmp, name):
     import train_gmpi_torch
     from gmpi_tpu_torch.config import get_config
     from gmpi_tpu_torch.core.renderer import render_mpi
+    from gmpi_tpu_torch.ops import texture_sample as ts
     from gmpi_tpu_torch.train import init_train_state, make_train_step
     from gmpi_tpu_torch.train.loop import LoopStats
     from gmpi_tpu_torch.train.step import TrainStep
@@ -3831,8 +4005,7 @@ def banded_training(fr, tw, pg, card, dev, tmp, name):
     args = ["--dataset", name, "--data_root", zpath, "--pose_root", pose_dir, "--output_dir",
             out, "--seed", "5", "--device", str(dev), "--no_fused_renderer"]
     first, last = BANDED_LOOP_STEPS
-    spans, row_steps, k7_equal, span = {}, {"n": 0}, {}, {"name": None}
-    row_step, gather = tw._warp_row_tiles, tw.gather_patches
+    spans, k10_equal, span = {}, {}, {"name": None}
     step_spans = {k: getattr(TrainStep, k) for k in ("d_phase", "worst_views", "g_phase")}
 
     def in_span(fn, label):
@@ -3844,22 +4017,15 @@ def banded_training(fr, tw, pg, card, dev, tmp, name):
                 span["name"] = outer
         return run
 
-    def counted_row_step(*a, **kw):
-        row_steps["n"] += 1
-        return row_step(*a, **kw)
+    def checked(args, out):
+        key = (span["name"], tuple(args[0].shape), tuple(args[4]), tuple(args[5]))
+        if key not in k10_equal:
+            k10_equal[key] = k10_against_k7_k8(ts, args, out, textures=K10_STEP_TEXTURES)
 
-    def checked_gather(texf, offs, band_x, band_yc, **kw):
-        out = gather(texf, offs, band_x, band_yc, **kw)
-        key = (span["name"], tuple(texf.shape), tuple(offs.shape), band_x, band_yc,
-               str(texf.dtype))
-        if key not in k7_equal:
-            k7_equal[key] = torch.equal(out, pg.gather_patches_ref(texf, offs, band_x, band_yc))
-        return out
-
-    tw._warp_row_tiles, tw.gather_patches = counted_row_step, checked_gather
+    k10_calls = K10Calls(tw, on_call=checked)
     reset_counts(fr)
     try:
-        with phases_timed(spans):
+        with phases_timed(spans), k10_calls:
             for k, label in (("d_phase", "D"), ("worst_views", "worst views"), ("g_phase", "G")):
                 setattr(TrainStep, k, in_span(getattr(TrainStep, k), label))
             stats1 = LoopStats()
@@ -3871,23 +4037,22 @@ def banded_training(fr, tw, pg, card, dev, tmp, name):
             stats2 = LoopStats()
             state = train_gmpi_torch.main(args + ["--total_iters", str(last)], stats=stats2)
     finally:
-        tw._warp_row_tiles, tw.gather_patches = row_step, gather
         for k, fn in step_spans.items():
             setattr(TrainStep, k, fn)
+    k10_calls.last = None
     launches = read_counts(fr)
-    want = {**generator_only(launches), "patch_gather": row_steps["n"],
-            "patch_sample": row_steps["n"]}
-    if launches != want or not row_steps["n"]:
+    want = {**generator_only(launches), "texture_sample": k10_calls.n}
+    if launches != want or not k10_calls.n:
         raise RuntimeError(f"the {name} banded train CLI launched {launches}, expected {want}")
-    k7_shapes = [f"{k[0]}: {k[1]} at {k[2][:2]} offsets -> {k[3]}x{k[4]}" for k in k7_equal]
-    log(f"14b: {name}: K7 in the banded steps vs gather_patches_ref on the same inputs, the "
-        f"first call of each of {len(k7_equal)} spans and input shapes (texture group "
-        f"[N, Wp, Hp*C]): "
-        + "; ".join(f"{sh} equal {ok}" for sh, ok in zip(k7_shapes, k7_equal.values())))
-    missed = {"D", "worst views", "G"} - {k[0] for k in k7_equal}
-    if missed or not all(k7_equal.values()):
-        raise RuntimeError(f"{name}: K7 in the banded step disagrees with its plain version "
-                           f"or was not checked in {missed}")
+    k10_shapes = [f"{k[0]}: {k[1]} bands {k[2]} tile {k[3]}" for k in k10_equal]
+    log(f"14b: {name}: K10 in the banded steps vs K7 + K8 on the same inputs (the first and "
+        f"last {K10_STEP_TEXTURES} textures), the first call of each of {len(k10_equal)} spans "
+        f"and input shapes (textures [N, C, H, W]): "
+        + "; ".join(f"{sh} bitwise {ok}" for sh, ok in zip(k10_shapes, k10_equal.values())))
+    missed = {"D", "worst views", "G"} - {k[0] for k in k10_equal}
+    if missed or not all(k10_equal.values()):
+        raise RuntimeError(f"{name}: K10 in the banded step is not K7 + K8's or was not "
+                           f"checked in {missed}")
     if stats2.start_step != first or state.step != last:
         raise RuntimeError(f"the resumed {name} banded run went from {stats2.start_step} to "
                            f"{state.step}, expected {first} to {last}")
@@ -3924,9 +4089,12 @@ def banded_training(fr, tw, pg, card, dev, tmp, name):
     x = mpi.clone().requires_grad_()
     before = read_counts(fr)
     imgs, _, _ = step.render_views(x, yv, pv)
-    k78 = {k: read_counts(fr)[k] - before[k] for k in ("patch_gather", "patch_sample")}
-    if not k78["patch_gather"] == k78["patch_sample"] > 0:  # the taps, under autograd
-        raise RuntimeError(f"{name}: the banded step's G render launched {k78} of K7 and K8")
+    taps = {k: read_counts(fr)[k] - before[k] for k in ("texture_sample", "patch_gather",
+                                                       "patch_sample")}
+    if taps["texture_sample"] == 0 or taps["patch_gather"] or taps["patch_sample"]:
+        # the forward's taps under autograd, through K10 alone
+        raise RuntimeError(f"{name}: the banded step's G render launched {taps} of K10, K7 "
+                           f"and K8")
     grad_b = torch.autograd.grad((imgs * cot).sum(), x)[0]
     x = mpi.clone().requires_grad_()
     grad_g = torch.autograd.grad(((render_mpi(x, geom.dhw, *rays).color * 2.0 - 1.0)
@@ -3941,15 +4109,15 @@ def banded_training(fr, tw, pg, card, dev, tmp, name):
         f"{['%.1f' % x for x in stats1.step_ms + stats2.step_ms]}, D ms "
         f"{['%.1f' % x for x in spans['D ms']]}, G ms {['%.1f' % x for x in spans['G ms']]}; "
         f"peak GB by span " + ", ".join(f"{k} {v:.2f}" for k, v in peaks.items())
-        + f"; {row_steps['n']} tile-row steps, launches {launches}; a checkpoint of "
+        + f"; {k10_calls.n} calls of the warp's taps, launches {launches}; a checkpoint of "
         f"{stats1.save_bytes[-1]} B saved in {stats1.save_s[-1]:.2f} s; G micro-batch rgba "
         f"gradient, banded vs gather autograd: rel err {err_g:.3e} (gate {GRAD_REL}) ({card})")
     if not err_g <= GRAD_REL:
         raise RuntimeError(f"{name}: the banded step's gradient disagrees with the gather's")
     record = {"bands": list(step.tiled_bands), "step_ms": stats1.step_ms + stats2.step_ms,
               "d_ms": spans["D ms"], "g_ms": spans["G ms"], "peak_gb_by_span": peaks,
-              "row_steps": row_steps["n"], "launches": launches, "grad_vs_gather": err_g,
-              "k7_exact": dict(zip(k7_shapes, k7_equal.values())),
+              "k10_calls": k10_calls.n, "launches": launches, "grad_vs_gather": err_g,
+              "k10_bitwise_k7_k8": dict(zip(k10_shapes, k10_equal.values())),
               "save_s": stats1.save_s + stats2.save_s, "load_s": stats2.load_s}
     return record, launches, os.path.join(out, "checkpoints"), (zpath, pose_dir)
 
@@ -4055,8 +4223,8 @@ def banded_phase(fr, tw, pg, card, dev):
     train steps through the train CLI; 14c banded ``prepare_fake`` of
     FFHQ1024 and MetFaces, and ``fid_kid`` on those fakes; 14d FFHQ512,
     AFHQCat and MetFaces trained fused through the CLI; 14e ``prepare_fake``
-    of FFHQ512 and AFHQCat at 512^2, banded and fused, K7's and K8's device
-    ms an image, and ``fid_kid`` on the banded fakes).  Returns ``(record,
+    of FFHQ512 and AFHQCat at 512^2, banded and fused, K10's device ms an
+    image, and ``fid_kid`` on the banded fakes).  Returns ``(record,
     launches of its main paths)``."""
     import os
     import shutil
@@ -4115,7 +4283,6 @@ def main() -> int:
     from gmpi_tpu_torch.core import camera as cam
     from gmpi_tpu_torch.core import bands as bands_mod
     from gmpi_tpu_torch.core import poses
-    from gmpi_tpu_torch.core import renderer as renderer_mod
     from gmpi_tpu_torch.core.renderer import (homography_grid, plan_fused, render_mpi,
                                               render_mpi_chunked, render_mpi_fused)
     from gmpi_tpu_torch.eval.harness import SAMPLER_GRAPH, FakeImageGenerator
@@ -4123,6 +4290,7 @@ def main() -> int:
     from gmpi_tpu_torch.ops import _build
     from gmpi_tpu_torch.ops import fused_render as fr
     from gmpi_tpu_torch.ops import patch_gather as pg
+    from gmpi_tpu_torch.ops import texture_sample as ts
     from gmpi_tpu_torch.ops import tiled_warp as tw
     from gmpi_tpu_torch.train import flat_pose_from_c2w, init_train_state, make_train_step
     from gmpi_tpu_torch.utils import roofline
@@ -4509,28 +4677,10 @@ def main() -> int:
         f"SAMPLER_GRAPH over the run {dict(SAMPLER_GRAPH)}")
     if not same_b or graph_b != {"capture": 1}:
         raise RuntimeError("the banded sampler's graph disagrees with phase 3's")
-    calls = {"row_steps": 0, "gather_args": None, "sample_args": None}
-    warp_row_tiles, gather_patches, sample_patches = (tw._warp_row_tiles, tw.gather_patches,
-                                                      tw.sample_patches)
-
-    def counted_row_step(*args, **kw):
-        calls["row_steps"] += 1
-        return warp_row_tiles(*args, **kw)
-
-    def recorded_gather(texf, offs, band_x, band_yc, **kw):
-        calls["gather_args"] = (texf, offs, band_x, band_yc)
-        return gather_patches(texf, offs, band_x, band_yc, **kw)
-
-    def recorded_sample(*args):
-        calls["sample_args"] = args
-        return sample_patches(*args)
-
-    tw._warp_row_tiles, tw.gather_patches = counted_row_step, recorded_gather
-    tw.sample_patches = recorded_sample
     banded_ms, errs_b = [], []
     torch.cuda.reset_peak_memory_stats()
     reset_counts(fr)
-    try:
+    with K10Calls(tw) as k10_calls:
         for seed, mpi in zip(seeds, mpis):
             yv, pv = gen_b.sample_views(seed, n_views)
             mpi_v = mpi.expand(n_views, -1, -1, -1, -1)
@@ -4552,9 +4702,6 @@ def main() -> int:
                     tiled_bands=tiled_bands))
         peak_chunked = torch.cuda.max_memory_allocated() / 1e9
         banded_launches = read_counts(fr)
-    finally:
-        tw._warp_row_tiles, tw.gather_patches = warp_row_tiles, gather_patches
-        tw.sample_patches = sample_patches
     err_chunk = max(float((a - b).abs().max()) for a, b in zip(chunked, gather))
     per_plane = lambda x: x[:, None].expand(n_views, n_planes, *x.shape[1:]).reshape(  # noqa: E731
         n_views * n_planes, *x.shape[1:])
@@ -4562,29 +4709,40 @@ def main() -> int:
                               per_plane(z_dir))
     covered = bool(tw.bands_cover((n_views * n_planes, 4, res, res), grid, band_y, band_x))
     del grid
-    expected = {**generator_only(banded_launches), "patch_gather": calls["row_steps"],
-                "patch_sample": calls["row_steps"]}
+    expected = {**generator_only(banded_launches), "texture_sample": k10_calls.n}
     log(f"banded serving path: {len(seeds)} seeds x {n_views} views x {n_planes} planes in one "
-        f"call each (textures and tile rows in steps under "
-        f"{renderer_mod.TILED_STEP_BYTES / 2 ** 30:.0f} GiB "
-        f"of patches), then two renders in slabs of 24 planes; {calls['row_steps']} tile-row steps, "
-        f"launches {banded_launches}")
+        f"call each, then two renders in slabs of 24 planes; {k10_calls.n} calls of the tiled "
+        f"warp's taps, launches {banded_launches}")
     log(f"banded render vs gather renderer: {['%.2e' % e for e in errs_b]}, chunked {err_chunk:.2e} "
         f"(gate 5e-4); bands cover the sampled poses: {covered}")
     log(f"banded render ms per call of {n_views} views: {['%.1f' % x for x in banded_ms]}, in "
         f"slabs {chunked_ms:.1f}; peak memory {peak_banded:.2f} GB in one call, "
         f"{peak_chunked:.2f} GB in slabs ({card})")
-    if banded_launches != expected or calls["row_steps"] == 0:
+    if banded_launches != expected or k10_calls.n == 0:
         raise RuntimeError(f"banded path launched {banded_launches}, expected {expected}")
     if not (max(errs_b) <= 5e-4 and err_chunk <= 5e-4):  # also catches NaN
         raise RuntimeError("the banded render disagrees with the gather renderer")
     if not covered:
         raise RuntimeError("the planned bands do not cover the sampled poses")
 
-    # the tap sampler and the patch gather at this path's inputs (the last tile-row step's)
-    k8 = patch_sample_at(tw, calls["gather_args"], calls.pop("sample_args"), rates, card,
-                         "the path's inputs")
-    k7 = patch_gather_at(pg, *calls.pop("gather_args"), rates, card, "the path's inputs")
+    # K10 at this path's last inputs, bitwise K7 + K8; K10 timed at the banded cells' requests;
+    # the tap sampler and the patch gather at the last tile-row step that K7 + K8 would take on
+    # this path's last inputs
+    same_k10 = k10_against_k7_k8(ts, k10_calls.last)
+    log(f"texture_sample at the path's last inputs ({tuple(k10_calls.last[0].shape)} textures, "
+        f"bands {k10_calls.last[4]}): bitwise K7 + K8 {same_k10}")
+    if not same_k10:
+        raise RuntimeError("texture_sample at the banded path's inputs is not K7 + K8's")
+    k10 = k10_cells(ts, tw, rates, card, dev)
+    max_err["texture_sample"] = max(r["max_rel_err"] for r in k10.values())
+    rows_256 = tw.tiling(res, res)
+    gather_args, sample_args = patch_step_inputs(
+        ts, k10_calls.last, rows_256.rows_per_step if rows_256.row_scan else res // 8)
+    k10_calls.last = None
+    k8 = patch_sample_at(tw, gather_args, sample_args, rates, card, "the path's inputs")
+    del sample_args
+    k7 = patch_gather_at(pg, *gather_args, rates, card, "the path's inputs")
+    del gather_args
     max_err["patch_sample"] = k8["max_rel_err"]
 
     # where the banded render's time goes: one call under the profiler, by the tiled
@@ -4605,7 +4763,8 @@ def main() -> int:
                   if span.time_range.start <= e.time_range.start < span.time_range.end]
         banded_spans[span.name] = banded_spans.get(span.name, 0.0) + busy_ms(inside)
     banded_busy = busy_ms(kernels)
-    banded_spans["other (pad, band starts, composite)"] = banded_busy - sum(banded_spans.values())
+    banded_spans["other (grids, coordinates, composite)"] = banded_busy - sum(
+        banded_spans.values())
     with torch.no_grad():
         t_banded = time_ms(lambda: gen_b.render(mpi_v, yv, pv), iters=5, warmup=1)
         t_fused_same = time_ms(lambda: render_mpi_fused(mpi_v, geom.dhw, ray_dir, eye, z_dir))
@@ -4636,7 +4795,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     tmp = tempfile.mkdtemp(prefix="chip_smoke_eval_")
     try:
-        evaluation, ckpt_dir = eval_phase(fr, tw, pg, cfg, card, dev, tmp)
+        evaluation, ckpt_dir = eval_phase(fr, tw, ts, cfg, card, dev, tmp)
         viz = viz_phase(fr, cfg, ckpt_dir, os.path.join(tmp, "vis"), card, dev)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -4682,14 +4841,16 @@ def main() -> int:
                   loop["launches"], evaluation["launches"], viz["launches"],
                   *variants["launches"].values(), bf16["train_launches"], ranks["launches"],
                   *preset_paths, *banded_paths)
-    # K7's launches by kernel path, read with each main path's counts: every one on the TMA path
+    # the banded main paths take K10 and no longer K7 or K8 (those two run only as its
+    # yardstick and in their own checks)
     k7_paths = sum(main_paths, no_counts(fr)).k7_paths
-    log(f"patch_gather launches of the main paths by kernel path: {k7_paths}")
-    if (sum(k7_paths.values()) != sum(path["patch_gather"] for path in main_paths)
-            or not k7_paths["tma"] or any(path.k7_paths["loop"] for path in main_paths)):
-        raise RuntimeError(f"the main paths' patch gathers by path {k7_paths}: not all on the "
-                           f"TMA path, or not the {sum(p['patch_gather'] for p in main_paths)} "
-                           f"launches counted by kernel")
+    k78 = sum(path["patch_gather"] + path["patch_sample"] for path in main_paths)
+    k10_launches = sum(path["texture_sample"] for path in main_paths)
+    log(f"main paths: {k10_launches} texture_sample launches; patch_gather and patch_sample "
+        f"{k78}, patch_gather by kernel path {k7_paths}")
+    if k78 or sum(k7_paths.values()) or not k10_launches:
+        raise RuntimeError(f"the main paths launched K7 and K8 {k78} times (by path "
+                           f"{k7_paths}) and K10 {k10_launches} times")
 
     # K9: one launch a synthesis block run without autograd on every main path
     k9_launches = sum(path["mpi_stack"] for path in main_paths)
@@ -4740,6 +4901,12 @@ def main() -> int:
               None, replaces="none (the hats and contractions of gmpi_tpu/ops/tiled_warp.py)",
               queued_ms=k8["queued_ms"], bytes=k8["bytes"], step_ms=k8["step_ms"],
               hats_step_ms=k8["hats_step_ms"], step_textures=k8["step_textures"]),
+        entry("texture_sample", None, k10["ffhq256-fid-banded"]["ms"],
+              k10["ffhq256-fid-banded"]["plain_ms"],
+              (k10["ffhq256-fid-banded"]["bound_ms"], k10["ffhq256-fid-banded"]["bound_by"]),
+              None, replaces="none (K7's patches and K8's taps on the tiled warp's taps route)",
+              err_scale="max|plain| (bitwise K7 + K8 required)",
+              queued_ms=k10["ffhq256-fid-banded"]["queued_ms"], cells=k10),
         entry("mpi_stack", None, k9["serve256_last"]["ms"], k9["serve256_last"]["plain_ms"],
               (k9["serve256_last"]["bound_ms"], k9["serve256_last"]["bound_by"]),
               k9["serve256_last"]["plain_ms"],

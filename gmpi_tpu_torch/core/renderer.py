@@ -47,9 +47,9 @@ from gmpi_tpu_torch.utils.inspect import profile_scope
 
 ALIGN_CORNERS_FALSE_NARROW_SCALE = 0.95
 COMPOSITE_EPS = 1e-10
-# what one step of the banded warp holds: its patches on the taps, its hats and mixed
-# products on the hats (a served MPI of 96 planes in 4 views holds ~45 GB of hats and mixed
-# products at 256^2, 7 GB of patches)
+# what one step of the banded warp's hats and of its tiled adjoint holds (a served MPI of 96
+# planes in 4 views holds ~45 GB of hats and mixed products at 256^2); the taps hold nothing
+# but their output
 TILED_STEP_BYTES = 4 * 2 ** 30
 
 

@@ -31,7 +31,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # kernel launches by kernel (the stem of its csrc/<name>.cu)
 LAUNCHES = {"fused_fwd": 0, "composite_bwd": 0, "splat": 0, "adjoint": 0, "patch_gather": 0,
-            "patch_sample": 0, "mpi_stack": 0}
+            "patch_sample": 0, "mpi_stack": 0, "texture_sample": 0}
 
 
 class Built(NamedTuple):

@@ -3,29 +3,32 @@
 
 The formulation exploits the smoothness of homography warps: within an output
 tile of ``tile_r x tile_c`` pixels the source coordinates span a bounded
-texture band.  Per tile:
-
-1. slice one contiguous texture patch ``[B_x, B_y * C]``;
-2. interpolate each pixel from the patch.
+texture band, ``band_y x band_x`` texels from one texel before the tile's
+least coordinate; each pixel is interpolated from its tile's band alone.
 
 The warp picks one of two routes for this, by what it is asked:
 
 * the *taps* (:func:`_sample_taps`) where autograd records nothing through
-  it and no ``compute_dtype`` is asked for: the patches come from the
-  hand-written patch gather of ``ops/patch_gather.py`` (K7), and each pixel's
-  four taps are read straight from its patch by the hand-written kernel of
-  ``ops/patch_sample.py`` (K8); on CPU tensors both run their plain versions.
-  Neither kernel has a gradient: inside :func:`make_tiled_warp_with_adjoint`
-  the forward takes this route, and the tiled adjoint is the backward;
+  it and no ``compute_dtype`` is asked for: the band origins of all tiles in
+  one pass over the coordinates, then one launch of the hand-written kernel
+  of ``ops/texture_sample.py`` (K10), which reads each pixel's four taps
+  straight from the texture (a 1024^2 plane stays in the card's L2 while its
+  pixels are served), with a tap outside the band or the texture read as
+  zero; on CPU tensors its plain version.  No padded copy and no patch is
+  made.  The kernel has no gradient: inside
+  :func:`make_tiled_warp_with_adjoint` the forward takes this route, and the
+  tiled adjoint is the backward;
 * the *hats* (:func:`_sample_hats`) otherwise, the differentiable plain route
-  the JAX package takes: the patches by one advanced index, and bilinear
-  *hat* weights against the patch grid, ``hat_x[p, j] = relu(1 - |tx_p -
-  (x_lo + j)|)`` (two nonzeros per row), contracted: ``M[p, (y, c)] =
-  hat_x[p, :] @ patch[:, (y, c)]``, then ``out[p, c] = sum_y hat_y[p, y]
-  M[p, y, c]``.  ``compute_dtype=torch.bfloat16`` rounds the texture and the
-  hats, which the taps never form, so that mode takes the hats too.
+  the JAX package takes: per tile one contiguous patch ``[B_x, B_y * C]``
+  sliced by one advanced index from a zero-padded x-major copy of the
+  texture, and bilinear *hat* weights against the patch grid, ``hat_x[p, j]
+  = relu(1 - |tx_p - (x_lo + j)|)`` (two nonzeros per row), contracted:
+  ``M[p, (y, c)] = hat_x[p, :] @ patch[:, (y, c)]``, then ``out[p, c] =
+  sum_y hat_y[p, y] M[p, y, c]``.  ``compute_dtype=torch.bfloat16`` rounds
+  the texture and the hats, which the taps never form, so that mode takes the
+  hats too.
 
-Both give exactly zero for out-of-patch taps, which reproduces
+Both give exactly zero for out-of-band taps, which reproduces
 ``padding_mode="zeros"`` on the zero-padded texture, and both are separable
 bilinear interpolation, so results match ``grid_sample_bilinear`` to fp32
 reassociation.  The contractions are plain matrix products outside any
@@ -33,17 +36,17 @@ hand-written kernel, as in the JAX package; callers on a CUDA device keep
 TF32 off for them (``torch.backends.cuda.matmul.allow_tf32 = False``,
 PyTorch's default).
 
-The tiling (the warp's tile, the adjoint's, and the tile rows a step) comes
-from :func:`tiling`, the one rule that the renderer and the band planner
-(``core/bands.py``) also follow.  Band sizes are static and must cover every
-tile's coordinate span; :func:`required_bands` measures the true spans of a
-grid, :func:`bands_cover` checks a configuration at run time, and
+The tiling (the warp's tile, the adjoint's, and the tile rows a step of the
+hats) comes from :func:`tiling`, the one rule that the renderer and the band
+planner (``core/bands.py``) also follow.  Band sizes are static and must cover
+every tile's coordinate span; :func:`required_bands` measures the true spans
+of a grid, :func:`bands_cover` checks a configuration at run time, and
 ``check=True`` NaN-poisons the output of a render whose poses leave the
 planned bands.
 
-The port does not round the patch starts down to tile boundaries (the JAX
-package does on its Pallas backend, and widens the bands for it): the CUDA
-kernel copies from any offset, so both routes read the same patches.
+The port does not round the band origins down to tile boundaries (the JAX
+package does on its Pallas backend, and widens the bands for it): both routes
+read the same bands from any origin.
 """
 
 from __future__ import annotations
@@ -54,8 +57,8 @@ import torch
 import torch.nn.functional as F
 
 from gmpi_tpu_torch.ops.grid_sample import _unnormalize
-from gmpi_tpu_torch.ops.patch_gather import gather_patches, gather_patches_ref
-from gmpi_tpu_torch.ops.patch_sample import sample_patches
+from gmpi_tpu_torch.ops.patch_gather import gather_patches_ref
+from gmpi_tpu_torch.ops.texture_sample import band_origins, texture_sample
 from gmpi_tpu_torch.utils.inspect import profile_scope
 
 
@@ -73,10 +76,11 @@ def tiling(h: int, w: int, tile: Optional[Tuple[int, int]] = None) -> Tiling:
     (else 1) and 256 or 128 columns (else the width); the adjoint's texture
     tiles taller and wider, 32 rows and 512 or 256 columns where they divide,
     to amortize the overlap of neighbouring tiles' bands; and, over 32 tile
-    rows, the rows in ~64 steps as the JAX package takes them (the warp and
-    its adjoint cut the rows and group the textures further under their
-    ``step_bytes``).  ``tile`` stands in for the rule's warp tile (the parity
-    tests pass the JAX package's); the adjoint tile and the steps follow it.
+    rows, the rows in ~64 steps as the JAX package takes them (the warp's hats
+    and its adjoint cut the rows and group the textures further under their
+    ``step_bytes``; the taps take every row at once).  ``tile`` stands in for
+    the rule's warp tile (the parity tests pass the JAX package's); the
+    adjoint tile and the steps follow it.
     The warp, its adjoint and ``core/bands.required_spans`` take their
     defaults from here."""
     tile = tile or (8 if h % 8 == 0 else 1, 256 if w % 256 == 0 else 128 if w % 128 == 0 else w)
@@ -138,15 +142,12 @@ def _hat(rel: torch.Tensor, taps: torch.Tensor) -> torch.Tensor:
 
 
 def _warp_row_tiles(texf, fx_row, fy_row, band_y, band_x, pad_y, pad_x, h, w, c,
-                    compute_dtype=None, into=None):
+                    compute_dtype=None):
     """Warp a batch of tiles through the hats: fx/fy ``[N, T, tile_r,
     tile_c]`` -> ``[N, T, P, C]``.
 
     ``texf`` is the x-major fused texture ``[N, Wp, Hp*C]``, so patches slice
-    out as ready ``[B_x, B_y*C]`` matrix operands.  With ``into = (out, fx,
-    fy, first_tile)`` it takes the taps instead: K7 cuts the patches, and K8
-    writes the samples of tiles ``first_tile ..`` into ``out [N, C, Ho, Wo]``
-    from the coordinates ``fx, fy [N, Ho, Wo]``; nothing is returned."""
+    out as ready ``[B_x, B_y*C]`` matrix operands."""
     n, t = fx_row.shape[0], fx_row.shape[1]
     p_tile = fx_row.shape[2] * fx_row.shape[3]
     y_lo = torch.floor(fy_row.amin(dim=(2, 3))).to(torch.int32) - 1  # [N, T]
@@ -154,14 +155,6 @@ def _warp_row_tiles(texf, fx_row, fy_row, band_y, band_x, pad_y, pad_x, h, w, c,
     y_lo_c = torch.clamp(y_lo + pad_y, 0, h + 2 * pad_y - band_y)
     x_lo_c = torch.clamp(x_lo + pad_x, 0, w + 2 * pad_x - band_x)
     offs = torch.stack([x_lo_c, y_lo_c * c], dim=-1)  # [N, T, 2] int32, clamped in range
-    if into is not None:
-        out, fx, fy, first_tile = into
-        with profile_scope("tiled_warp.patches"):
-            pm = gather_patches(texf, offs, band_x, band_y * c, validate=False)
-        with profile_scope("tiled_warp.sample"):
-            sample_patches(pm, offs, fx, fy, (pad_y, pad_x), fx_row.shape[2:], out, first_tile)
-        return None
-
     with profile_scope("tiled_warp.patches"):
         pm = gather_patches_ref(texf, offs, band_x, band_y * c)  # [N, T, B_x, B_y*C]
     with profile_scope("tiled_warp.hats"):
@@ -213,36 +206,36 @@ def grid_sample_tiled(tex: torch.Tensor, grid: torch.Tensor, band_y: int = 32,
     NaN-poisoned, so the violation shows in any loss or comparison downstream
     instead of silently dropping taps.
 
-    ``row_scan=True`` processes the tile rows in groups of ``rows_per_step``
-    in a loop, same results, with the patches (and hat matrices) of one group
-    alive at a time instead of all ``nty * ntx`` tiles'.  ``step_bytes``
-    bounds what a step holds (:func:`step_groups`): on the taps its patches
-    and padded textures, on the hats its hats and mixed products.  The
-    textures go through in equal groups, each with its own padded copy, and
-    where one texture's tile rows of a step exceed the budget, fewer rows a
-    step (at 512 textures of 1024^2, the worst-view candidates of a FFHQ1024
-    step, one step over all of them would hold ~32 GB of hats, or 3 GB of
-    patches, and a 19 GB padded copy).  Textures and tiles are independent,
-    so the grouping changes no value.  ``tile``, ``row_scan`` and
-    ``rows_per_step`` default to :func:`tiling`'s.
-
     The route is the warp's own (see the module doc): the taps where
     autograd records nothing through ``tex`` or ``grid`` and
     ``compute_dtype`` is None, else the hats.  ``compute_dtype=
     torch.bfloat16`` rounds the texture and the hats to bf16 for the first
-    contraction.
+    contraction.  The taps read the texture in one kernel launch and hold
+    nothing but the output, whatever the size.
+
+    On the hats, ``row_scan=True`` processes the tile rows in groups of
+    ``rows_per_step`` in a loop, same results, with the hat matrices of one
+    group alive at a time instead of all ``nty * ntx`` tiles'.
+    ``step_bytes`` bounds what a step of the hats holds (:func:`step_groups`):
+    its hats and mixed products.  The textures go through in equal groups,
+    each with its own padded copy, and where one texture's tile rows of a
+    step exceed the budget, fewer rows a step (at 512 textures of 1024^2, the
+    worst-view candidates of a FFHQ1024 step, one step over all of them would
+    hold ~32 GB of hats).  Textures and tiles are independent, so the
+    grouping changes no value.  ``tile``, ``row_scan`` and ``rows_per_step``
+    default to :func:`tiling`'s.
     """
     t = tiling(grid.shape[1], grid.shape[2], tile)
     fx_t, fy_t, nty, _ = _tile_coords(tex.shape, grid, align_corners, t.tile)
-    g = nty
-    if t.row_scan if row_scan is None else row_scan:
-        g = max(1, min(t.rows_per_step if rows_per_step is None else rows_per_step, nty))
-        while nty % g:
-            g -= 1
     if compute_dtype is None and not (torch.is_grad_enabled()
                                       and (tex.requires_grad or grid.requires_grad)):
-        out = _sample_taps(tex, fx_t, fy_t, band_y, band_x, g, step_bytes)
+        out = _sample_taps(tex, fx_t, fy_t, band_y, band_x)
     else:
+        g = nty
+        if t.row_scan if row_scan is None else row_scan:
+            g = max(1, min(t.rows_per_step if rows_per_step is None else rows_per_step, nty))
+            while nty % g:
+                g -= 1
         out = _sample_hats(tex, fx_t, fy_t, band_y, band_x, g, step_bytes, compute_dtype)
     if check:
         ok = bands_cover(tex.shape, grid, band_y, band_x, align_corners, t.tile)
@@ -250,27 +243,26 @@ def grid_sample_tiled(tex: torch.Tensor, grid: torch.Tensor, band_y: int = 32,
     return out
 
 
-def _sample_taps(tex, fx_t, fy_t, band_y, band_x, g, step_bytes):
+def _sample_taps(tex, fx_t, fy_t, band_y, band_x):
     """The taps route of :func:`grid_sample_tiled` on the tile coordinates
-    ``fx_t, fy_t [N, nty, ntx, tile_r, tile_c]``, ``g`` tile rows a step: K7's
-    patches and K8's samples, no gradient.  A step holds a texture's padded
-    copy, and its patches a tile row."""
-    n, c, h, w = tex.shape
+    ``fx_t, fy_t [N, nty, ntx, tile_r, tile_c]`` (views of ``[N, Ho, Wo]``
+    coordinates): every tile's band origin in one pass, then K10 over all
+    textures and tiles in one launch; no gradient."""
+    n, _, h, w = tex.shape
     nty, ntx, tile_r, tile_c = fx_t.shape[1:]
-    g, n_step = step_groups(n, nty, g, 4 * ntx * band_x * band_y * c, step_bytes,
-                            4 * (w + 2 * band_x) * (h + 2 * band_y) * c)
-    out = torch.empty((n, c, nty * tile_r, ntx * tile_c), dtype=torch.float32, device=tex.device)
-    for i in range(0, n, n_step):
-        _warp_textures(tex[i:i + n_step], fx_t[i:i + n_step], fy_t[i:i + n_step], band_y,
-                       band_x, g, None, out[i:i + n_step])
-    return out
+    fx, fy = (f.transpose(2, 3).reshape(n, nty * tile_r, ntx * tile_c).contiguous()
+              for f in (fx_t, fy_t))
+    with profile_scope("tiled_warp.sample"):
+        origins = band_origins(fx, fy, (band_y, band_x), (tile_r, tile_c), h, w)
+        return texture_sample(tex.contiguous(), origins, fx, fy, (band_y, band_x),
+                              (tile_r, tile_c))
 
 
 def _sample_hats(tex, fx_t, fy_t, band_y, band_x, g, step_bytes, compute_dtype=None):
-    """The hats route of :func:`grid_sample_tiled`, arguments as
-    :func:`_sample_taps`: the advanced index and the hat contractions,
-    differentiable.  A step holds a texture's hats and mixed products a tile
-    row."""
+    """The hats route of :func:`grid_sample_tiled` on the tile coordinates
+    ``fx_t, fy_t [N, nty, ntx, tile_r, tile_c]``, ``g`` tile rows a step: the
+    advanced index and the hat contractions, differentiable.  A step holds a
+    texture's hats and mixed products a tile row."""
     n, c = tex.shape[:2]
     nty, ntx, tile_r, tile_c = fx_t.shape[1:]
     g, n_step = step_groups(n, nty, g, 4 * tile_r * ntx * tile_c
@@ -282,10 +274,9 @@ def _sample_hats(tex, fx_t, fy_t, band_y, band_x, g, step_bytes, compute_dtype=N
         n, c, nty * tile_r, ntx * tile_c)
 
 
-def _warp_textures(tex, fx_t, fy_t, band_y, band_x, g, compute_dtype, out=None):
+def _warp_textures(tex, fx_t, fy_t, band_y, band_x, g, compute_dtype):
     """:func:`grid_sample_tiled` of a group of textures, ``g`` tile rows a
-    step, through the hats: ``[N, nty*ntx, P, C]``; with ``out [N, C, Ho,
-    Wo]`` through the taps, their samples written into it."""
+    step, through the hats: ``[N, nty*ntx, P, C]``."""
     n, c, h, w = tex.shape
     nty, ntx, tile_r, tile_c = fx_t.shape[1:]
     # generous zero pad: every clamped band start reads real texels or zeros.
@@ -295,17 +286,12 @@ def _warp_textures(tex, fx_t, fy_t, band_y, band_x, g, compute_dtype, out=None):
         n, w + 2 * pad_x, (h + 2 * pad_y) * c)
     if compute_dtype is not None:
         texl = texl.to(compute_dtype)
-    # the coordinates [N, Ho, Wo] in their own layout (a view of the tile views')
-    fx, fy = (f.transpose(2, 3).reshape(n, nty * tile_r, ntx * tile_c) for f in (fx_t, fy_t))
     rows = []
     for r0 in range(0, nty, g):  # one step warps g * ntx tiles
         fx_g = fx_t[:, r0:r0 + g].reshape(n, g * ntx, tile_r, tile_c)
         fy_g = fy_t[:, r0:r0 + g].reshape(n, g * ntx, tile_r, tile_c)
         rows.append(_warp_row_tiles(texl, fx_g, fy_g, band_y, band_x, pad_y, pad_x, h, w, c,
-                                    compute_dtype,
-                                    None if out is None else (out, fx, fy, r0 * ntx)))
-    if out is not None:
-        return out
+                                    compute_dtype))
     return rows[0] if len(rows) == 1 else torch.cat(rows, dim=1)
 
 
@@ -324,7 +310,8 @@ def make_tiled_warp_with_adjoint(band_y: int, band_x: int, adjoint_bands: Tuple[
     :func:`gmpi_tpu_torch.ops.tiled_warp_adjoint.grid_sample_tiled_adjoint`
     instead of autograd's scatter-add, and keeps only ``grid`` as residual (the
     hats are recomputed).  The grid is a constant (UV grids carry no gradient).
-    ``step_bytes`` bounds what a step holds in both directions.  The tiling
+    ``step_bytes`` bounds what a step of the backward holds (the forward's
+    taps hold nothing but their output).  The tiling
     defaults to :func:`tiling`'s, the adjoint's on the texture's size.
     """
     from gmpi_tpu_torch.ops.tiled_warp_adjoint import grid_sample_tiled_adjoint

@@ -198,7 +198,7 @@ def test_function_gradient_matches_gather_autograd_on_the_card(cuda, opaque):
             grads.append(torch.autograd.grad(sum((o * c).sum() for o, c in zip(out, cot)), x)[0])
         assert {k: v - before[k] for k, v in fused_render.LAUNCHES.items()} == {
             "fused_fwd": 1, "composite_bwd": 1, "splat": 1, "adjoint": 0, "patch_gather": 0,
-            "patch_sample": 0, "mpi_stack": 0}
+            "patch_sample": 0, "mpi_stack": 0, "texture_sample": 0}
         assert torch.isfinite(grads[0]).all()
         assert _rel(grads[0], grads[1]) <= 1e-3
 
@@ -323,8 +323,9 @@ def test_banded_render_with_kernel_patches_matches_gather_on_the_card(cuda):
     before = dict(fused_render.LAUNCHES)
     banded = render_mpi(mpi, geom.dhw, ray_dir, eye, z_dir, tiled_bands=bands)
     chunked = render_mpi_chunked(mpi, geom.dhw, ray_dir, eye, z_dir, 2, tiled_bands=bands)
-    for kname in ("patch_gather", "patch_sample"):  # one of each a tile-row step
-        assert fused_render.LAUNCHES[kname] == before[kname] + 1 + 3
+    # one K10 launch a warp call (the whole render, then each of 3 slabs), no K7 or K8
+    assert {k: v - before[k] for k, v in fused_render.LAUNCHES.items() if v != before[k]} == {
+        "texture_sample": 1 + 3}
     # the hats: under autograd, with no tiled adjoint in the bands
     plain = render_mpi(mpi.clone().requires_grad_(), geom.dhw, ray_dir, eye, z_dir,
                        tiled_bands=bands[:2])
@@ -354,12 +355,14 @@ K8_CASES = {"ffhq256": ("FFHQ256", 96, 256, (96, 376), (8, 256)),
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", K8_CASES)
 def test_patch_sample_kernel_matches_plain_version(cuda, monkeypatch, case):
-    """The tap sampler (K8) inside the tiled warp, at a +2 sigma corner pose:
-    one K8 launch a tile-row step with K7's; the first and last steps'
-    launches against the plain version on the same inputs (1e-4 of
-    max|plain|); the whole warp within 5e-4 of ``F.grid_sample``."""
-    from gmpi_tpu_torch.core.renderer import TILED_STEP_BYTES, homography_grid
-    from gmpi_tpu_torch.ops import grid_sample, patch_sample, tiled_warp
+    """The tap sampler (K8) after K7's patches, as the tiled warp's taps took
+    them before K10 (``texture_sample.patch_taps``, the rule's tile rows a
+    step), at a +2 sigma corner pose: one K8 launch a tile-row step with
+    K7's; the first and last steps' launches against the plain version on
+    the same inputs (1e-4 of max|plain|); the whole within 5e-4 of
+    ``F.grid_sample``."""
+    from gmpi_tpu_torch.core.renderer import homography_grid
+    from gmpi_tpu_torch.ops import grid_sample, patch_sample, texture_sample, tiled_warp
 
     preset, n_planes, res, bands, tile = K8_CASES[case]
     cfg = get_config(preset)
@@ -374,15 +377,20 @@ def test_patch_sample_kernel_matches_plain_version(cuda, monkeypatch, case):
                      generator=torch.Generator(device=cuda).manual_seed(8))
     bands = bands or tuple(b + 2 for b in tiled_warp.required_bands(tex.shape, grid, tile=tile))
     assert bool(tiled_warp.bands_cover(tex.shape, grid, *bands, tile=tile))
-    kept, sample = [], tiled_warp.sample_patches
+    kept, sample = [], texture_sample.sample_patches
 
     def keep(*args):  # the first and the last step's inputs
         kept[min(len(kept), 1):] = [args]
         return sample(*args)
 
-    monkeypatch.setattr(tiled_warp, "sample_patches", keep)
+    monkeypatch.setattr(texture_sample, "sample_patches", keep)
+    fx_t, fy_t, nty, _ = tiled_warp._tile_coords(tex.shape, grid, True, tile)
+    fx, fy = (f.transpose(2, 3).reshape(n_planes, res, res) for f in (fx_t, fy_t))
+    origins = texture_sample.band_origins(fx, fy, bands, tile, res, res)
+    rows = tiled_warp.tiling(res, res, tile)
     before = dict(fused_render.LAUNCHES)
-    out = tiled_warp.grid_sample_tiled(tex, grid, *bands, tile=tile, step_bytes=TILED_STEP_BYTES)
+    out = texture_sample.patch_taps(tex, origins, fx, fy, bands, tile,
+                                    rows.rows_per_step if rows.row_scan else nty)
     torch.cuda.synchronize()
     steps = fused_render.LAUNCHES["patch_sample"] - before["patch_sample"]
     assert steps >= 1 and fused_render.LAUNCHES["patch_gather"] - before["patch_gather"] == steps

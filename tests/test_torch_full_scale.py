@@ -21,8 +21,7 @@ a card every test skips.  Covered, in the JAX file's order:
   ``HIGHEST`` MXU mode (the port has no precision modes), the bf16-texture
   form at the JAX package's bf16 gate, 2e-2;
 * the banded route (``render_mpi(tiled_bands=bands_for_config(...))``, its
-  patches through the patch-gather kernel and its taps through the tap
-  kernel) against ``render_mpi_chunked(plane_chunk=4)`` itself, whose float32
+  taps read from the texture by the texture-sample kernel) against ``render_mpi_chunked(plane_chunk=4)`` itself, whose float32
   coordinates it shares, 5e-4;
 * the G phase's renderer gradient with a pose-conditioned D, fused against
   the gather renderer: the loss, and the renderer's vector-Jacobian product
@@ -106,7 +105,7 @@ def test_fused_full_scale_fwd_and_grad_allclose(cuda, yaw, pitch, compute_dtype,
     torch.cuda.synchronize()
     assert {k: fused_render.LAUNCHES[k] - before[k] for k in before} == {
         "fused_fwd": 1, "composite_bwd": 1, "splat": 1, "adjoint": 0, "patch_gather": 0,
-        "patch_sample": 0, "mpi_stack": 0}
+        "patch_sample": 0, "mpi_stack": 0, "texture_sample": 0}
     color_o, grad_o = (t.float() for t in _color_and_grad(
         lambda x: types.SimpleNamespace(color=chunked_gather_fp64(x, geom.dhw, *rays)), rgba,
         cot))
@@ -122,8 +121,10 @@ def test_banded_full_scale_matches_oracle(cuda, yaw, pitch):
     color, grad = _color_and_grad(lambda x: render_mpi(
         x, geom.dhw, *rays, tiled_bands=bands), rgba, cot)
     torch.cuda.synchronize()
-    steps = fused_render.LAUNCHES["patch_gather"] - before["patch_gather"]
-    assert steps > 0 and fused_render.LAUNCHES["patch_sample"] - before["patch_sample"] == steps
+    # the forward's taps: one K10 launch, no K7 or K8
+    assert {k: fused_render.LAUNCHES[k] - before[k] for k in ("texture_sample", "patch_gather",
+                                                              "patch_sample")} == {
+        "texture_sample": 1, "patch_gather": 0, "patch_sample": 0}
     color_o, grad_o = _color_and_grad(
         lambda x: render_mpi_chunked(x, geom.dhw, *rays, plane_chunk=4), rgba, cot)
     assert _rel(color, color_o) <= TOL

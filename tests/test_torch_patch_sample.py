@@ -1,22 +1,26 @@
 """The tap sampler of the tile-banded warp (``ops/patch_sample.py``, K8), on the CPU.
 
 ``csrc/patch_sample.cu`` cannot run here; its plain version
-``sample_patches_ref`` repeats the kernel's arithmetic and is what the tiled
-warp's taps route runs on CPU tensors, where autograd records nothing through
-the warp.  After ``gather_patches_ref`` it must give the hats route's samples
-(the warp under autograd, :func:`hats`) within 1e-6 of max|samples|: both are
-the same bilinear sum in fp32, the hats with two nonzeros per row, summed in
-another order.  Bands too small for the grid drop the same taps on both
-routes (exactly zero where no tap is left), and ``check=True`` still poisons
-such a render.  The kernel itself is held against this plain version at the
-serving shapes by the ``gpu`` tests of ``tests/test_torch_cuda.py``; the JAX
-package's tiled warp holds the taps in ``tests/test_torch_tiled_warp.py``.
+``sample_patches_ref`` repeats the kernel's arithmetic.  After
+``gather_patches_ref`` (``texture_sample.patch_taps``, the way the tiled
+warp's taps route computed its samples before K10) it must give the hats
+route's samples (the warp under autograd, :func:`hats`) within 1e-6 of
+max|samples|: both are the same bilinear sum in fp32, the hats with two
+nonzeros per row, summed in another order.  The taps route itself, which now
+reads the texture through K10 (``tests/test_torch_texture_sample.py`` holds
+K10 bitwise against K7 + K8), is held the same way: bands too small for the
+grid drop the same taps on both routes (exactly zero where no tap is left),
+and ``check=True`` still poisons such a render.  The kernel itself is held
+against this plain version at the serving shapes by the ``gpu`` tests of
+``tests/test_torch_cuda.py``; the JAX package's tiled warp holds the taps in
+``tests/test_torch_tiled_warp.py``.
 """
 
 import pytest
 import torch
 
 from gmpi_tpu_torch.ops import patch_sample as ps
+from gmpi_tpu_torch.ops import texture_sample as ts
 from gmpi_tpu_torch.ops import tiled_warp as tw
 from gmpi_tpu_torch.ops.patch_gather import gather_patches_ref
 
@@ -75,10 +79,13 @@ def test_taps_from_plain_patches_equal_the_hat_contractions(monkeypatch, tile, o
     by, bx = tw.required_bands(tex.shape, grid, tile=tile)
     calls = _count_ref(monkeypatch)
     kw = dict(tile=tile, row_scan=row_scan, rows_per_step=2)
-    taps = tw.grid_sample_tiled(tex, grid, by, bx, **kw)
-    nty, g = out_hw[0] // tile[0], 2
+    fx_t, fy_t, nty, _ = tw._tile_coords(tex.shape, grid, True, tile)
+    fx, fy = (f.transpose(2, 3).reshape(3, *out_hw) for f in (fx_t, fy_t))
+    origins = ts.band_origins(fx, fy, (by, bx), tile, *tex_hw)
+    g = 2
     while nty % g:
         g -= 1
+    taps = ts.patch_taps(tex, origins, fx, fy, (by, bx), tile, g if row_scan else nty)
     steps = nty // g if row_scan else 1
     assert len(calls) == steps and ps.LAUNCHES["patch_sample"] == 0
     hats_out = hats(tex, grid, by, bx, **kw)
@@ -182,10 +189,12 @@ def test_bands_too_small_give_the_hats_result_and_check_poisons(short):
                          ids=["one group", "three groups", "one row a step"])
 def test_tap_route_steps_hold_patches_and_padded_copies_under_step_bytes(monkeypatch, budget,
                                                                           groups):
-    """On the taps route a step's budget counts each texture's padded
-    copy and its tile rows' patches (no hats): ``budget`` textures' worth a
-    step gives equal groups of at most that many (0: one byte, so one
-    texture and one tile row a step), each bitwise the ungrouped warp."""
+    """The taps route reads the texture in one step whatever the budget
+    (K10: no padded copy, no patch, so nothing to bound), and is bitwise the
+    steps the budget gave before K10: ``budget`` textures' worth of padded
+    copies and patches a step, equal groups of at most that many textures
+    (0: one byte, so one texture and one tile row a step) through K7's and
+    K8's plain versions."""
     tex, grid = _scene(6, 4, (40, 56), (32, 64), seed=13)
     by, bx = tw.required_bands(tex.shape, grid, tile=(8, 64))
     whole = tw.grid_sample_tiled(tex, grid, by, bx, tile=(8, 64))
@@ -195,8 +204,17 @@ def test_tap_route_steps_hold_patches_and_padded_copies_under_step_bytes(monkeyp
                         lambda tx, *a: seen.append((len(tx), a[4])) or warp(tx, *a))
     out = tw.grid_sample_tiled(tex, grid, by, bx, tile=(8, 64),
                                step_bytes=max(1, budget * per_texture))
-    assert seen == groups
+    assert seen == []  # no padded copy and no patch on the taps
     assert torch.equal(out, whole)
+    fx_t, fy_t, _, _ = tw._tile_coords(tex.shape, grid, True, (8, 64))
+    fx, fy = (f.transpose(2, 3).reshape(6, 32, 64) for f in (fx_t, fy_t))
+    origins = ts.band_origins(fx, fy, (by, bx), (8, 64), 40, 56)
+    stepped, i = [], 0
+    for n_tex, rows in groups:
+        stepped.append(ts.patch_taps(tex[i:i + n_tex], origins[i:i + n_tex].contiguous(),
+                                     fx[i:i + n_tex], fy[i:i + n_tex], (by, bx), (8, 64), rows))
+        i += n_tex
+    assert torch.equal(torch.cat(stepped), whole)
 
 
 def test_a_nan_coordinate_samples_nan_as_through_the_hats():

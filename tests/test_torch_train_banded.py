@@ -67,12 +67,12 @@ def test_banded_step_matches_jax():
 @pytest.mark.parametrize("plane_chunk", [0, 1], ids=["whole", "slabs"])
 def test_step_tiled_warp_taps_match_the_hats(plane_chunk, monkeypatch):
     """The step's banded render (whole, and in plane slabs), whose warp takes
-    the taps (the kernels' plain versions here, on textures that record no
-    gradient) with the tiled adjoint as its backward, against the same step
+    the taps (K10's plain version here, called where autograd records
+    nothing) with the tiled adjoint as its backward, against the same step
     at the same bands without the adjoint fields, whose warp under autograd
     takes the advanced index and the hats and whose backward is autograd's:
-    images and ``rgba`` gradients within 1e-6 of max (the same patches and
-    the same bilinear sum in another order)."""
+    images and ``rgba`` gradients within 1e-6 of max (the same bands and the
+    same bilinear sum in another order)."""
     from gmpi_tpu_torch.train import make_train_step
 
     cfg = _banded_config(renderer_plane_chunk=plane_chunk)
@@ -81,13 +81,13 @@ def test_step_tiled_warp_taps_match_the_hats(plane_chunk, monkeypatch):
     mpi = torch.rand((2, 2, 4, 128, 128), generator=rng)
     cot = torch.randn((2, 3, 128, 128), generator=rng)
     yaws, pitches = torch.tensor([[0.5], [-0.3]]), torch.tensor([[0.2], [-0.1]])
-    gathered, gather = [], tw.gather_patches
+    gathered, sample = [], tw.texture_sample
 
-    def recorded(texf, *a, **kw):
-        gathered.append(texf.requires_grad)
-        return gather(texf, *a, **kw)
+    def recorded(tex, *a, **kw):
+        gathered.append(tex.requires_grad and torch.is_grad_enabled())
+        return sample(tex, *a, **kw)
 
-    monkeypatch.setattr(tw, "gather_patches", recorded)
+    monkeypatch.setattr(tw, "texture_sample", recorded)
     out = {}
     for route, bands in (("taps", step.tiled_bands), ("hats", step.tiled_bands[:2])):
         step.tiled_bands = bands
